@@ -1,0 +1,453 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch / CUDA port (liodom_tpu_torch) on one NVIDIA card.
+
+Run from the root of the repository:
+
+    python3 chip_smoke.py    # build, check, drive, time, profile
+
+Phases, each printing one JSON line:
+
+1. device — the card's name and power limit, then the build of every kernel
+   of the main path from ``liodom_tpu_torch/csrc`` (one nvcc per source, in
+   parallel).
+2. main_path — 36 frames of ``image_step`` on the card at the bench
+   configuration (64 rings x 4096 columns, 5-frame window) over the
+   noise-free BoxWorld drive of ``apps/run_synthetic.py`` (1.2 m/frame,
+   0.01 rad/frame), with every launch counter set to 0 just before and read
+   just after: K1 and K2 must launch once a frame and K3 twice.  Every pose
+   must be finite, every frame must yield > 100 edges, the ATE over the
+   first 20 frames must stay below 0.1 m (past frame 20 the algorithm
+   drifts, the JAX engine alike: tests/drift_vs_jax.py), and no step may
+   synchronise with the host (torch's sync debug mode).
+3. cpu_parity — the first 6 frames again through the port's CPU path (the
+   kernels' plain versions): poses within 1 cm and 1e-3 rad of the card's.
+4. timing — the bench drive of ``bench.py`` (the same course with 1 cm
+   sensor noise): steady-state ms/frame and scans/s by CUDA events after 6
+   warm-up frames.
+5. kernels — each kernel against its plain PyTorch version on the card, on
+   the bench drive's last frame, window and pose: K1 bit-exact, K2
+   bit-exact edges for the same smoothness plane, K3 d2 within 1e-5
+   relative where d2 < 1 and identical coordinates where the 5th-NN gate
+   passes; then each kernel's time beside its plain version's and its
+   bound.
+6. profile — torch.profiler over 5 frames of the bench drive: device busy
+   time and share, device kernels a frame, the largest kernels by time.
+
+Then a ``{"kernels": [...]}`` line, the nvidia-smi line and, as the last
+line, ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
+before that last line; no exception is caught.  Exits non-zero at once when
+no CUDA device is available.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import liodom_tpu_torch
+from liodom_tpu_torch import kernels
+from liodom_tpu_torch.core import pose as se3
+from liodom_tpu_torch.core.config import LiodomConfig
+from liodom_tpu_torch.core.frame import RawScan, RingImage
+from liodom_tpu_torch.core.synth import BoxWorld, drive_trajectory, yaw_matrix
+from liodom_tpu_torch.odometry import local_map
+from liodom_tpu_torch.odometry import pipeline as P
+from liodom_tpu_torch.ops import features as F
+from liodom_tpu_torch.ops import knn_pallas as KNN
+from liodom_tpu_torch.ops import select_pallas as SEL
+from liodom_tpu_torch.ops import smoothness_pallas as SM
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
+
+N_FRAMES = 36
+N_CPU_FRAMES = 6
+N_WARM = 6
+N_ATE = 20
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warm: int = 3) -> float:
+    """Mean device time of ``fn()`` in ms over ``reps`` runs, by CUDA events
+    around the whole batch after ``warm`` unmeasured runs.
+
+    The batch is queued behind a device-side sleep longer than one batch
+    takes the host to enqueue, so the events time the device's work and not
+    the host's launch rate (a few-microsecond kernel is enqueued slower than
+    it runs)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - h0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    # 2x the batch's host time at 2 GHz (the H100's SM clock is at most
+    # 1.98 GHz, so the sleep lasts at least that long)
+    torch.cuda._sleep(int(2.0 * host_s * 2e9))
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound(bytes_moved: float, ops: float):
+    """(bound_ms, bound_by): the larger of the HBM time and the FP32 time."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_counters() -> None:
+    SM.smoothness_cuda.launches = 0
+    SEL.select_edges_cuda.launches = 0
+    KNN.knn_launch.launches = 0
+
+
+def read_counters() -> dict:
+    return {"smoothness": SM.smoothness_cuda.launches,
+            "select_edges": SEL.select_edges_cuda.launches,
+            "knn_coords": KNN.knn_launch.launches}
+
+
+def quat_angle(qa: np.ndarray, qb: np.ndarray) -> float:
+    d = abs(float(np.dot(qa.astype(np.float64), qb.astype(np.float64))))
+    return 2.0 * math.acos(min(1.0, d))
+
+
+def render_images(cfg: LiodomConfig, dev: torch.device, noise: float):
+    """Ring images of the bench drive (BoxWorld seed 0, 1.2 m/frame, 0.01
+    rad/frame yaw, 1800-column HDL-64 spin), split on the card by the port's
+    loader stage; no point may be dropped by the ring width."""
+    world = BoxWorld(seed=0)
+    pos, yaws = drive_trajectory(N_FRAMES, speed=1.2, yaw_rate=0.01)
+    imgs = []
+    for i in range(N_FRAMES):
+        scan = world.render(pos[i], yaw_matrix(yaws[i]), width=1800,
+                            noise=noise, seed=i)
+        raw = RawScan.from_points(torch.from_numpy(scan), cfg.max_points,
+                                  device=dev)
+        dropped = int(F.split_overflow(raw, cfg))
+        if dropped:
+            raise SystemExit(f"frame {i}: ring width {cfg.ring_width} "
+                             f"dropped {dropped} points")
+        imgs.append(F.split_scan(raw, cfg))
+    return imgs, pos
+
+
+def run_course(state, imgs, cfg):
+    """Drive ``image_step`` over the images; returns the state after each
+    frame (the step leaves its input state untouched), the poses and the
+    per-frame edge counts, all still on the device."""
+    states, poses, n_edges = [], [], []
+    for img in imgs:
+        state, pose, ne = P.image_step(state, img.xyz, img.count, cfg)
+        states.append(state)
+        poses.append(pose)
+        n_edges.append(ne)
+    return states, poses, n_edges
+
+
+def main() -> int:
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    here = Path(__file__).resolve().parent
+    if Path(liodom_tpu_torch.__file__).resolve().parent.parent != here:
+        print("chip_smoke: liodom_tpu_torch is not this checkout's",
+              file=sys.stderr)
+        return 2
+    failures = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+
+    # ---- 1. device + build ------------------------------------------------
+    t0 = time.perf_counter()
+    logs = kernels.build_all()
+    build_s = time.perf_counter() - t0
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "bytes stack" in ln]
+             for name, log in logs.items()}
+    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": build_s, "ptxas": ptxas})
+
+    # ---- 2. main path: the accuracy drive -------------------------------
+    cfg = LiodomConfig(local_map_size=5)
+    t0 = time.perf_counter()
+    imgs, gt_pos = render_images(cfg, dev, noise=0.0)
+    render_s = time.perf_counter() - t0
+
+    state = P.init_state(cfg)
+    torch.cuda.synchronize()
+    reset_counters()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        states, poses, n_edges = run_course(state, imgs, cfg)
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = read_counters()
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    q = torch.stack([p.q for p in poses]).cpu().numpy()
+    t = torch.stack([p.t for p in poses]).cpu().numpy()
+    ne = torch.stack(n_edges).cpu().numpy()
+    err = np.linalg.norm(t - gt_pos, axis=1)
+    ate_gate = float(np.sqrt(np.mean(err[:N_ATE] ** 2)))
+    ate_all = float(np.sqrt(np.mean(err ** 2)))
+    want = {"smoothness": N_FRAMES, "select_edges": N_FRAMES,
+            "knn_coords": 2 * N_FRAMES}
+    check(counts == want, f"launch counts {counts} != {want}")
+    check(bool(np.isfinite(q).all() and np.isfinite(t).all()),
+          "non-finite pose")
+    check(int(ne.min()) > 100, f"a frame had only {int(ne.min())} edges")
+    check(ate_gate < 0.1, f"ATE over {N_ATE} frames {ate_gate:.4f} m >= 0.1")
+    check(not syncs, f"{len(syncs)} host synchronisations in the main path: "
+          f"{syncs[:1]}")
+    emit({"phase": "main_path", "frames": N_FRAMES, "noise_m": 0.0,
+          "render_s": render_s, "launches": counts,
+          f"ate_m_first_{N_ATE}": ate_gate, "ate_m_all": ate_all,
+          "err_m_per_frame": err.tolist(),
+          "n_edges_min": int(ne.min()), "n_edges_max": int(ne.max()),
+          "final_t": t[-1].tolist(), "gt_final_t": gt_pos[-1].tolist(),
+          "host_syncs": len(syncs)})
+
+    # ---- 3. the port's CPU path on the first frames -----------------------
+    t0 = time.perf_counter()
+    cstate = P.init_state(cfg, device="cpu")
+    cpu_imgs = [RingImage(im.xyz.cpu(), im.count.cpu())
+                for im in imgs[:N_CPU_FRAMES]]
+    _, cposes, cedges = run_course(cstate, cpu_imgs, cfg)
+    dt = [float(np.linalg.norm(cp.t.numpy() - t[i]))
+          for i, cp in enumerate(cposes)]
+    dr = [quat_angle(cp.q.numpy(), q[i]) for i, cp in enumerate(cposes)]
+    same_edges = [int(c) for c in cedges] == [int(x) for x in
+                                              ne[:N_CPU_FRAMES]]
+    check(max(dt) < 0.01, f"card vs CPU path: {max(dt):.2e} m")
+    check(max(dr) < 1e-3, f"card vs CPU path: {max(dr):.2e} rad")
+    check(same_edges, "card and CPU path picked different edge counts")
+    emit({"phase": "cpu_parity", "frames": N_CPU_FRAMES,
+          "max_dt_m": max(dt), "max_drot_rad": max(dr),
+          "same_n_edges": same_edges, "seconds": time.perf_counter() - t0})
+
+    # ---- 4. the bench drive: steady-state time a frame --------------------
+    bimgs, _ = render_images(cfg, dev, noise=0.01)
+    bstates, wposes, _ = run_course(P.init_state(cfg), bimgs[:N_WARM], cfg)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    start.record()
+    bstates, bposes, bedges = run_course(bstates[-1], bimgs[N_WARM:], cfg)
+    stop.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - h0
+    n_timed = N_FRAMES - N_WARM
+    ms_frame = start.elapsed_time(stop) / n_timed
+    bne = torch.stack(bedges).cpu().numpy()
+    bt = torch.stack([p.t for p in wposes + bposes]).cpu().numpy()
+    berr = np.linalg.norm(bt - gt_pos, axis=1)
+    emit({"phase": "timing", "nvidia_smi": smi, "noise_m": 0.01,
+          f"ate_m_first_{N_ATE}": float(np.sqrt(np.mean(berr[:N_ATE] ** 2))),
+          "ate_m_all": float(np.sqrt(np.mean(berr ** 2))),
+          "err_m_per_frame": berr.tolist(),
+          "frames_timed": n_timed, "ms_per_frame": ms_frame,
+          "scans_per_s": 1e3 / ms_frame,
+          "host_ms_per_frame": host_s / n_timed * 1e3,
+          "realtime_factor_vs_10hz": (1e3 / ms_frame) / 10.0,
+          "n_edges_min": int(bne.min()), "n_edges_max": int(bne.max())})
+
+    # ---- 5. each kernel against its plain version, bench shapes -----------
+    img = bimgs[N_FRAMES - 1]
+    sm_k = SM.smoothness_cuda(img.xyz, img.count)
+    sm_p = SM.smoothness_plain(img.xyz, img.count)
+    k1_err = float((sm_k - sm_p).abs().max())
+    check(torch.equal(sm_k, sm_p), f"K1 not bit-exact (max err {k1_err})")
+
+    ec_k = SEL.select_edges_cuda(img, sm_k, cfg)
+    ec_p = SEL.select_edges_plain(img, sm_k, cfg)
+    k2_same = (torch.equal(ec_k.valid, ec_p.valid)
+               and torch.equal(ec_k.xyz, ec_p.xyz))
+    k2_err = float((ec_k.xyz - ec_p.xyz).abs().max()) + float(
+        (ec_k.valid != ec_p.valid).sum())
+    check(k2_same, "K2 edges not bit-exact")
+
+    # K3 on the matching map the last frame met (the window of the 5
+    # frames before it) and on the last frame's edges at its pose
+    map_xyz, map_valid = local_map.flatten(bstates[-2].window)
+    map_xyz, map_valid = KNN.spatial_sort_points(map_xyz, map_valid)
+    eorder = torch.argsort((~ec_k.valid).to(torch.uint8), stable=True)
+    qvalid = ec_k.valid[eorder]
+    query = se3.transform(bposes[-1], torch.where(
+        qvalid[:, None], ec_k.xyz[eorder], torch.zeros_like(ec_k.xyz)))
+    radius = cfg.knn_max_sq_dist ** 0.5
+    prep = KNN.knn_prepare(query, qvalid, map_xyz, map_valid, radius,
+                           ref_presorted=True)
+    d_k, c_k = KNN.knn_launch(*prep)
+    d_p, c_p = KNN.knn_coords_plain(query, qvalid, map_xyz, map_valid)
+    near = d_p < cfg.knn_max_sq_dist
+    rel = ((d_k - d_p).abs() / torch.clamp(d_p.abs(), min=1e-12))[near]
+    k3_rel = float(rel.max()) if rel.numel() else 0.0
+    k3_abs = float((d_k - d_p).abs()[near].max()) if rel.numel() else 0.0
+    gate = qvalid & (d_p[:, -1] < cfg.knn_max_sq_dist)
+    k3_coords_same = torch.equal(c_k[gate], c_p[gate])
+    check(k3_rel <= 1e-5, f"K3 d2 rel err {k3_rel:.2e} > 1e-5")
+    check(k3_coords_same, "K3 coordinates differ where the gate passes")
+    flags = prep[2]
+    n_e, n_m = flags.shape
+    flagged = int(flags.sum())
+    emit({"phase": "kernels",
+          "smoothness": {"bit_exact": torch.equal(sm_k, sm_p),
+                         "max_abs_err": k1_err},
+          "select_edges": {"bit_exact": k2_same,
+                           "n_edges": int(ec_k.valid.sum())},
+          "knn_coords": {"queries": int(qvalid.sum()),
+                         "refs": int(map_valid.sum()),
+                         "E": query.shape[0], "M": map_xyz.shape[0],
+                         "pairs_within_1m": int(near.sum()),
+                         "gated_rows": int(gate.sum()),
+                         "max_rel_err": k3_rel, "max_abs_err": k3_abs,
+                         "coords_equal": k3_coords_same,
+                         "tile_pairs": n_e * n_m, "flagged_pairs": flagged,
+                         "pruned_fraction": 1.0 - flagged / (n_e * n_m)}})
+
+    r, w = img.xyz.shape[:2]
+    k1_ms = cuda_ms(lambda: SM.smoothness_cuda(img.xyz, img.count), 100)
+    k1_plain = cuda_ms(lambda: SM.smoothness_plain(img.xyz, img.count), 20)
+    interior = int(torch.clamp(img.count - 10, min=0).sum())
+    k1_bound = bound(img.xyz.numel() * 4 + r * 4 + r * w * 4,
+                     interior * (3 * 12 + 5))
+
+    k2_ms = cuda_ms(lambda: SEL.select_edges_cuda(img, sm_k, cfg), 50)
+    k2_plain = cuda_ms(lambda: SEL.select_edges_plain(img, sm_k, cfg), 3, 1)
+    slots = cfg.scan_regions * cfg.max_edges_per_region
+    # scanned columns: per ring and region, (picks made + the failing one,
+    # at most max_picks) passes over the region
+    bval = ec_k.valid.reshape(r, cfg.scan_regions, cfg.max_edges_per_region)
+    passes = torch.clamp(bval.sum(-1) + 1, max=cfg.max_edges_per_region)
+    region_len = (torch.clamp(img.count - 10, min=0) // cfg.scan_regions)
+    scanned = int((passes * region_len[:, None]).sum())
+    # reads the smoothness plane, the counts and the image (gap flags),
+    # writes the slots; 8 operations a column for the gaps, 2 compares a
+    # scanned column
+    k2_bound = bound(r * w * 4 + r * 4 + img.xyz.numel() * 4
+                     + r * slots * (4 + 4 + 12), 8 * r * w + 2 * scanned)
+
+    k3_ms = cuda_ms(lambda: KNN.knn_launch(*prep), 50)
+    k3_wrapper_ms = cuda_ms(lambda: KNN.knn_coords_cuda(
+        query, qvalid, map_xyz, map_valid, max_radius=radius,
+        ref_presorted=True), 50)
+    k3_plain = cuda_ms(lambda: KNN.knn_coords_plain(
+        query, qvalid, map_xyz, map_valid), 3, 1)
+    q4, r4 = prep[0], prep[1]
+    e_q = query.shape[0]
+    k3_bound = bound(q4.numel() * 4 + r4.numel() * 4 + flags.numel() * 4
+                     + e_q * 4 + e_q * KNN.K * 4 * 4,
+                     flagged * KNN.TILE_E * KNN.TILE_M * 8)
+
+    rows = [
+        {"name": "smoothness", "route": "cuda",
+         "source": "liodom_tpu_torch/csrc/smoothness.cu",
+         "replaces": "liodom_tpu/ops/smoothness_pallas.py:22",
+         "launches": counts["smoothness"], "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
+        {"name": "select_edges", "route": "cuda",
+         "source": "liodom_tpu_torch/csrc/select.cu",
+         "replaces": "liodom_tpu/ops/select_pallas.py:70",
+         "launches": counts["select_edges"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "knn_coords", "route": "cuda",
+         "source": "liodom_tpu_torch/csrc/knn_coords.cu",
+         "replaces": "liodom_tpu/ops/knn_pallas.py:259",
+         "launches": counts["knn_coords"], "max_abs_err": k3_abs,
+         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound[0],
+         "bound_by": k3_bound[1], "library_ms": None,
+         "wrapper_ms": k3_wrapper_ms,
+         "unpruned_bound_ms": e_q * map_xyz.shape[0] * 8
+         / FP32_OPS_PER_S * 1e3},
+    ]
+
+    # ---- 6. where a frame's device time goes ------------------------------
+    # the bench drive's last frames again, from the state they met
+    n_prof = 5
+    pstate = bstates[N_FRAMES - n_prof - 1 - N_WARM]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        for im in bimgs[N_FRAMES - n_prof:]:
+            pstate, _, _ = P.image_step(pstate, im.xyz, im.count, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - h0) * 1e3
+    # device kernels only (one stream, so their sum is the busy time)
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        tot, cnt = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (tot + us, cnt + 1)
+    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    emit({"phase": "profile", "frames": n_prof, "nvidia_smi": smi,
+          "wall_ms_per_frame": wall_ms / n_prof,
+          "device_busy_ms_per_frame": busy_ms / n_prof,
+          "device_busy_share": busy_ms / wall_ms,
+          "kernel_launches_per_frame":
+              sum(c for _, c in by_name.values()) / n_prof,
+          "top_kernels_us_per_frame": [
+              [name[:70], cnt / n_prof, tot / n_prof]
+              for name, (tot, cnt) in top]})
+
+    if failures:
+        emit({"phase": "failed", "failures": failures})
+        return 1
+    emit({"kernels": rows})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
