@@ -21,17 +21,36 @@ Phases, each printing one JSON line:
    synchronise with the host (torch's sync debug mode).
 3. cpu_parity — the first 6 frames again through the port's CPU path (the
    kernels' plain versions): poses within 1 cm and 1e-3 rad of the card's.
-4. timing — the bench drive of ``bench.py`` (the same course with 1 cm
+4. combined_path — 36 frames of ``combined_image_step`` (odometry + the
+   hash-grid map + local-map extraction, ``bench.py``'s map configuration:
+   524,288 slots, a 16,384-row local map) on the same drive, the local map
+   refreshed every frame, counters set to 0 just before and read just
+   after: K1, K2, K7 and the probe kernel once a frame, K3 twice.  Every
+   pose finite, ATE over the first 20 frames below 0.1 m, no point dropped
+   by the map (overflow 0), no local map truncated (hits <= 16,384 at every
+   pose, checked after the loop) and no host synchronisation.
+5. combined_cpu_parity — its first 6 frames through the CPU path: poses
+   within 1 cm and 1e-3 rad, equal edge counts, occupied map slots within
+   0.1 % (the float pose transform may round a point that lies exactly on
+   a leaf boundary of the noise-free world into a different leaf on each
+   device).
+6. timing — the bench drive of ``bench.py`` (the same course with 1 cm
    sensor noise): steady-state ms/frame and scans/s by CUDA events after 6
-   warm-up frames.
-5. kernels — each kernel against its plain PyTorch version on the card, on
-   the bench drive's last frame, window and pose: K1 bit-exact, K2
+   warm-up frames, for ``image_step`` and for ``combined_image_step`` at
+   the bench's two cadences (every frame, and every 4th frame), each drive
+   twice in turns; every run at most 125 ms (0.8 x the 10 Hz sensor rate).
+7. kernels — each kernel against its plain PyTorch version on the card, on
+   the bench drive's last frame, window, map and pose: K1 bit-exact, K2
    bit-exact edges for the same smoothness plane, K3 d2 within 1e-5
    relative where d2 < 1 and identical coordinates where the 5th-NN gate
-   passes; then each kernel's time beside its plain version's and its
+   passes, K7 bit-exact rows, validity and hit count (at the bench capacity
+   and at one that truncates), the probe kernel bit-exact table, slots and
+   flags; then each kernel's time beside its plain version's and its
    bound.
-6. profile — torch.profiler over 5 frames of the bench drive: device busy
-   time and share, device kernels a frame, the largest kernels by time.
+8. profile — torch.profiler over 5 frames of the bench drive, for
+   ``image_step`` and for ``combined_image_step``: device busy time and
+   share, device kernels a frame, the largest kernels by time, and the
+   host's operators by their own time.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line and, as the last
 line, ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -58,13 +77,17 @@ from torch.profiler import ProfilerActivity, profile
 import liodom_tpu_torch
 from liodom_tpu_torch import kernels
 from liodom_tpu_torch.core import pose as se3
-from liodom_tpu_torch.core.config import LiodomConfig
+from liodom_tpu_torch.core.config import LiodomConfig, MapConfig
 from liodom_tpu_torch.core.frame import RawScan, RingImage
 from liodom_tpu_torch.core.synth import BoxWorld, drive_trajectory, yaw_matrix
+from liodom_tpu_torch.mapping import grid as G
+from liodom_tpu_torch.mapping import service as S
 from liodom_tpu_torch.odometry import local_map
 from liodom_tpu_torch.odometry import pipeline as P
+from liodom_tpu_torch.ops import compact_pallas as K7
 from liodom_tpu_torch.ops import features as F
 from liodom_tpu_torch.ops import knn_pallas as KNN
+from liodom_tpu_torch.ops import probe_insert as PI
 from liodom_tpu_torch.ops import select_pallas as SEL
 from liodom_tpu_torch.ops import smoothness_pallas as SM
 
@@ -75,6 +98,9 @@ N_FRAMES = 36
 N_CPU_FRAMES = 6
 N_WARM = 6
 N_ATE = 20
+FRAME_BUDGET_MS = 125.0     # 0.8 x the 10 Hz sensor rate
+# bench.py's combined configuration (bench.py:91)
+MCFG = MapConfig(map_capacity=524288, local_map_capacity=16384)
 
 
 def emit(obj) -> None:
@@ -129,12 +155,16 @@ def reset_counters() -> None:
     SM.smoothness_cuda.launches = 0
     SEL.select_edges_cuda.launches = 0
     KNN.knn_launch.launches = 0
+    K7.compact_hits_cuda.launches = 0
+    PI.probe_insert_cuda.launches = 0
 
 
 def read_counters() -> dict:
     return {"smoothness": SM.smoothness_cuda.launches,
             "select_edges": SEL.select_edges_cuda.launches,
-            "knn_coords": KNN.knn_launch.launches}
+            "knn_coords": KNN.knn_launch.launches,
+            "local_map_compact": K7.compact_hits_cuda.launches,
+            "probe_insert": PI.probe_insert_cuda.launches}
 
 
 def quat_angle(qa: np.ndarray, qb: np.ndarray) -> float:
@@ -162,17 +192,98 @@ def render_images(cfg: LiodomConfig, dev: torch.device, noise: float):
     return imgs, pos
 
 
-def run_course(state, imgs, cfg):
+def run_course(state, imgs, cfg, keep: bool = True):
     """Drive ``image_step`` over the images; returns the state after each
-    frame (the step leaves its input state untouched), the poses and the
-    per-frame edge counts, all still on the device."""
+    frame (the step leaves its input state untouched; with ``keep=False``
+    the last state only), the poses and the per-frame edge counts, all
+    still on the device."""
     states, poses, n_edges = [], [], []
     for img in imgs:
         state, pose, ne = P.image_step(state, img.xyz, img.count, cfg)
-        states.append(state)
+        states = (states if keep else []) + [state]
         poses.append(pose)
         n_edges.append(ne)
     return states, poses, n_edges
+
+
+def run_combined(odom, m, imgs, cfg, every_frame: bool = True,
+                 first: int = 0, keep: bool = True):
+    """Drive ``combined_image_step`` over the images (frames ``first``,
+    ``first + 1``, ...) at the bench's map configuration.  ``every_frame``:
+    refresh the local map each frame (``step=0``), else every 4th frame
+    (``step=i``), the two cadences of ``bench.py``'s combined rows.
+    Returns the (odometry, map) state after each frame (``keep=False``: the
+    last one only), the poses and the edge counts, all on the device."""
+    states, poses, n_edges = [], [], []
+    for i, img in enumerate(imgs, start=first):
+        odom, m, pose, ne = S.combined_image_step(
+            odom, m, img.xyz, img.count, cfg, MCFG,
+            step=0 if every_frame else i, local_map_every=4)
+        states = (states if keep else []) + [(odom, m)]
+        poses.append(pose)
+        n_edges.append(ne)
+    return states, poses, n_edges
+
+
+def timed_drive(drive, init, imgs):
+    """Steady-state time a frame of ``drive(state, images, first frame)``:
+    N_WARM frames unmeasured, then the rest between two CUDA events and on
+    the host clock.  The drive keeps only its last state, as a user's loop
+    does (a map state is 17 MB at the bench capacity).  Returns (ms/frame,
+    host ms/frame, poses and edge counts of all frames)."""
+    wstates, wposes, wedges = drive(init, imgs[:N_WARM], 0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    start.record()
+    states, poses, edges = drive(wstates[-1], imgs[N_WARM:], N_WARM)
+    stop.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - h0
+    n_timed = len(imgs) - N_WARM
+    return (start.elapsed_time(stop) / n_timed, host_s / n_timed * 1e3,
+            wposes + poses, wedges + edges)
+
+
+def profile_frames(step, state, imgs, smi) -> dict:
+    """torch.profiler over ``state = step(state, img)`` for the images:
+    device busy time and share, kernels a frame, the largest kernels."""
+    n = len(imgs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        for im in imgs:
+            state = step(state, im)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - h0) * 1e3
+    # device kernels (one stream, so their sum is the busy time), and the
+    # host's operators by their own time
+    by_name, host = {}, {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            us, acc = ev.time_range.elapsed_us(), by_name
+        else:
+            us, acc = ev.self_cpu_time_total, host
+        tot, cnt = acc.get(ev.name, (0.0, 0))
+        acc[ev.name] = (tot + us, cnt + 1)
+    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:15]
+    return {"frames": n, "nvidia_smi": smi,
+            "host_ops_per_frame": sum(c for _, c in host.values()) / n,
+            "top_host_ops_self_us_per_frame": [
+                [name[:50], cnt / n, tot / n]
+                for name, (tot, cnt) in top_host],
+            "wall_ms_per_frame": wall_ms / n,
+            "device_busy_ms_per_frame": busy_ms / n,
+            "device_busy_share": busy_ms / wall_ms,
+            "kernel_launches_per_frame":
+                sum(c for _, c in by_name.values()) / n,
+            "top_kernels_us_per_frame": [
+                [name[:70], cnt / n, tot / n]
+                for name, (tot, cnt) in top]}
 
 
 def main() -> int:
@@ -234,7 +345,8 @@ def main() -> int:
     ate_gate = float(np.sqrt(np.mean(err[:N_ATE] ** 2)))
     ate_all = float(np.sqrt(np.mean(err ** 2)))
     want = {"smoothness": N_FRAMES, "select_edges": N_FRAMES,
-            "knn_coords": 2 * N_FRAMES}
+            "knn_coords": 2 * N_FRAMES, "local_map_compact": 0,
+            "probe_insert": 0}
     check(counts == want, f"launch counts {counts} != {want}")
     check(bool(np.isfinite(q).all() and np.isfinite(t).all()),
           "non-finite pose")
@@ -268,34 +380,138 @@ def main() -> int:
           "max_dt_m": max(dt), "max_drot_rad": max(dr),
           "same_n_edges": same_edges, "seconds": time.perf_counter() - t0})
 
-    # ---- 4. the bench drive: steady-state time a frame --------------------
+    # ---- 4. the combined path: odometry + mapping, accuracy drive ---------
+    ccfg = cfg.replace(mapping=True)
+    codom, cmap = S.init_combined(ccfg, MCFG)
+    torch.cuda.synchronize()
+    reset_counters()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        cstates, cposes_k, cedges_k = run_combined(codom, cmap, imgs, ccfg)
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ccounts = read_counters()
+    csyncs = [str(w.message) for w in caught
+              if "called a synchronizing" in str(w.message)]
+    cq = torch.stack([p.q for p in cposes_k]).cpu().numpy()
+    ct = torch.stack([p.t for p in cposes_k]).cpu().numpy()
+    cne = torch.stack(cedges_k).cpu().numpy()
+    cerr = np.linalg.norm(ct - gt_pos, axis=1)
+    cate_gate = float(np.sqrt(np.mean(cerr[:N_ATE] ** 2)))
+    final_map = cstates[-1][1]
+    overflow = int(final_map.overflow)
+    # the neighbourhood at every pose, in the map that frame left
+    hits = [int(G.get_local_map(m, p.t, MCFG,
+                                capacity=MCFG.local_map_capacity)[2])
+            for (_, m), p in zip(cstates, cposes_k)]
+    want = {"smoothness": N_FRAMES, "select_edges": N_FRAMES,
+            "knn_coords": 2 * N_FRAMES, "local_map_compact": N_FRAMES,
+            "probe_insert": N_FRAMES}
+    check(ccounts == want, f"combined launch counts {ccounts} != {want}")
+    check(bool(np.isfinite(cq).all() and np.isfinite(ct).all()),
+          "combined: non-finite pose")
+    check(cate_gate < 0.1,
+          f"combined ATE over {N_ATE} frames {cate_gate:.4f} m >= 0.1")
+    check(overflow == 0, f"combined: {overflow} points dropped by the map")
+    check(max(hits) <= MCFG.local_map_capacity,
+          f"combined: local map truncated ({max(hits)} hits)")
+    check(not csyncs, f"{len(csyncs)} host synchronisations in the combined "
+          f"path: {csyncs[:1]}")
+    emit({"phase": "combined_path", "frames": N_FRAMES, "noise_m": 0.0,
+          "map_capacity": MCFG.map_capacity,
+          "local_map_capacity": MCFG.local_map_capacity,
+          "launches": ccounts, f"ate_m_first_{N_ATE}": cate_gate,
+          "ate_m_all": float(np.sqrt(np.mean(cerr ** 2))),
+          "err_m_per_frame": cerr.tolist(),
+          "n_edges_min": int(cne.min()), "n_edges_max": int(cne.max()),
+          "overflow": overflow, "occupied_slots": int(final_map.valid.sum()),
+          "cells": G.count_cells(final_map),
+          "n_hits_min": min(hits), "n_hits_max": max(hits),
+          "host_syncs": len(csyncs)})
+
+    # ---- 5. the combined path's CPU route on the first frames -------------
+    t0 = time.perf_counter()
+    c_states, c_poses, c_edges = run_combined(
+        *S.init_combined(ccfg, MCFG, device="cpu"), cpu_imgs, ccfg)
+    cdt = [float(np.linalg.norm(p.t.numpy() - ct[i]))
+           for i, p in enumerate(c_poses)]
+    cdr = [quat_angle(p.q.numpy(), cq[i]) for i, p in enumerate(c_poses)]
+    c_same_edges = [int(c) for c in c_edges] == [int(x) for x in
+                                                 cne[:N_CPU_FRAMES]]
+    slots_card = [int(m.valid.sum()) for _, m in cstates[:N_CPU_FRAMES]]
+    slots_cpu = [int(m.valid.sum()) for _, m in c_states]
+    slot_rel = max(abs(a - b) / b for a, b in zip(slots_card, slots_cpu))
+    check(max(cdt) < 0.01, f"combined card vs CPU path: {max(cdt):.2e} m")
+    check(max(cdr) < 1e-3, f"combined card vs CPU path: {max(cdr):.2e} rad")
+    check(c_same_edges, "combined: card and CPU path picked different edge "
+          "counts")
+    check(slot_rel <= 1e-3, f"combined: occupied slots differ by "
+          f"{slot_rel:.2e} (card {slots_card}, CPU {slots_cpu})")
+    emit({"phase": "combined_cpu_parity", "frames": N_CPU_FRAMES,
+          "max_dt_m": max(cdt), "max_drot_rad": max(cdr),
+          "same_n_edges": c_same_edges, "occupied_slots_card": slots_card,
+          "occupied_slots_cpu": slots_cpu, "max_slot_rel_diff": slot_rel,
+          "seconds": time.perf_counter() - t0})
+    del c_states
+
+    # ---- 6. the bench drive: steady-state time a frame --------------------
     bimgs, _ = render_images(cfg, dev, noise=0.01)
-    bstates, wposes, _ = run_course(P.init_state(cfg), bimgs[:N_WARM], cfg)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    h0 = time.perf_counter()
-    start.record()
-    bstates, bposes, bedges = run_course(bstates[-1], bimgs[N_WARM:], cfg)
-    stop.record()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - h0
-    n_timed = N_FRAMES - N_WARM
-    ms_frame = start.elapsed_time(stop) / n_timed
+    # the three drives twice, in turns (A B C C B A): the host sets the
+    # frame time, and its speed drifts within a call
+    drives = {
+        "image_step": (
+            lambda st, ims, _first: run_course(st, ims, cfg, keep=False),
+            lambda: P.init_state(cfg)),
+        "every_frame": (
+            lambda st, ims, first: run_combined(*st, ims, ccfg, True, first,
+                                                keep=False),
+            lambda: S.init_combined(ccfg, MCFG)),
+        "every_4th": (
+            lambda st, ims, first: run_combined(*st, ims, ccfg, False, first,
+                                                keep=False),
+            lambda: S.init_combined(ccfg, MCFG)),
+    }
+    runs = {name: [] for name in drives}
+    for name in list(drives) + list(drives)[::-1]:
+        drive, init = drives[name]
+        t_ms, t_host, poses, edges = timed_drive(drive, init(), bimgs)
+        runs[name].append([t_ms, t_host])
+        if name == "image_step":
+            bposes, bedges = poses, edges
+    for name, r in runs.items():
+        worst = max(ms for ms, _ in r)
+        check(worst <= FRAME_BUDGET_MS, f"{name}: {worst:.1f} ms/frame > "
+              f"{FRAME_BUDGET_MS}")
+    mean = {name: [float(np.mean([x[k] for x in r])) for k in (0, 1)]
+            for name, r in runs.items()}
+    ms_frame, host_ms = mean["image_step"]
+    combined_timing = {c: {"ms_per_frame": mean[c][0],
+                           "host_ms_per_frame": mean[c][1],
+                           "scans_per_s": 1e3 / mean[c][0]}
+                       for c in ("every_frame", "every_4th")}
     bne = torch.stack(bedges).cpu().numpy()
-    bt = torch.stack([p.t for p in wposes + bposes]).cpu().numpy()
+    bt = torch.stack([p.t for p in bposes]).cpu().numpy()
     berr = np.linalg.norm(bt - gt_pos, axis=1)
+    n_timed = N_FRAMES - N_WARM
     emit({"phase": "timing", "nvidia_smi": smi, "noise_m": 0.01,
           f"ate_m_first_{N_ATE}": float(np.sqrt(np.mean(berr[:N_ATE] ** 2))),
           "ate_m_all": float(np.sqrt(np.mean(berr ** 2))),
           "err_m_per_frame": berr.tolist(),
           "frames_timed": n_timed, "ms_per_frame": ms_frame,
           "scans_per_s": 1e3 / ms_frame,
-          "host_ms_per_frame": host_s / n_timed * 1e3,
+          "host_ms_per_frame": host_ms,
           "realtime_factor_vs_10hz": (1e3 / ms_frame) / 10.0,
-          "n_edges_min": int(bne.min()), "n_edges_max": int(bne.max())})
+          "n_edges_min": int(bne.min()), "n_edges_max": int(bne.max()),
+          "combined": combined_timing,
+          "runs_ms_and_host_ms_in_order_ABCCBA": runs})
+    # the states every frame of the bench drive left, for the kernel checks
+    # and the profile (untimed)
+    bstates, _, _ = run_course(P.init_state(cfg), bimgs, cfg)
+    bc_states, bc_poses, _ = run_combined(*S.init_combined(ccfg, MCFG), bimgs,
+                                          ccfg)
 
-    # ---- 5. each kernel against its plain version, bench shapes -----------
+    # ---- 7. each kernel against its plain version, bench shapes -----------
     img = bimgs[N_FRAMES - 1]
     sm_k = SM.smoothness_cuda(img.xyz, img.count)
     sm_p = SM.smoothness_plain(img.xyz, img.count)
@@ -331,6 +547,41 @@ def main() -> int:
     k3_coords_same = torch.equal(c_k[gate], c_p[gate])
     check(k3_rel <= 1e-5, f"K3 d2 rel err {k3_rel:.2e} > 1e-5")
     check(k3_coords_same, "K3 coordinates differ where the gate passes")
+    # K7 on the bench map after the last frame (every-frame cadence), at
+    # the last pose: at the bench capacity and at one that truncates
+    kmap = bc_states[-1][1]
+    kbase = G.cell_keys(torch.trunc(bc_poses[-1].t), MCFG)
+    koffs = G.local_map_offsets(MCFG)
+    cap = MCFG.local_map_capacity
+    k7 = {}
+    for kcap in (cap, 1024):
+        got = K7.compact_hits_cuda(kmap.xyz, kmap.key, kmap.valid, kbase,
+                                   koffs, kcap)
+        want = K7.compact_hits_plain(kmap.xyz, kmap.key, kmap.valid, kbase,
+                                     koffs, kcap)
+        same = (int(got[2]) == int(want[2]) and torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1]))
+        k7[kcap] = {"capacity": kcap, "n_hits": int(got[2]),
+                    "bit_exact": same,
+                    "max_abs_err": float((got[0] - want[0]).abs().max())}
+        check(same, f"K7 not bit-exact at capacity {kcap}")
+    k7_hits = k7[cap]["n_hits"]
+    check(k7_hits > 1024, f"K7: capacity 1024 did not truncate ({k7_hits})")
+
+    # the probe kernel on the table the last frame met and that frame's
+    # codes at its pose; its table must also be the one the drive produced
+    pmap = bc_states[-2][1]
+    pvalid = ec_k.valid
+    pcode = G._packed_codes(se3.transform(bc_poses[-1], ec_k.xyz), pvalid,
+                            MCFG)
+    got = PI.probe_insert_cuda(pmap.code, pcode, pvalid)
+    want = PI.probe_insert_plain(pmap.code, pcode, pvalid)
+    probe_same = all(torch.equal(x, y) for x, y in zip(got, want))
+    probe_drive = torch.equal(got[0], kmap.code)
+    check(probe_same, "probe kernel: table, slots or flags differ from the "
+          "plain rounds")
+    check(probe_drive, "probe kernel: table differs from the drive's map")
+
     flags = prep[2]
     n_e, n_m = flags.shape
     flagged = int(flags.sum())
@@ -347,7 +598,18 @@ def main() -> int:
                          "max_rel_err": k3_rel, "max_abs_err": k3_abs,
                          "coords_equal": k3_coords_same,
                          "tile_pairs": n_e * n_m, "flagged_pairs": flagged,
-                         "pruned_fraction": 1.0 - flagged / (n_e * n_m)}})
+                         "pruned_fraction": 1.0 - flagged / (n_e * n_m)},
+          "local_map_compact": {"rows": kmap.xyz.shape[0],
+                                "occupied": int(kmap.valid.sum()),
+                                "targets": len(koffs),
+                                "checks": list(k7.values())},
+          "probe_insert": {"bit_exact": probe_same,
+                           "table_equals_drive": probe_drive,
+                           "table_slots": pmap.code.shape[0],
+                           "occupied_before": int(pmap.valid.sum()),
+                           "codes": int(pvalid.sum()),
+                           "claimed": int(got[2].sum()),
+                           "failed": int(got[3].sum())}})
 
     r, w = img.xyz.shape[:2]
     k1_ms = cuda_ms(lambda: SM.smoothness_cuda(img.xyz, img.count), 100)
@@ -383,6 +645,25 @@ def main() -> int:
                      + e_q * 4 + e_q * KNN.K * 4 * 4,
                      flagged * KNN.TILE_E * KNN.TILE_M * 8)
 
+    kargs = (kmap.xyz, kmap.key, kmap.valid, kbase, koffs, cap)
+    k7_ms = cuda_ms(lambda: K7.compact_hits_cuda(*kargs), 100)
+    k7_plain = cuda_ms(lambda: K7.compact_hits_plain(*kargs), 10, 2)
+    c_rows, occupied = kmap.xyz.shape[0], int(kmap.valid.sum())
+    # reads the mask, the keys of the occupied rows (no other row can hit)
+    # and the hit rows it keeps, writes the buffer, its mask and the count;
+    # 3 compares an occupied row and target
+    k7_bound = bound(c_rows + occupied * 12 + min(k7_hits, cap) * 12
+                     + cap * (12 + 1) + 4, occupied * len(koffs) * 3)
+
+    pargs = (pmap.code, pcode, pvalid)
+    probe_ms = cuda_ms(lambda: PI.probe_insert_cuda(*pargs), 100)
+    clone_ms = cuda_ms(lambda: pmap.code.clone(), 100)
+    probe_plain = cuda_ms(lambda: PI.probe_insert_plain(*pargs), 5, 1)
+    n_tab, e_p = pmap.code.shape[0], pcode.shape[0]
+    # the function returns a new table: it reads and writes the table once,
+    # reads the codes and the mask, writes slots and two flags
+    probe_bound = bound(2 * n_tab * 8 + e_p * (8 + 1) + e_p * (4 + 1 + 1), 0)
+
     rows = [
         {"name": "smoothness", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/smoothness.cu",
@@ -405,39 +686,37 @@ def main() -> int:
          "wrapper_ms": k3_wrapper_ms,
          "unpruned_bound_ms": e_q * map_xyz.shape[0] * 8
          / FP32_OPS_PER_S * 1e3},
+        {"name": "local_map_compact", "route": "cuda",
+         "source": "liodom_tpu_torch/csrc/local_map_compact.cu",
+         "replaces": "scripts/compact_pallas_experiment.py:50",
+         "launches": ccounts["local_map_compact"],
+         "max_abs_err": max(v["max_abs_err"] for v in k7.values()),
+         "ms": k7_ms, "plain_ms": k7_plain, "bound_ms": k7_bound[0],
+         "bound_by": k7_bound[1], "library_ms": None, "n_hits": k7_hits},
+        {"name": "probe_insert", "route": "cuda",
+         "source": "liodom_tpu_torch/csrc/probe_insert.cu",
+         "replaces": "none: liodom_tpu/mapping/grid.py:200 is a "
+                     "lax.while_loop, no TPU kernel",
+         "launches": ccounts["probe_insert"],
+         "max_abs_err": 0.0 if probe_same else float("nan"),
+         "ms": probe_ms, "plain_ms": probe_plain,
+         "bound_ms": probe_bound[0], "bound_by": probe_bound[1],
+         "library_ms": None, "table_copy_ms": clone_ms},
     ]
 
-    # ---- 6. where a frame's device time goes ------------------------------
-    # the bench drive's last frames again, from the state they met
+    # ---- 8. where a frame's device time goes ------------------------------
+    # the bench drive's last frames again, from the states they met
     n_prof = 5
-    pstate = bstates[N_FRAMES - n_prof - 1 - N_WARM]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        h0 = time.perf_counter()
-        for im in bimgs[N_FRAMES - n_prof:]:
-            pstate, _, _ = P.image_step(pstate, im.xyz, im.count, cfg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - h0) * 1e3
-    # device kernels only (one stream, so their sum is the busy time)
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = ev.time_range.elapsed_us()
-        tot, cnt = by_name.get(ev.name, (0.0, 0))
-        by_name[ev.name] = (tot + us, cnt + 1)
-    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({"phase": "profile", "frames": n_prof, "nvidia_smi": smi,
-          "wall_ms_per_frame": wall_ms / n_prof,
-          "device_busy_ms_per_frame": busy_ms / n_prof,
-          "device_busy_share": busy_ms / wall_ms,
-          "kernel_launches_per_frame":
-              sum(c for _, c in by_name.values()) / n_prof,
-          "top_kernels_us_per_frame": [
-              [name[:70], cnt / n_prof, tot / n_prof]
-              for name, (tot, cnt) in top]})
+    last = bimgs[N_FRAMES - n_prof:]
+    emit({"phase": "profile",
+          "image_step": profile_frames(
+              lambda st, im: P.image_step(st, im.xyz, im.count, cfg)[0],
+              bstates[N_FRAMES - n_prof - 1], last, smi),
+          "combined_image_step": profile_frames(
+              lambda st, im: S.combined_image_step(
+                  *st, im.xyz, im.count, ccfg, MCFG, step=0,
+                  local_map_every=4)[:2],
+              bc_states[N_FRAMES - n_prof - 1], last, smi)})
 
     if failures:
         emit({"phase": "failed", "failures": failures})

@@ -23,7 +23,8 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("smoothness", "select", "knn_coords")
+SOURCES = ("smoothness", "select", "knn_coords", "local_map_compact",
+           "probe_insert")
 
 # -fmad=false: the kernels round every product and sum as the plain PyTorch
 # versions do (no fused multiply-add), which keeps them bit-exact with those.

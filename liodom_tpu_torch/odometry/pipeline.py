@@ -22,6 +22,7 @@ import torch
 
 from liodom_tpu_torch.core import pose as se3
 from liodom_tpu_torch.core.config import LiodomConfig
+from liodom_tpu_torch.core.device import resolve_device
 from liodom_tpu_torch.core.frame import EdgeCloud, RingImage
 from liodom_tpu_torch.core.pose import Pose
 from liodom_tpu_torch.odometry import local_map
@@ -40,18 +41,6 @@ class OdomState(NamedTuple):
     received_xyz: torch.Tensor    # (Mr, 3)
     received_valid: torch.Tensor  # (Mr,)
     imu_ori: torch.Tensor         # (4,) latest IMU orientation, wxyz
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names
-    another.  Raises when CUDA is asked for (or left as the default) and
-    there is none — nothing falls back to the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("liodom_tpu_torch runs on CUDA by default and no "
-                           "CUDA device is available; pass device='cpu' to "
-                           "run the plain PyTorch path")
-    return dev
 
 
 def init_state(cfg: LiodomConfig, received_capacity: int = 0,

@@ -13,12 +13,17 @@ import pytest
 import torch
 
 from liodom_tpu_torch import kernels
-from liodom_tpu_torch.core.config import LiodomConfig
+from liodom_tpu_torch.core.config import LiodomConfig, MapConfig
 from liodom_tpu_torch.core.frame import RawScan, RingImage
+from liodom_tpu_torch.core.pose import Pose
 from liodom_tpu_torch.core.synth import BoxWorld, drive_trajectory, yaw_matrix
+from liodom_tpu_torch.mapping import grid as G
+from liodom_tpu_torch.mapping import service as S
 from liodom_tpu_torch.odometry import pipeline as P
+from liodom_tpu_torch.ops import compact_pallas as K7
 from liodom_tpu_torch.ops import features as F
 from liodom_tpu_torch.ops import knn_pallas as KNN
+from liodom_tpu_torch.ops import probe_insert as PI
 from liodom_tpu_torch.ops import select_pallas as SEL
 from liodom_tpu_torch.ops import smoothness_pallas as SM
 
@@ -101,3 +106,75 @@ def test_image_step_on_the_card_matches_the_cpu_path(dev):
         cpu, cp, cn = P.image_step(cpu, img.xyz, img.count, cfg)
         assert int(gn) == int(cn)
         assert float((gp.t.cpu() - cp.t).norm()) < 0.01
+
+
+def _map_on(dev, capacity=65536, n_frames=4, seed=2):
+    """A hash map built on ``dev`` from clustered frames around a drive."""
+    rng = np.random.default_rng(seed)
+    mcfg = MapConfig(map_capacity=capacity)
+    m = G.init_map(capacity, device=dev)
+    for f in range(n_frames):
+        centers = rng.uniform(-60, 60, (200, 3)) * np.array([1, 1, 0.2])
+        pts = (centers[rng.integers(0, 200, 6000)]
+               + rng.normal(size=(6000, 3)) * 0.8).astype(np.float32)
+        valid = torch.from_numpy(rng.random(6000) > 0.1).to(dev)
+        pose = Pose(torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev),
+                    torch.tensor([5.0 * f, 1.0 * f, 0.0], device=dev))
+        m = G.update_map(m, torch.from_numpy(pts).to(dev), valid, pose, mcfg)
+    return mcfg, m
+
+
+def test_local_map_compact_kernel_bit_exact(dev):
+    mcfg, m = _map_on(dev)
+    offs = G.local_map_offsets(mcfg)
+    for position in ((3.0, -2.0, 0.5), (45.0, 41.0, 3.0), (900.0, 0.0, 0.0)):
+        base = G.cell_keys(torch.trunc(torch.tensor(position, device=dev)),
+                           mcfg)
+        for cap in (16, 4096, 16384, 70000):
+            got = K7.compact_hits_cuda(m.xyz, m.key, m.valid, base, offs, cap)
+            want = K7.compact_hits_plain(m.xyz, m.key, m.valid, base, offs,
+                                         cap)
+            assert int(got[2]) == int(want[2])
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    n_hits = int(K7.compact_hits_cuda(m.xyz, m.key, m.valid,
+                                      G.cell_keys(torch.zeros(3, device=dev),
+                                                  mcfg), offs, 16)[2])
+    assert n_hits > 1000
+
+
+def test_probe_insert_kernel_bit_exact(dev):
+    mcfg, m = _map_on(dev)
+    rng = np.random.default_rng(5)
+    for n_tab, e in ((m.code.shape[0], 6000), (256, 2000)):
+        tab = m.code if n_tab == m.code.shape[0] else torch.full(
+            (n_tab,), G.EMPTY, dtype=torch.int64, device=dev)
+        pts = torch.from_numpy((rng.normal(size=(e, 3)) * 40)
+                               .astype(np.float32)).to(dev)
+        pts[: e // 4] = pts[e // 4: e // 2]         # duplicate codes
+        active = torch.from_numpy(rng.random(e) > 0.1).to(dev)
+        code = G._packed_codes(pts, active, mcfg)
+        got = PI.probe_insert_cuda(tab, code, active)
+        want = PI.probe_insert_plain(tab, code, active)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        if n_tab == 256:
+            assert bool(got[3].any())          # exhausted _MAX_PROBES
+
+
+def test_combined_step_on_the_card_matches_the_cpu_path(dev):
+    cfg, imgs = _images(4)
+    cfg = cfg.replace(mapping=True)
+    mcfg = MapConfig(map_capacity=131072, local_map_capacity=16384)
+    go, gm = S.init_combined(cfg, mcfg)
+    co, cm = S.init_combined(cfg, mcfg, device="cpu")
+    for img in imgs:
+        go, gm, gp, gn = S.combined_image_step(
+            go, gm, img.xyz.to(dev), img.count.to(dev), cfg, mcfg)
+        co, cm, cp, cn = S.combined_image_step(co, cm, img.xyz, img.count,
+                                               cfg, mcfg)
+        assert int(gn) == int(cn)
+        assert float((gp.t.cpu() - cp.t).norm()) < 0.01
+    assert abs(int(gm.valid.sum()) - int(cm.valid.sum())) <= \
+        0.001 * int(cm.valid.sum())
+    assert int(gm.overflow) == int(cm.overflow) == 0

@@ -13,10 +13,16 @@ import pytest
 import torch
 
 from liodom_tpu_torch import kernels
-from liodom_tpu_torch.core.config import LiodomConfig
+from liodom_tpu_torch.core.config import LiodomConfig, MapConfig
+from liodom_tpu_torch.core.device import resolve_device
 from liodom_tpu_torch.core.frame import RingImage
+from liodom_tpu_torch.core.pose import Pose
+from liodom_tpu_torch.mapping import grid as G
+from liodom_tpu_torch.mapping import service as S
 from liodom_tpu_torch.odometry import pipeline as P
+from liodom_tpu_torch.ops import compact_pallas as K7
 from liodom_tpu_torch.ops import knn_pallas as KNN
+from liodom_tpu_torch.ops import probe_insert as PI
 from liodom_tpu_torch.ops import select_pallas as SEL
 from liodom_tpu_torch.ops import smoothness_pallas as SM
 
@@ -47,8 +53,10 @@ def test_port_and_chip_smoke_import_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert res["built"] == []          # importing builds and loads nothing
-    assert "liodom_tpu_torch.odometry.pipeline" in res["modules"]
-    assert "liodom_tpu_torch.ops.knn_pallas" in res["modules"]
+    for name in ("odometry.pipeline", "ops.knn_pallas", "ops.compact_pallas",
+                 "ops.probe_insert", "mapping.grid", "mapping.service",
+                 "convert"):
+        assert f"liodom_tpu_torch.{name}" in res["modules"]
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
@@ -77,13 +85,23 @@ def test_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             P.init_state(cfg)
         with pytest.raises(RuntimeError, match="CUDA"):
-            P.resolve_device("cuda")
+            resolve_device("cuda")
     assert P.init_state(cfg, device="cpu").odom.t.device.type == "cpu"
+    mcfg = MapConfig(map_capacity=64, local_map_capacity=16)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            G.init_map(64)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            S.MappingService(mcfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            S.init_combined(cfg.replace(mapping=True), mcfg)
+    assert G.init_map(64, device="cpu").code.device.type == "cpu"
 
 
 def _counts():
     return (SM.smoothness_cuda.launches, SEL.select_edges_cuda.launches,
-            KNN.knn_launch.launches)
+            KNN.knn_launch.launches, K7.compact_hits_cuda.launches,
+            PI.probe_insert_cuda.launches)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -103,6 +121,19 @@ def test_cpu_tensors_take_the_plain_versions():
     d, c = KNN.knn_coords(q, qm, r, qm, max_radius=1.0)
     d0, c0 = KNN.knn_coords_plain(q, qm, r, qm)
     assert torch.equal(d, d0) and torch.equal(c, c0)
+    mcfg = MapConfig(voxel_xysize=20.0, voxel_zsize=25.0)
+    ones = torch.ones(256, dtype=torch.bool)
+    m = G.update_map(G.init_map(4096, device="cpu"), xyz[0], ones,
+                     Pose.identity(), mcfg)
+    code = G._packed_codes(xyz[2], ones, mcfg)
+    got = PI.probe_insert(m.code, code, ones)
+    want = PI.probe_insert_plain(m.code, code, ones)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    lx, lv, n = G.get_local_map(m, torch.zeros(3), mcfg, capacity=64)
+    base = G.cell_keys(torch.zeros(3), mcfg)
+    want = K7.compact_hits_plain(m.xyz, m.key, m.valid, base,
+                                 G.local_map_offsets(mcfg), 64)
+    assert torch.equal(lx, want[0]) and int(n) == int(want[2]) > 0
     assert _counts() == before
 
 
@@ -120,6 +151,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         KNN.knn_launch(q4, torch.zeros((512, 4)),
                        torch.zeros((1, 1), dtype=torch.int32),
                        torch.zeros(64, dtype=torch.int32))
+    m = G.init_map(64, device="cpu")
+    with pytest.raises(ValueError):
+        K7.compact_hits_cuda(m.xyz, m.key, m.valid,
+                             torch.zeros(3, dtype=torch.int32),
+                             np.zeros((27, 3), np.int32), 16)
+    with pytest.raises(ValueError):
+        PI.probe_insert_cuda(m.code, m.code[:8],
+                            torch.ones(8, dtype=torch.bool))
 
 
 def test_kernel_libraries_are_keyed_by_source():
