@@ -34,23 +34,53 @@ Phases, each printing one JSON line:
    0.1 % (the float pose transform may round a point that lies exactly on
    a leaf boundary of the noise-free world into a different leaf on each
    device).
-6. timing — the bench drive of ``bench.py`` (the same course with 1 cm
+6. batch_path — 36 frames of ``batch_image_step`` at B = 4 over 4 distinct
+   noise-free drives (lane s: ``BoxWorld(seed=s)``, 0.01 (s + 1)
+   rad/frame; lane 0 is the drive above), counters set to 0 just before and
+   read just after: K1 and K2 once a frame on the folded rings, K4 twice,
+   K3 never.  Each lane's ATE over the first 20 frames below 0.1 m, each
+   lane within 1 cm and 1e-3 rad of solo ``image_step`` on the card over
+   the same drive's first 20 frames with equal edge counts (the features
+   and K4 are bit-identical to solo, but the batched solve sums in another
+   order, and an LM step whose cost change sits at float32 noise can be
+   taken by one and not the other: the lanes part by up to 5e-4 m on frame
+   1; every frame's gap is printed, and the largest over the first 3
+   frames, ``tests/test_batch.py``'s horizon), no host synchronisation;
+   then
+   ``batch_cpu_parity``: lanes 0-1, 3 frames through the CPU path, within
+   1 cm and 1e-3 rad with equal edge counts.
+7. chained_path — the drive of phase 2 through ``chained_image_step`` in
+   chunks of 12 frames (``bench.py:147``), and again with ``use_imu=True``
+   and the drive's per-frame orientation as IMU quaternions: poses within
+   1e-6 m of the per-frame loop's (phase 2's poses, and a ``set_imu`` then
+   ``image_step`` loop), launches 36/36/72, no host synchronisation.
+8. lines_path — phases 2 and 4 again under ``LIODOM_KNN_IMPL=pallas_lines``:
+   K6 twice a frame and K3 never, ATE over 20 frames below 0.1 m, poses
+   within 1 cm and 1e-3 rad of the ``pallas_coords`` runs over those 20
+   frames (every frame's gap printed), no host synchronisation.
+9. timing — the bench drive of ``bench.py`` (the same course with 1 cm
    sensor noise): steady-state ms/frame and scans/s by CUDA events after 6
-   warm-up frames, for ``image_step`` and for ``combined_image_step`` at
-   the bench's two cadences (every frame, and every 4th frame), each drive
-   twice in turns; every run at most 125 ms (0.8 x the 10 Hz sensor rate).
-7. kernels — each kernel against its plain PyTorch version on the card, on
+   warm-up frames, for ``image_step``, for ``combined_image_step`` at the
+   bench's two cadences (every frame, and every 4th frame), for
+   ``batch_image_step`` at B = 4 and 8 (``bench.py:401``; lanes as in phase
+   6, with noise: ms a batched frame and aggregate scans/s) and for
+   ``chained_image_step`` (chunks of 12), each drive twice in turns; every
+   run at most 125 ms a frame for each lane (0.8 x the 10 Hz sensor rate).
+10. kernels — each kernel against its plain PyTorch version on the card, on
    the bench drive's last frame, window, map and pose: K1 bit-exact, K2
    bit-exact edges for the same smoothness plane, K3 d2 within 1e-5
    relative where d2 < 1 and identical coordinates where the 5th-NN gate
-   passes, K7 bit-exact rows, validity and hit count (at the bench capacity
-   and at one that truncates), the probe kernel bit-exact table, slots and
-   flags; then each kernel's time beside its plain version's and its
-   bound.
-8. profile — torch.profiler over 5 frames of the bench drive, for
-   ``image_step`` and for ``combined_image_step``: device busy time and
-   share, device kernels a frame, the largest kernels by time, and the
-   host's operators by their own time.
+   passes, K4 at B = 4 (the bench lanes) bit-identical to K3 launched on
+   each lane and held to K3's checks, K6 endpoints identical where both it
+   and its plain version accept and any flip of the gate where the plain
+   eigenvalues sit at the ratio (|e_max - 3 e_mid| <= 1e-4 e_max), K7
+   bit-exact rows, validity and hit count (at the bench capacity and at
+   one that truncates), the probe kernel bit-exact table, slots and flags;
+   then each kernel's time beside its plain version's and its bound.
+11. profile — torch.profiler over 5 frames of the bench drive, for
+   ``image_step``, ``combined_image_step`` and ``batch_image_step`` at B =
+   4 and 8: device busy time and share, device kernels a frame, the
+   largest kernels by time, and the host's operators by their own time.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line and, as the last
 line, ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -63,10 +93,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -87,9 +119,11 @@ from liodom_tpu_torch.odometry import pipeline as P
 from liodom_tpu_torch.ops import compact_pallas as K7
 from liodom_tpu_torch.ops import features as F
 from liodom_tpu_torch.ops import knn_pallas as KNN
+from liodom_tpu_torch.ops import neighbors as NB
 from liodom_tpu_torch.ops import probe_insert as PI
 from liodom_tpu_torch.ops import select_pallas as SEL
 from liodom_tpu_torch.ops import smoothness_pallas as SM
+from liodom_tpu_torch.parallel.sharded import init_batch_state
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
@@ -99,6 +133,12 @@ N_CPU_FRAMES = 6
 N_WARM = 6
 N_ATE = 20
 FRAME_BUDGET_MS = 125.0     # 0.8 x the 10 Hz sensor rate
+LANES = 4                   # batch_path's sequences
+TIMED_BATCHES = (4, 8)      # bench.py:401
+N_BATCH_CPU = 3             # frames of the batch path's CPU parity
+N_LOCKSTEP = 3              # tests/test_batch.py's horizon, reported
+CHUNK = 12                  # chained_image_step frames a call (bench.py:147)
+K6_OPS_PER_QUERY = 160      # csrc/knn_lines.cu's epilogue, counted by hand
 # bench.py's combined configuration (bench.py:91)
 MCFG = MapConfig(map_capacity=524288, local_map_capacity=16384)
 
@@ -151,55 +191,104 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+_COUNTED = {"smoothness": SM.smoothness_cuda,
+            "select_edges": SEL.select_edges_cuda,
+            "knn_coords": KNN.knn_launch,
+            "knn_coords_batched": KNN.knn_launch_batched,
+            "knn_lines": KNN.knn_lines_launch,
+            "local_map_compact": K7.compact_hits_cuda,
+            "probe_insert": PI.probe_insert_cuda}
+
+
 def reset_counters() -> None:
-    SM.smoothness_cuda.launches = 0
-    SEL.select_edges_cuda.launches = 0
-    KNN.knn_launch.launches = 0
-    K7.compact_hits_cuda.launches = 0
-    PI.probe_insert_cuda.launches = 0
+    for fn in _COUNTED.values():
+        fn.launches = 0
 
 
 def read_counters() -> dict:
-    return {"smoothness": SM.smoothness_cuda.launches,
-            "select_edges": SEL.select_edges_cuda.launches,
-            "knn_coords": KNN.knn_launch.launches,
-            "local_map_compact": K7.compact_hits_cuda.launches,
-            "probe_insert": PI.probe_insert_cuda.launches}
+    return {name: fn.launches for name, fn in _COUNTED.items()}
+
+
+def launches(**nonzero) -> dict:
+    """The counters a drive must leave: the named ones, every other 0."""
+    return {name: nonzero.get(name, 0) for name in _COUNTED}
+
+
+def sync_free(run):
+    """``run()`` under torch's sync debug mode; returns (its result, the
+    host synchronisations it made)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        out = run()
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, [str(w.message) for w in caught
+                 if "called a synchronizing" in str(w.message)]
 
 
 def quat_angle(qa: np.ndarray, qb: np.ndarray) -> float:
-    d = abs(float(np.dot(qa.astype(np.float64), qb.astype(np.float64))))
-    return 2.0 * math.acos(min(1.0, d))
+    """Rotation angle between two wxyz quaternions, from the vector part of
+    conj(qa) * qb: accurate near 0, where 2 acos(|qa . qb|) of float32
+    quaternions floors at ~5e-4 rad (|qa . qb| = 1 - 3e-8)."""
+    aw, av = float(qa[0]), qa[1:].astype(np.float64)
+    bw, bv = float(qb[0]), qb[1:].astype(np.float64)
+    w = aw * bw + float(av @ bv)
+    v = aw * bv - bw * av - np.cross(av, bv)
+    return 2.0 * math.atan2(float(np.linalg.norm(v)), abs(w))
 
 
-def render_images(cfg: LiodomConfig, dev: torch.device, noise: float):
-    """Ring images of the bench drive (BoxWorld seed 0, 1.2 m/frame, 0.01
-    rad/frame yaw, 1800-column HDL-64 spin), split on the card by the port's
-    loader stage; no point may be dropped by the ring width."""
-    world = BoxWorld(seed=0)
-    pos, yaws = drive_trajectory(N_FRAMES, speed=1.2, yaw_rate=0.01)
-    imgs = []
-    for i in range(N_FRAMES):
-        scan = world.render(pos[i], yaw_matrix(yaws[i]), width=1800,
-                            noise=noise, seed=i)
+def render_lanes(cfg: LiodomConfig, dev: torch.device, lanes, noise: float):
+    """Ring images of the lanes' drives: lane s is ``BoxWorld(seed=s)``
+    driven at 1.2 m/frame and 0.01 (s + 1) rad/frame yaw (lane 0 is the
+    drive of ``apps/run_synthetic.py`` and ``bench.py``), an 1800-column
+    HDL-64 spin rendered in threads (noise seed 1000 s + frame) and split on
+    the card by the port's loader stage; no point may be dropped by the
+    ring width.  Returns {lane: (images, positions, yaws)}."""
+    drives = {s: drive_trajectory(N_FRAMES, speed=1.2,
+                                  yaw_rate=0.01 * (s + 1)) for s in lanes}
+    worlds = {s: BoxWorld(seed=s) for s in lanes}
+    jobs = [(s, i) for s in lanes for i in range(N_FRAMES)]
+
+    def render(job):
+        s, i = job
+        pos, yaws = drives[s]
+        return worlds[s].render(pos[i], yaw_matrix(yaws[i]), width=1800,
+                                noise=noise, seed=1000 * s + i)
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        scans = list(ex.map(render, jobs))
+    imgs = {s: [] for s in lanes}
+    for (s, i), scan in zip(jobs, scans):
         raw = RawScan.from_points(torch.from_numpy(scan), cfg.max_points,
                                   device=dev)
         dropped = int(F.split_overflow(raw, cfg))
         if dropped:
-            raise SystemExit(f"frame {i}: ring width {cfg.ring_width} "
-                             f"dropped {dropped} points")
-        imgs.append(F.split_scan(raw, cfg))
-    return imgs, pos
+            raise SystemExit(f"lane {s} frame {i}: ring width "
+                             f"{cfg.ring_width} dropped {dropped} points")
+        imgs[s].append(F.split_scan(raw, cfg))
+    return {s: (imgs[s],) + drives[s] for s in lanes}
 
 
-def run_course(state, imgs, cfg, keep: bool = True):
-    """Drive ``image_step`` over the images; returns the state after each
-    frame (the step leaves its input state untouched; with ``keep=False``
-    the last state only), the poses and the per-frame edge counts, all
-    still on the device."""
+def stack_lanes(per_lane):
+    """Frame-by-frame batched images (B, R, W, 3) from per-lane lists."""
+    return [RingImage(torch.stack([lane[i].xyz for lane in per_lane]),
+                      torch.stack([lane[i].count for lane in per_lane]))
+            for i in range(len(per_lane[0]))]
+
+
+def run_course(state, imgs, cfg, keep: bool = True, quats=None,
+               step=P.image_step):
+    """Drive ``image_step`` (or ``step``: ``batch_image_step`` over batched
+    images) over the images, with ``quats`` calling ``set_imu`` before each
+    frame; returns the state after each frame (the step leaves its input
+    state untouched; with ``keep=False`` the last state only), the poses and
+    the per-frame edge counts, all still on the device."""
     states, poses, n_edges = [], [], []
-    for img in imgs:
-        state, pose, ne = P.image_step(state, img.xyz, img.count, cfg)
+    for i, img in enumerate(imgs):
+        if quats is not None:
+            state = P.set_imu(state, quats[i])
+        state, pose, ne = step(state, img.xyz, img.count, cfg)
         states = (states if keep else []) + [state]
         poses.append(pose)
         n_edges.append(ne)
@@ -223,6 +312,49 @@ def run_combined(odom, m, imgs, cfg, every_frame: bool = True,
         poses.append(pose)
         n_edges.append(ne)
     return states, poses, n_edges
+
+
+def run_chained(state, imgs, cfg, keep: bool = True, quats=None):
+    """Drive ``chained_image_step`` in chunks of CHUNK frames (the last
+    chunk may be shorter); as :func:`run_course`, with one state a chunk
+    and the per-frame poses and edge counts."""
+    states, poses, n_edges = [], [], []
+    for c0 in range(0, len(imgs), CHUNK):
+        chunk = imgs[c0:c0 + CHUNK]
+        state, ps, nes = P.chained_image_step(
+            state, torch.stack([im.xyz for im in chunk]),
+            torch.stack([im.count for im in chunk]), cfg,
+            imu_quats=None if quats is None else quats[c0:c0 + CHUNK])
+        states = (states if keep else []) + [state]
+        poses += [se3.Pose(ps.q[j], ps.t[j]) for j in range(len(chunk))]
+        n_edges += list(nes)
+    return states, poses, n_edges
+
+
+def drive_error(poses, gt_pos):
+    """(t (F, ...), q (F, ...), error to ground truth per frame, ATE over
+    the first N_ATE frames) of a drive's poses, the lane axis last but
+    one when batched."""
+    q = torch.stack([p.q for p in poses]).cpu().numpy()
+    t = torch.stack([p.t for p in poses]).cpu().numpy()
+    err = np.linalg.norm(t - gt_pos, axis=-1)
+    return t, q, err, float(np.sqrt(np.mean(err[:N_ATE] ** 2)))
+
+
+def pose_gaps(t_a, q_a, t_b, q_b):
+    """Translation (m) and rotation (rad) gaps between two pose sequences
+    (F, ..., 3) / (F, ..., 4), per frame (and lane)."""
+    dr = [quat_angle(a, b) for a, b in zip(q_a.reshape(-1, 4),
+                                            q_b.reshape(-1, 4))]
+    return (np.linalg.norm(t_a - t_b, axis=-1),
+            np.reshape(dr, q_a.shape[:-1]))
+
+
+def pose_gap(t_a, q_a, t_b, q_b):
+    """Largest translation (m) and rotation (rad) gap between two pose
+    sequences (..., 3) / (..., 4)."""
+    dt, dr = pose_gaps(t_a, q_a, t_b, q_b)
+    return float(dt.max()), float(dr.max())
 
 
 def timed_drive(drive, init, imgs):
@@ -308,6 +440,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
+    # every path runs the coords kernels unless lines_path says otherwise
+    os.environ["LIODOM_KNN_IMPL"] = "pallas_coords"
 
     # ---- 1. device + build ------------------------------------------------
     t0 = time.perf_counter()
@@ -323,30 +457,22 @@ def main() -> int:
     # ---- 2. main path: the accuracy drive -------------------------------
     cfg = LiodomConfig(local_map_size=5)
     t0 = time.perf_counter()
-    imgs, gt_pos = render_images(cfg, dev, noise=0.0)
+    acc = render_lanes(cfg, dev, range(LANES), noise=0.0)
+    bench = render_lanes(cfg, dev, range(max(TIMED_BATCHES)), noise=0.01)
     render_s = time.perf_counter() - t0
+    imgs, gt_pos, gt_yaw = acc[0]
 
     state = P.init_state(cfg)
     torch.cuda.synchronize()
     reset_counters()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        states, poses, n_edges = run_course(state, imgs, cfg)
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
+    (states, poses, n_edges), syncs = sync_free(
+        lambda: run_course(state, imgs, cfg))
     counts = read_counters()
-    syncs = [str(w.message) for w in caught
-             if "called a synchronizing" in str(w.message)]
-    q = torch.stack([p.q for p in poses]).cpu().numpy()
-    t = torch.stack([p.t for p in poses]).cpu().numpy()
+    t, q, err, ate_gate = drive_error(poses, gt_pos)
     ne = torch.stack(n_edges).cpu().numpy()
-    err = np.linalg.norm(t - gt_pos, axis=1)
-    ate_gate = float(np.sqrt(np.mean(err[:N_ATE] ** 2)))
     ate_all = float(np.sqrt(np.mean(err ** 2)))
-    want = {"smoothness": N_FRAMES, "select_edges": N_FRAMES,
-            "knn_coords": 2 * N_FRAMES, "local_map_compact": 0,
-            "probe_insert": 0}
+    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
+                    knn_coords=2 * N_FRAMES)
     check(counts == want, f"launch counts {counts} != {want}")
     check(bool(np.isfinite(q).all() and np.isfinite(t).all()),
           "non-finite pose")
@@ -385,29 +511,20 @@ def main() -> int:
     codom, cmap = S.init_combined(ccfg, MCFG)
     torch.cuda.synchronize()
     reset_counters()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        cstates, cposes_k, cedges_k = run_combined(codom, cmap, imgs, ccfg)
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
+    (cstates, cposes_k, cedges_k), csyncs = sync_free(
+        lambda: run_combined(codom, cmap, imgs, ccfg))
     ccounts = read_counters()
-    csyncs = [str(w.message) for w in caught
-              if "called a synchronizing" in str(w.message)]
-    cq = torch.stack([p.q for p in cposes_k]).cpu().numpy()
-    ct = torch.stack([p.t for p in cposes_k]).cpu().numpy()
+    ct, cq, cerr, cate_gate = drive_error(cposes_k, gt_pos)
     cne = torch.stack(cedges_k).cpu().numpy()
-    cerr = np.linalg.norm(ct - gt_pos, axis=1)
-    cate_gate = float(np.sqrt(np.mean(cerr[:N_ATE] ** 2)))
     final_map = cstates[-1][1]
     overflow = int(final_map.overflow)
     # the neighbourhood at every pose, in the map that frame left
     hits = [int(G.get_local_map(m, p.t, MCFG,
                                 capacity=MCFG.local_map_capacity)[2])
             for (_, m), p in zip(cstates, cposes_k)]
-    want = {"smoothness": N_FRAMES, "select_edges": N_FRAMES,
-            "knn_coords": 2 * N_FRAMES, "local_map_compact": N_FRAMES,
-            "probe_insert": N_FRAMES}
+    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
+                    knn_coords=2 * N_FRAMES, local_map_compact=N_FRAMES,
+                    probe_insert=N_FRAMES)
     check(ccounts == want, f"combined launch counts {ccounts} != {want}")
     check(bool(np.isfinite(cq).all() and np.isfinite(ct).all()),
           "combined: non-finite pose")
@@ -455,31 +572,192 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     del c_states
 
-    # ---- 6. the bench drive: steady-state time a frame --------------------
-    bimgs, _ = render_images(cfg, dev, noise=0.01)
-    # the three drives twice, in turns (A B C C B A): the host sets the
-    # frame time, and its speed drifts within a call
+    # ---- 6. batch_image_step over distinct drives -------------------------
+    lane_imgs = stack_lanes([acc[s][0] for s in range(LANES)])
+    lane_gt = np.stack([acc[s][1] for s in range(LANES)], axis=1)  # (F, B, 3)
+    bst0 = init_batch_state(cfg, LANES)
+    torch.cuda.synchronize()
+    reset_counters()
+    (_, lposes, ledges), lsyncs = sync_free(
+        lambda: run_course(bst0, lane_imgs, cfg, keep=False,
+                           step=P.batch_image_step))
+    lcounts = read_counters()
+    lt, lq, lerr, _ = drive_error(lposes, lane_gt)
+    lne = torch.stack(ledges).cpu().numpy()                        # (F, B)
+    lane_ate = np.sqrt(np.mean(lerr[:N_ATE] ** 2, axis=0))
+    # each lane alone through image_step on the card (lane 0 is phase 2)
+    solo = {0: (t, q, ne)}
+    for s in range(1, LANES):
+        _, sp, sn = run_course(P.init_state(cfg), acc[s][0], cfg, keep=False)
+        st_, sq_, _, _ = drive_error(sp, acc[s][1])
+        solo[s] = (st_, sq_, torch.stack(sn).cpu().numpy())
+    # (F, B): each lane against its solo drive, per frame.  Two float
+    # reassociations of one solve can take different LM accept decisions,
+    # after which the lanes part by more than rounding: the port's 1 cm
+    # parity bar over N_ATE frames, as the ATE gate
+    lane_dt, lane_dr = (np.stack(g, axis=1) for g in zip(*(
+        pose_gaps(lt[:, s], lq[:, s], solo[s][0], solo[s][1])
+        for s in range(LANES))))
+    lockstep = (float(lane_dt[:N_LOCKSTEP].max()),
+                float(lane_dr[:N_LOCKSTEP].max()))
+    lane_gap = (float(lane_dt[:N_ATE].max()), float(lane_dr[:N_ATE].max()))
+    lane_same_edges = all(np.array_equal(lne[:, s], solo[s][2])
+                          for s in range(LANES))
+    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
+                    knn_coords_batched=2 * N_FRAMES)
+    check(lcounts == want, f"batch launch counts {lcounts} != {want}")
+    check(bool(np.isfinite(lq).all() and np.isfinite(lt).all()),
+          "batch: non-finite pose")
+    check(float(lane_ate.max()) < 0.1, f"batch: a lane's ATE over {N_ATE} "
+          f"frames {lane_ate.tolist()} m >= 0.1")
+    check(lane_gap[0] < 0.01 and lane_gap[1] < 1e-3, f"batch vs solo "
+          f"image_step on the card over {N_ATE} frames: {lane_gap}")
+    check(lane_same_edges, "batch vs solo: different edge counts")
+    check(not lsyncs, f"{len(lsyncs)} host synchronisations in the batch "
+          f"path: {lsyncs[:1]}")
+    emit({"phase": "batch_path", "frames": N_FRAMES, "batch": LANES,
+          "noise_m": 0.0, "launches": lcounts,
+          f"ate_m_first_{N_ATE}_per_lane": lane_ate.tolist(),
+          "ate_m_all_per_lane": np.sqrt(np.mean(lerr ** 2, axis=0)).tolist(),
+          f"vs_solo_max_dt_m_drot_rad_first_{N_LOCKSTEP}": lockstep,
+          f"vs_solo_max_dt_m_drot_rad_first_{N_ATE}": lane_gap,
+          "vs_solo_dt_m_per_frame_max_over_lanes":
+              lane_dt.max(axis=1).tolist(),
+          "vs_solo_drot_rad_per_frame_max_over_lanes":
+              lane_dr.max(axis=1).tolist(),
+          "same_n_edges_as_solo": lane_same_edges,
+          "n_edges_min": int(lne.min()), "n_edges_max": int(lne.max()),
+          "host_syncs": len(lsyncs)})
+
+    t0 = time.perf_counter()
+    n_cpu_lanes = 2
+    cpu_lanes = [RingImage(im.xyz[:n_cpu_lanes].cpu(),
+                           im.count[:n_cpu_lanes].cpu())
+                 for im in lane_imgs[:N_BATCH_CPU]]
+    _, bcp, bce = run_course(init_batch_state(cfg, n_cpu_lanes, device="cpu"),
+                             cpu_lanes, cfg, step=P.batch_image_step)
+    bct = torch.stack([p.t for p in bcp]).numpy()
+    bcq = torch.stack([p.q for p in bcp]).numpy()
+    bgap = pose_gap(bct, bcq, lt[:N_BATCH_CPU, :n_cpu_lanes],
+                    lq[:N_BATCH_CPU, :n_cpu_lanes])
+    b_same = np.array_equal(torch.stack(bce).numpy(),
+                            lne[:N_BATCH_CPU, :n_cpu_lanes])
+    check(bgap[0] < 0.01 and bgap[1] < 1e-3,
+          f"batch card vs CPU path: {bgap}")
+    check(b_same, "batch: card and CPU path picked different edge counts")
+    emit({"phase": "batch_cpu_parity", "frames": N_BATCH_CPU,
+          "batch": n_cpu_lanes, "max_dt_m": bgap[0], "max_drot_rad": bgap[1],
+          "same_n_edges": b_same, "seconds": time.perf_counter() - t0})
+
+    # ---- 7. chained_image_step, with and without the IMU ------------------
+    chained = {}
+    cfg_imu = cfg.replace(use_imu=True)
+    half = torch.tensor(gt_yaw / 2.0, dtype=torch.float32, device=dev)
+    zero = torch.zeros_like(half)
+    quats = torch.stack([torch.cos(half), zero, zero, torch.sin(half)], -1)
+    for name, ccfg_, qs in (("plain", cfg, None), ("imu", cfg_imu, quats)):
+        if qs is None:
+            loop_t, loop_q = t, q                   # phase 2's loop
+        else:
+            _, lp, _ = run_course(P.init_state(cfg_imu), imgs, cfg_imu,
+                                  keep=False, quats=qs)
+            loop_t, loop_q, _, _ = drive_error(lp, gt_pos)
+        torch.cuda.synchronize()
+        reset_counters()
+        (_, chp, _), chs = sync_free(
+            lambda: run_chained(P.init_state(ccfg_), imgs, ccfg_, keep=False,
+                                quats=qs))
+        chc = read_counters()
+        cht, chq, cherr, chate = drive_error(chp, gt_pos)
+        gap = pose_gap(cht, chq, loop_t, loop_q)
+        want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
+                        knn_coords=2 * N_FRAMES)
+        check(chc == want, f"chained ({name}) launch counts {chc} != {want}")
+        check(gap[0] <= 1e-6, f"chained ({name}) vs the per-frame loop: "
+              f"{gap[0]:.2e} m")
+        check(not chs, f"{len(chs)} host synchronisations in the chained "
+              f"path ({name}): {chs[:1]}")
+        chained[name] = {"launches": chc, "vs_loop_max_dt_m": gap[0],
+                         "vs_loop_max_drot_rad": gap[1],
+                         f"ate_m_first_{N_ATE}": chate, "host_syncs": len(chs)}
+    emit({"phase": "chained_path", "frames": N_FRAMES, "chunk": CHUNK,
+          **chained})
+
+    # ---- 8. the lines-kNN configuration (K6) ------------------------------
+    os.environ["LIODOM_KNN_IMPL"] = "pallas_lines"
+    lines = {}
+    for name, run, ref_t, ref_q in (
+            ("image_step", lambda: run_course(P.init_state(cfg), imgs, cfg,
+                                              keep=False), t, q),
+            ("combined_image_step", lambda: run_combined(
+                *S.init_combined(ccfg, MCFG), imgs, ccfg, keep=False),
+             ct, cq)):
+        torch.cuda.synchronize()
+        reset_counters()
+        (_, lnp, _), lns = sync_free(run)
+        lnc = read_counters()
+        lnt, lnq, lnerr, lnate = drive_error(lnp, gt_pos)
+        ln_dt, ln_dr = pose_gaps(lnt, lnq, ref_t, ref_q)
+        # over the first N_ATE frames, as the batch path's bar
+        gap = (float(ln_dt[:N_ATE].max()), float(ln_dr[:N_ATE].max()))
+        mapped = name == "combined_image_step"
+        want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
+                        knn_lines=2 * N_FRAMES,
+                        local_map_compact=N_FRAMES if mapped else 0,
+                        probe_insert=N_FRAMES if mapped else 0)
+        check(lnc == want, f"lines ({name}) launch counts {lnc} != {want}")
+        check(lnate < 0.1, f"lines ({name}) ATE over {N_ATE} frames "
+              f"{lnate:.4f} m >= 0.1")
+        check(gap[0] < 0.01 and gap[1] < 1e-3,
+              f"lines ({name}) vs pallas_coords over {N_ATE} frames: {gap}")
+        check(not lns, f"{len(lns)} host synchronisations in the lines path "
+              f"({name}): {lns[:1]}")
+        lines[name] = {"launches": lnc, f"ate_m_first_{N_ATE}": lnate,
+                       "ate_m_all": float(np.sqrt(np.mean(lnerr ** 2))),
+                       f"vs_coords_max_dt_m_first_{N_ATE}": gap[0],
+                       f"vs_coords_max_drot_rad_first_{N_ATE}": gap[1],
+                       "vs_coords_dt_m_per_frame": ln_dt.tolist(),
+                       "vs_coords_drot_rad_per_frame": ln_dr.tolist(),
+                       "host_syncs": len(lns)}
+    os.environ["LIODOM_KNN_IMPL"] = "pallas_coords"
+    emit({"phase": "lines_path", "frames": N_FRAMES, **lines})
+
+    # ---- 9. the bench drive: steady-state time a frame --------------------
+    bimgs = bench[0][0]
+    bench_b = {b: stack_lanes([bench[s][0] for s in range(b)])
+               for b in TIMED_BATCHES}
+    # the drives twice, in turns (A B ... B A): the host sets the frame
+    # time, and its speed drifts within a call
     drives = {
         "image_step": (
             lambda st, ims, _first: run_course(st, ims, cfg, keep=False),
-            lambda: P.init_state(cfg)),
+            lambda: P.init_state(cfg), bimgs),
         "every_frame": (
             lambda st, ims, first: run_combined(*st, ims, ccfg, True, first,
                                                 keep=False),
-            lambda: S.init_combined(ccfg, MCFG)),
+            lambda: S.init_combined(ccfg, MCFG), bimgs),
         "every_4th": (
             lambda st, ims, first: run_combined(*st, ims, ccfg, False, first,
                                                 keep=False),
-            lambda: S.init_combined(ccfg, MCFG)),
+            lambda: S.init_combined(ccfg, MCFG), bimgs),
+        "chained": (
+            lambda st, ims, _first: run_chained(st, ims, cfg, keep=False),
+            lambda: P.init_state(cfg), bimgs),
     }
+    for b in TIMED_BATCHES:
+        drives[f"batch_{b}"] = (
+            lambda st, ims, _first: run_course(st, ims, cfg, keep=False,
+                                               step=P.batch_image_step),
+            lambda b=b: init_batch_state(cfg, b), bench_b[b])
     runs = {name: [] for name in drives}
     for name in list(drives) + list(drives)[::-1]:
-        drive, init = drives[name]
-        t_ms, t_host, poses, edges = timed_drive(drive, init(), bimgs)
+        drive, init, frames = drives[name]
+        t_ms, t_host, poses, edges = timed_drive(drive, init(), frames)
         runs[name].append([t_ms, t_host])
         if name == "image_step":
             bposes, bedges = poses, edges
     for name, r in runs.items():
+        # a batched frame gives every lane its pose: the budget is per lane
         worst = max(ms for ms, _ in r)
         check(worst <= FRAME_BUDGET_MS, f"{name}: {worst:.1f} ms/frame > "
               f"{FRAME_BUDGET_MS}")
@@ -490,6 +768,16 @@ def main() -> int:
                            "host_ms_per_frame": mean[c][1],
                            "scans_per_s": 1e3 / mean[c][0]}
                        for c in ("every_frame", "every_4th")}
+    chained_timing = {"ms_per_frame": mean["chained"][0],
+                      "host_ms_per_frame": mean["chained"][1],
+                      "scans_per_s": 1e3 / mean["chained"][0]}
+    batch_timing = {}
+    for b in TIMED_BATCHES:
+        b_ms, b_host = mean[f"batch_{b}"]
+        batch_timing[b] = {"ms_per_batched_frame": b_ms,
+                           "host_ms_per_batched_frame": b_host,
+                           "aggregate_scans_per_s": b * 1e3 / b_ms,
+                           "vs_solo_scans_per_s": b * ms_frame / b_ms}
     bne = torch.stack(bedges).cpu().numpy()
     bt = torch.stack([p.t for p in bposes]).cpu().numpy()
     berr = np.linalg.norm(bt - gt_pos, axis=1)
@@ -503,15 +791,22 @@ def main() -> int:
           "host_ms_per_frame": host_ms,
           "realtime_factor_vs_10hz": (1e3 / ms_frame) / 10.0,
           "n_edges_min": int(bne.min()), "n_edges_max": int(bne.max()),
-          "combined": combined_timing,
-          "runs_ms_and_host_ms_in_order_ABCCBA": runs})
+          "combined": combined_timing, "chained": chained_timing,
+          "batch": batch_timing,
+          "runs_ms_and_host_ms_in_turns": runs})
     # the states every frame of the bench drive left, for the kernel checks
     # and the profile (untimed)
     bstates, _, _ = run_course(P.init_state(cfg), bimgs, cfg)
     bc_states, bc_poses, _ = run_combined(*S.init_combined(ccfg, MCFG), bimgs,
                                           ccfg)
+    bb_states, bb_poses, _ = run_course(init_batch_state(cfg, LANES),
+                                        bench_b[LANES], cfg,
+                                        step=P.batch_image_step)
+    b8_state = run_course(init_batch_state(cfg, max(TIMED_BATCHES)),
+                          bench_b[max(TIMED_BATCHES)][:N_FRAMES - 5], cfg,
+                          keep=False, step=P.batch_image_step)[0][-1]
 
-    # ---- 7. each kernel against its plain version, bench shapes -----------
+    # ---- 10. each kernel against its plain version, bench shapes ----------
     img = bimgs[N_FRAMES - 1]
     sm_k = SM.smoothness_cuda(img.xyz, img.count)
     sm_p = SM.smoothness_plain(img.xyz, img.count)
@@ -530,10 +825,8 @@ def main() -> int:
     # frames before it) and on the last frame's edges at its pose
     map_xyz, map_valid = local_map.flatten(bstates[-2].window)
     map_xyz, map_valid = KNN.spatial_sort_points(map_xyz, map_valid)
-    eorder = torch.argsort((~ec_k.valid).to(torch.uint8), stable=True)
-    qvalid = ec_k.valid[eorder]
-    query = se3.transform(bposes[-1], torch.where(
-        qvalid[:, None], ec_k.xyz[eorder], torch.zeros_like(ec_k.xyz)))
+    qxyz, qvalid = local_map.compact(ec_k.xyz, ec_k.valid)
+    query = se3.transform(bposes[-1], qxyz)
     radius = cfg.knn_max_sq_dist ** 0.5
     prep = KNN.knn_prepare(query, qvalid, map_xyz, map_valid, radius,
                            ref_presorted=True)
@@ -547,6 +840,56 @@ def main() -> int:
     k3_coords_same = torch.equal(c_k[gate], c_p[gate])
     check(k3_rel <= 1e-5, f"K3 d2 rel err {k3_rel:.2e} > 1e-5")
     check(k3_coords_same, "K3 coordinates differ where the gate passes")
+
+    # K4 at B = 4: the bench lanes' last frames at their poses against the
+    # windows they met; each lane must be K3 on that lane, bit for bit
+    bimg = bench_b[LANES][N_FRAMES - 1]
+    ec_b = F.select_edges(bimg, F.smoothness(bimg, cfg), cfg)   # (B, E)
+    qxyz_b, qvalid_b = local_map.compact(ec_b.xyz, ec_b.valid)
+    query_b = se3.transform(bb_poses[-1], qxyz_b)
+    map_b, mvalid_b = KNN.spatial_sort_points(
+        *local_map.flatten(bb_states[-2].window))
+    prep_b = KNN.knn_prepare_batched(query_b, qvalid_b, map_b, mvalid_b,
+                                     radius, ref_presorted=True)
+    d_b, c_b = KNN.knn_launch_batched(*prep_b)
+    k4_is_k3 = True
+    for s_ in range(LANES):
+        d_s, c_s = KNN.knn_launch(*KNN.knn_prepare(
+            query_b[s_], qvalid_b[s_], map_b[s_], mvalid_b[s_], radius,
+            ref_presorted=True))
+        k4_is_k3 &= torch.equal(d_b[s_], d_s) and torch.equal(c_b[s_], c_s)
+    d_bp, c_bp = KNN.knn_coords_batched_plain(query_b, qvalid_b, map_b,
+                                              mvalid_b)
+    near_b = d_bp < cfg.knn_max_sq_dist
+    rel_b = ((d_b - d_bp).abs() / torch.clamp(d_bp.abs(), min=1e-12))[near_b]
+    k4_rel = float(rel_b.max()) if rel_b.numel() else 0.0
+    k4_abs = float((d_b - d_bp).abs()[near_b].max()) if rel_b.numel() else 0.0
+    gate_b = qvalid_b & (d_bp[..., -1] < cfg.knn_max_sq_dist)
+    k4_coords_same = torch.equal(c_b[gate_b], c_bp[gate_b])
+    check(k4_is_k3, "K4 differs from K3 launched on a lane alone")
+    check(k4_rel <= 1e-5, f"K4 d2 rel err {k4_rel:.2e} > 1e-5")
+    check(k4_coords_same, "K4 coordinates differ where the gate passes")
+
+    # K6 on K3's inputs (its flags are K3's: the radius is sqrt(max_sq_dist))
+    prep_l = tuple(x[None] for x in prep)
+    gates = (cfg.knn_max_sq_dist, cfg.eig_ratio, cfg.min_line_sep)
+    lpa_k, lpb_k, ok_k = (x[0] for x in KNN.knn_lines_launch(*prep_l, *gates))
+    lpa_p, lpb_p, ok_p = KNN.knn_lines_plain(query, qvalid, map_xyz,
+                                             map_valid, KNN.K, *gates)
+    both = ok_k & ok_p
+    k6_same = (torch.equal(lpa_k[both], lpa_p[both])
+               and torch.equal(lpb_k[both], lpb_p[both]))
+    k6_diff = torch.cat([(lpa_k - lpa_p)[both], (lpb_k - lpb_p)[both]])
+    k6_err = float(k6_diff.abs().max()) if k6_diff.numel() else 0.0
+    zm = c_p - c_p.mean(dim=1, keepdim=True)
+    eigs = NB.sym3_eigenvalues(torch.einsum("eki,ekj->eij", zm, zm))
+    at_ratio = ((eigs[:, 2] - cfg.eig_ratio * eigs[:, 1]).abs()
+                <= 1e-4 * eigs[:, 2].abs())
+    flips = ok_k != ok_p
+    k6_flips, k6_off = int(flips.sum()), int((flips & ~at_ratio).sum())
+    check(k6_same, "K6 endpoints differ where both accept")
+    check(k6_off == 0, f"K6: {k6_off} gate flips away from the ratio "
+          f"boundary")
     # K7 on the bench map after the last frame (every-frame cadence), at
     # the last pose: at the bench capacity and at one that truncates
     kmap = bc_states[-1][1]
@@ -585,6 +928,7 @@ def main() -> int:
     flags = prep[2]
     n_e, n_m = flags.shape
     flagged = int(flags.sum())
+    flagged_b = int(prep_b[2].sum())
     emit({"phase": "kernels",
           "smoothness": {"bit_exact": torch.equal(sm_k, sm_p),
                          "max_abs_err": k1_err},
@@ -599,6 +943,19 @@ def main() -> int:
                          "coords_equal": k3_coords_same,
                          "tile_pairs": n_e * n_m, "flagged_pairs": flagged,
                          "pruned_fraction": 1.0 - flagged / (n_e * n_m)},
+          "knn_coords_batched": {"batch": LANES,
+                                 "queries": qvalid_b.sum(-1).tolist(),
+                                 "refs": mvalid_b.sum(-1).tolist(),
+                                 "bit_identical_to_k3_per_lane": k4_is_k3,
+                                 "max_rel_err": k4_rel, "max_abs_err": k4_abs,
+                                 "coords_equal": k4_coords_same,
+                                 "tile_pairs": prep_b[2].numel(),
+                                 "flagged_pairs": flagged_b},
+          "knn_lines": {"accepted_kernel": int(ok_k.sum()),
+                        "accepted_plain": int(ok_p.sum()),
+                        "endpoints_equal": k6_same,
+                        "gate_flips": k6_flips,
+                        "gate_flips_off_ratio_boundary": k6_off},
           "local_map_compact": {"rows": kmap.xyz.shape[0],
                                 "occupied": int(kmap.valid.sum()),
                                 "targets": len(koffs),
@@ -645,6 +1002,28 @@ def main() -> int:
                      + e_q * 4 + e_q * KNN.K * 4 * 4,
                      flagged * KNN.TILE_E * KNN.TILE_M * 8)
 
+    k4_ms = cuda_ms(lambda: KNN.knn_launch_batched(*prep_b), 50)
+    k4_wrapper_ms = cuda_ms(lambda: KNN.knn_coords_batched_cuda(
+        query_b, qvalid_b, map_b, mvalid_b, max_radius=radius,
+        ref_presorted=True), 50)
+    k4_plain = cuda_ms(lambda: KNN.knn_coords_batched_plain(
+        query_b, qvalid_b, map_b, mvalid_b), 3, 1)
+    e_b = query_b.shape[0] * query_b.shape[1]
+    # K3's bytes for each lane and the flagged pairs of all lanes
+    k4_bound = bound(prep_b[0].numel() * 4 + prep_b[1].numel() * 4
+                     + prep_b[2].numel() * 4 + e_b * 4 + e_b * KNN.K * 4 * 4,
+                     flagged_b * KNN.TILE_E * KNN.TILE_M * 8)
+
+    k6_ms = cuda_ms(lambda: KNN.knn_lines_launch(*prep_l, *gates), 50)
+    k6_plain = cuda_ms(lambda: KNN.knn_lines_plain(
+        query, qvalid, map_xyz, map_valid, KNN.K, *gates), 3, 1)
+    # K3's inputs; out two endpoints and a flag a query; K3's flagged-pair
+    # operations plus the epilogue's
+    k6_bound = bound(q4.numel() * 4 + r4.numel() * 4 + flags.numel() * 4
+                     + e_q * 4 + e_q * (2 * 12 + 1),
+                     flagged * KNN.TILE_E * KNN.TILE_M * 8
+                     + e_q * K6_OPS_PER_QUERY)
+
     kargs = (kmap.xyz, kmap.key, kmap.valid, kbase, koffs, cap)
     k7_ms = cuda_ms(lambda: K7.compact_hits_cuda(*kargs), 100)
     k7_plain = cuda_ms(lambda: K7.compact_hits_plain(*kargs), 10, 2)
@@ -686,6 +1065,20 @@ def main() -> int:
          "wrapper_ms": k3_wrapper_ms,
          "unpruned_bound_ms": e_q * map_xyz.shape[0] * 8
          / FP32_OPS_PER_S * 1e3},
+        {"name": "knn_coords_batched", "route": "cuda",
+         "source": "liodom_tpu_torch/csrc/knn_coords.cu",
+         "replaces": "liodom_tpu/ops/knn_pallas.py:526",
+         "launches": lcounts["knn_coords_batched"], "max_abs_err": k4_abs,
+         "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound[0],
+         "bound_by": k4_bound[1], "library_ms": None, "batch": LANES,
+         "wrapper_ms": k4_wrapper_ms},
+        {"name": "knn_lines", "route": "cuda",
+         "source": "liodom_tpu_torch/csrc/knn_lines.cu",
+         "replaces": "liodom_tpu/ops/knn_pallas.py:580",
+         "launches": lines["image_step"]["launches"]["knn_lines"],
+         "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain,
+         "bound_ms": k6_bound[0], "bound_by": k6_bound[1],
+         "library_ms": None, "gate_flips": k6_flips},
         {"name": "local_map_compact", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/local_map_compact.cu",
          "replaces": "scripts/compact_pallas_experiment.py:50",
@@ -704,7 +1097,7 @@ def main() -> int:
          "library_ms": None, "table_copy_ms": clone_ms},
     ]
 
-    # ---- 8. where a frame's device time goes ------------------------------
+    # ---- 11. where a frame's device time goes -----------------------------
     # the bench drive's last frames again, from the states they met
     n_prof = 5
     last = bimgs[N_FRAMES - n_prof:]
@@ -716,7 +1109,15 @@ def main() -> int:
               lambda st, im: S.combined_image_step(
                   *st, im.xyz, im.count, ccfg, MCFG, step=0,
                   local_map_every=4)[:2],
-              bc_states[N_FRAMES - n_prof - 1], last, smi)})
+              bc_states[N_FRAMES - n_prof - 1], last, smi),
+          f"batch_image_step_b{LANES}": profile_frames(
+              lambda st, im: P.batch_image_step(st, im.xyz, im.count, cfg)[0],
+              bb_states[N_FRAMES - n_prof - 1],
+              bench_b[LANES][N_FRAMES - n_prof:], smi),
+          f"batch_image_step_b{max(TIMED_BATCHES)}": profile_frames(
+              lambda st, im: P.batch_image_step(st, im.xyz, im.count, cfg)[0],
+              b8_state, bench_b[max(TIMED_BATCHES)][N_FRAMES - n_prof:],
+              smi)})
 
     if failures:
         emit({"phase": "failed", "failures": failures})

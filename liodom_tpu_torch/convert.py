@@ -54,7 +54,9 @@ def state_from_numpy(np_state: Union[Mapping, Sequence], device=None
     dict with :data:`STATE_KEYS`, or a nested tuple in ``OdomState`` field
     order (``((xyz, valid, next_slot, nframes), (q, t), (q, t),
     received_xyz, received_valid, imu_ori)``, e.g. the JAX state mapped
-    through ``np.asarray``)."""
+    through ``np.asarray``).  A batched JAX state (``init_batch_state``,
+    ``batch_image_step``) keeps its leading batch dimension on every
+    field."""
     s = _flat(np_state)
     dev = resolve_device(device)
 
@@ -72,7 +74,8 @@ def state_from_numpy(np_state: Union[Mapping, Sequence], device=None
     return OdomState(window,
                      Pose(f32(s["odom_q"]), f32(s["odom_t"])),
                      Pose(f32(s["prev_q"]), f32(s["prev_t"])),
-                     f32(np.reshape(s["received_xyz"], (-1, 3))),
+                     f32(np.reshape(s["received_xyz"],
+                                    np.shape(s["received_valid"]) + (3,))),
                      flag(s["received_valid"]),
                      f32(s["imu_ori"]))
 

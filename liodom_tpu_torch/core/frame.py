@@ -47,12 +47,12 @@ def ring_mask(img: RingImage) -> torch.Tensor:
 
 
 class EdgeCloud(NamedTuple):
-    xyz: torch.Tensor    # (E, 3)
-    valid: torch.Tensor  # (E,) bool
+    xyz: torch.Tensor    # (..., E, 3)
+    valid: torch.Tensor  # (..., E) bool
 
     @property
     def capacity(self) -> int:
-        return self.xyz.shape[0]
+        return self.xyz.shape[-2]
 
     def num_valid(self) -> torch.Tensor:
-        return self.valid.sum(dtype=torch.int32)
+        return self.valid.sum(dim=-1, dtype=torch.int32)

@@ -24,7 +24,9 @@ class Pose(NamedTuple):
     def identity(dtype=torch.float32, batch: Tuple[int, ...] = (),
                  device=None) -> "Pose":
         q = torch.zeros(batch + (4,), dtype=dtype, device=device)
-        q[..., 0] = 1.0
+        # fill_, not `q[..., 0] = 1.0`: a Python scalar assigned into a
+        # CUDA tensor is copied from the host, which synchronises
+        q.select(-1, 0).fill_(1.0)
         t = torch.zeros(batch + (3,), dtype=dtype, device=device)
         return Pose(q, t)
 
@@ -34,7 +36,7 @@ class Pose(NamedTuple):
         top = torch.cat([R, self.t[..., :, None]], dim=-1)
         bottom = torch.zeros(top.shape[:-2] + (1, 4), dtype=top.dtype,
                              device=top.device)
-        bottom[..., 3] = 1.0
+        bottom.select(-1, 3).fill_(1.0)
         return torch.cat([top, bottom], dim=-2)
 
 

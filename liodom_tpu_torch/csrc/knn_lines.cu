@@ -1,0 +1,145 @@
+// K6: exact 5-NN with the line-fit gate fused into the epilogue, written by
+// hand for Hopper (sm_90a).
+//
+// Replaces the TPU kernel liodom_tpu/ops/knn_pallas.py:_knn_lines_kernel
+// (launched by knn_lines_pallas).  The search is K3's (knn_search.cuh, the
+// same flagged-tile walk and tie order); then, per query and still in
+// registers, the line test of laser_odometry.cc:325-357: the centroid and
+// un-normalised covariance of the 5 neighbours, the Cardano eigenvalues,
+// and the gates dk < max_sq_dist, e_max > eig_ratio * e_mid and
+// sep^2 > min_line_sep^2.  Out: lpa (the nearest neighbour), lpb (the second)
+// and valid (the gates AND the query's own mask), each at its query's
+// original index.  The (E, 5, 3) neighbour planes never reach device memory.
+//
+// What bounds it on the card: operations, as K3 (8 FP32 operations a flagged
+// (query, ref) pair) plus about 160 a query for the epilogue.
+//
+// Design: the TPU kernel computed the epilogue on the VMEM planes in the
+// last grid step and needed a polynomial arccos because Mosaic has none;
+// here every thread owns its query, so the epilogue is scalar code on the
+// thread's registers with the native acosf.  The arithmetic follows the
+// plain version (ops/neighbors.py:_line_fit and sym3_eigenvalues) operation
+// by operation, each rounded on its own (-fmad=false); acosf and cosf may
+// differ from the host's in the last ulp, so `valid` may differ from the
+// plain version only where e_max sits at eig_ratio * e_mid.  The p == 0
+// branch (A = qI) sets every eigenvalue to q, as sym3_eigenvalues does.
+// Like K4, the kernel runs on a (n_e, B) grid: a solo call is B = 1, and a
+// batched step makes one launch a solve iteration.
+
+#include <cuda_runtime.h>
+
+#include "knn_search.cuh"
+
+namespace {
+
+using namespace liodom_knn;
+
+constexpr float kTwoThirdsPi = 2.0943951023931953f;
+
+__global__ void __launch_bounds__(kTileE)
+knn_lines_kernel(const float4* __restrict__ q4, const float4* __restrict__ r4,
+                 const int* __restrict__ flags, const int* __restrict__ qperm,
+                 int n_query, int n_e, int n_m, float max_sq_dist,
+                 float eig_ratio, float min_sep_sq, float* __restrict__ out_a,
+                 float* __restrict__ out_b, bool* __restrict__ out_ok) {
+  __shared__ float4 tile[kTileM];
+  const size_t bi = blockIdx.y;
+  q4 += bi * n_e * kTileE;
+  r4 += bi * n_m * kTileM;
+  flags += bi * n_e * n_m;
+  qperm += bi * n_query;
+  out_a += bi * n_query * 3;
+  out_b += bi * n_query * 3;
+  out_ok += bi * n_query;
+
+  const int et = blockIdx.x;
+  const int pos = et * kTileE + threadIdx.x;
+  const float4 q = q4[pos];
+  Best b;
+  search(q, r4, flags + static_cast<size_t>(et) * n_m, n_m, tile, b);
+  if (pos >= n_query) return;
+
+  // centroid and un-normalised covariance (sums in neighbour order)
+  float mx = b.x[0], my = b.y[0], mz = b.z[0];
+#pragma unroll
+  for (int s = 1; s < kK; ++s) {
+    mx = mx + b.x[s];
+    my = my + b.y[s];
+    mz = mz + b.z[s];
+  }
+  mx = mx / static_cast<float>(kK);
+  my = my / static_cast<float>(kK);
+  mz = mz / static_cast<float>(kK);
+  float a00 = 0.0f, a01 = 0.0f, a02 = 0.0f, a11 = 0.0f, a12 = 0.0f, a22 = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kK; ++s) {
+    const float cx = b.x[s] - mx, cy = b.y[s] - my, cz = b.z[s] - mz;
+    a00 = a00 + cx * cx;
+    a01 = a01 + cx * cy;
+    a02 = a02 + cx * cz;
+    a11 = a11 + cy * cy;
+    a12 = a12 + cy * cz;
+    a22 = a22 + cz * cz;
+  }
+
+  // Cardano, the chain of sym3_eigenvalues
+  const float p1 = (a01 * a01 + a02 * a02) + a12 * a12;
+  const float qm = ((a00 + a11) + a22) / 3.0f;
+  const float d0 = a00 - qm, d1 = a11 - qm, d2 = a22 - qm;
+  const float p2 = ((d0 * d0 + d1 * d1) + d2 * d2) + 2.0f * p1;
+  const float p = sqrtf(fmaxf(p2 / 6.0f, 0.0f));
+  const float sp = p > 0.0f ? p : 1.0f;
+  const float b00 = d0 / sp, b11 = d1 / sp, b22 = d2 / sp;
+  const float b01 = a01 / sp, b02 = a02 / sp, b12 = a12 / sp;
+  const float det = (b00 * (b11 * b22 - b12 * b12)
+                     - b01 * (b01 * b22 - b12 * b02))
+                    + b02 * (b01 * b12 - b11 * b02);
+  const float r = fminf(fmaxf(det / 2.0f, -1.0f), 1.0f);
+  const float phi = acosf(r) / 3.0f;
+  float e_max = qm + (2.0f * p) * cosf(phi);
+  const float e_min = qm + (2.0f * p) * cosf(phi + kTwoThirdsPi);
+  float e_mid = (3.0f * qm - e_max) - e_min;
+  if (!(p > 0.0f)) {
+    e_max = qm;
+    e_mid = qm;
+  }
+
+  const float sx = b.x[0] - b.x[1], sy = b.y[0] - b.y[1], sz = b.z[0] - b.z[1];
+  const float sep_sq = (sx * sx + sy * sy) + sz * sz;
+  const bool ok = (q.w != 0.0f) && (b.d[kK - 1] < max_sq_dist)
+                  && (e_max > eig_ratio * e_mid) && (sep_sq > min_sep_sq);
+
+  const size_t dst = static_cast<size_t>(qperm[pos]);
+  out_a[dst * 3 + 0] = b.x[0];
+  out_a[dst * 3 + 1] = b.y[0];
+  out_a[dst * 3 + 2] = b.z[0];
+  out_b[dst * 3 + 0] = b.x[1];
+  out_b[dst * 3 + 1] = b.y[1];
+  out_b[dst * 3 + 2] = b.z[1];
+  out_ok[dst] = ok;
+}
+
+}  // namespace
+
+// B stacked (query set, ref set) pairs laid out as K3's: q4 (B, n_e * 64, 4),
+// r4 (B, n_m * 512, 4), flags (B, n_e, n_m) i32, qperm (B, n_query) i32 ->
+// out_a, out_b (B, n_query, 3) f32, out_ok (B, n_query) bool.
+extern "C" int liodom_knn_lines(const void* q4, const void* r4,
+                                const void* flags, const void* qperm,
+                                void* out_a, void* out_b, void* out_ok,
+                                int batch, int n_query, int n_e, int n_m,
+                                int tile_e, int tile_m, int k,
+                                float max_sq_dist, float eig_ratio,
+                                float min_sep_sq, void* stream) {
+  if (tile_e != kTileE || tile_m != kTileM || k != kK || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_e <= 0 || batch <= 0) return static_cast<int>(cudaSuccess);
+  knn_lines_kernel<<<dim3(n_e, batch), kTileE, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(q4), static_cast<const float4*>(r4),
+      static_cast<const int*>(flags), static_cast<const int*>(qperm), n_query,
+      n_e, n_m, max_sq_dist, eig_ratio, min_sep_sq,
+      static_cast<float*>(out_a), static_cast<float*>(out_b),
+      static_cast<bool*>(out_ok));
+  return static_cast<int>(cudaGetLastError());
+}

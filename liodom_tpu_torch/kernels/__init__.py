@@ -6,7 +6,8 @@ Nothing is compiled when this module is imported: a library is built the
 first time a kernel is asked for on a CUDA tensor, or by :func:`build_all`,
 which starts one ``nvcc`` per source in parallel.  Builds land in
 ``kernels/build/`` (git-ignored), named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+flags (and of the shared headers ``csrc/*.cuh``), so an edited source is
+rebuilt and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("smoothness", "select", "knn_coords", "local_map_compact",
-           "probe_insert")
+SOURCES = ("smoothness", "select", "knn_coords", "knn_lines",
+           "local_map_compact", "probe_insert")
 
 # -fmad=false: the kernels round every product and sum as the plain PyTorch
 # versions do (no fused multiply-add), which keeps them bit-exact with those.
@@ -54,8 +55,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str, nvcc: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src)
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update("\0".join((nvcc,) + NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

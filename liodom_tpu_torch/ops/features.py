@@ -125,8 +125,14 @@ def split_overflow(raw: RawScan, cfg: LiodomConfig) -> torch.Tensor:
 
 def smoothness(img: RingImage, cfg: LiodomConfig) -> torch.Tensor:
     """11-tap second-difference smoothness (feature_extractor.cc:195-232):
-    kernel K1 on CUDA, its plain version on the CPU."""
+    kernel K1 on CUDA, its plain version on the CPU.  A batch of images
+    (B, R, W, 3) is folded into B*R rings, one launch (the custom_vmap rule
+    of ``features.py:52-57``): rings are independent."""
     del cfg  # the stencil has no parameters; kept for the JAX signature
+    if img.xyz.ndim == 4:
+        b, r, w, _ = img.xyz.shape
+        return smoothness_kernel(img.xyz.reshape(b * r, w, 3),
+                                 img.count.reshape(b * r)).reshape(b, r, w)
     return smoothness_kernel(img.xyz, img.count)
 
 
@@ -134,5 +140,14 @@ def select_edges(img: RingImage, smooth: torch.Tensor,
                  cfg: LiodomConfig) -> EdgeCloud:
     """Region-wise greedy edge selection (feature_extractor.cc:181-313):
     kernel K2 on CUDA, its plain version on the CPU.  Slot layout
-    ``ring * S + region * (edges_per_region + 1) + pick``."""
+    ``ring * S + region * (edges_per_region + 1) + pick``.  A batch of
+    images is folded into B*R rings, one launch, and comes back as
+    (B, R*S) slots (``features.py:78-86``): the pick chain never crosses
+    rings, so each element matches its solo selection bit for bit."""
+    if img.xyz.ndim == 4:
+        b, r, w, _ = img.xyz.shape
+        ec = select_edges_kernel(
+            RingImage(img.xyz.reshape(b * r, w, 3), img.count.reshape(b * r)),
+            smooth.reshape(b * r, w), cfg)
+        return EdgeCloud(ec.xyz.reshape(b, -1, 3), ec.valid.reshape(b, -1))
     return select_edges_kernel(img, smooth, cfg)

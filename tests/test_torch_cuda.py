@@ -96,6 +96,63 @@ def test_knn_kernel_matches_plain(dev):
     assert torch.equal(c_k[gate], c_p[gate])
 
 
+def _clustered(rng, dev, n, centers):
+    pts = (centers[rng.integers(0, len(centers), n)]
+           + rng.normal(size=(n, 3)) * 0.4).astype(np.float32)
+    return (torch.from_numpy(pts).to(dev),
+            torch.from_numpy(rng.random(n) > 0.2).to(dev))
+
+
+def test_knn_batched_kernel_is_k3_lane_by_lane(dev):
+    rng = np.random.default_rng(1)
+    lanes = []
+    for _ in range(4):                       # a distinct scene per lane
+        centers = rng.uniform(-30, 30, (40, 3))
+        lanes.append(_clustered(rng, dev, 3000, centers)
+                     + _clustered(rng, dev, 20000, centers))
+    q, qm, r, rm = (torch.stack([ln[i] for ln in lanes]) for i in range(4))
+    before = KNN.knn_launch_batched.launches
+    d_b, c_b = KNN.knn_coords_batched_cuda(q, qm, r, rm, max_radius=1.0)
+    assert KNN.knn_launch_batched.launches == before + 1
+    d_p, c_p = KNN.knn_coords_batched_plain(q, qm, r, rm)
+    for b in range(4):
+        d_s, c_s = KNN.knn_coords_cuda(q[b], qm[b], r[b], rm[b],
+                                       max_radius=1.0)
+        assert torch.equal(d_b[b], d_s) and torch.equal(c_b[b], c_s)
+        near = d_p[b] < 1.0
+        assert int(near.sum()) > 1000
+        assert torch.equal(d_b[b][near], d_p[b][near])
+        gate = qm[b] & (d_p[b][:, -1] < 1.0)
+        assert torch.equal(c_b[b][gate], c_p[b][gate])
+
+
+def test_knn_lines_kernel_matches_plain(dev):
+    rng = np.random.default_rng(2)
+    bases = rng.uniform(-15, 15, (120, 3))
+    t = np.linspace(-1.2, 1.2, 60)
+    m = (bases[:, None, :] + t[None, :, None] * np.array([0.3, 0, 1])
+         ).reshape(-1, 3) + rng.normal(size=(7200, 3)) * 0.01
+    blobs = rng.uniform(-15, 15, (60, 3))
+    m = np.concatenate([m, blobs[rng.integers(0, 60, 6000)]
+                        + rng.normal(size=(6000, 3)) * 0.3])
+    e = m[::5] + rng.normal(size=m[::5].shape) * 0.04
+    r = torch.from_numpy(m.astype(np.float32)).to(dev)
+    q = torch.from_numpy(e.astype(np.float32)).to(dev)
+    rm = torch.from_numpy(rng.random(len(m)) > 0.05).to(dev)
+    qm = torch.from_numpy(rng.random(len(e)) > 0.1).to(dev)
+    for args in ((q, qm, r, rm), tuple(torch.stack([x, x.flip(0)])
+                                       for x in (q, qm, r, rm))):
+        before = KNN.knn_lines_launch.launches
+        got = KNN.knn_lines_cuda(*args)
+        assert KNN.knn_lines_launch.launches == before + 1
+        want = KNN.knn_lines_plain(*args)
+        both = got[2] & want[2]
+        assert int(both.sum()) > 500
+        assert torch.equal(got[0][both], want[0][both])
+        assert torch.equal(got[1][both], want[1][both])
+        assert int((got[2] != want[2]).sum()) <= 2   # ratio-gate boundary
+
+
 def test_image_step_on_the_card_matches_the_cpu_path(dev):
     cfg, imgs = _images(4)
     gpu = P.init_state(cfg)
@@ -178,3 +235,18 @@ def test_combined_step_on_the_card_matches_the_cpu_path(dev):
     assert abs(int(gm.valid.sum()) - int(cm.valid.sum())) <= \
         0.001 * int(cm.valid.sum())
     assert int(gm.overflow) == int(cm.overflow) == 0
+
+
+def test_batch_image_step_on_the_card_matches_the_cpu_path(dev):
+    from liodom_tpu_torch.parallel.sharded import init_batch_state
+    cfg, imgs = _images(3)
+    pairs = [(imgs[i], imgs[2 - i]) for i in range(3)]   # distinct lanes
+    gpu = init_batch_state(cfg, 2)
+    cpu = init_batch_state(cfg, 2, device="cpu")
+    for a, b in pairs:
+        xyz = torch.stack([a.xyz, b.xyz])
+        cnt = torch.stack([a.count, b.count])
+        gpu, gp, gn = P.batch_image_step(gpu, xyz.to(dev), cnt.to(dev), cfg)
+        cpu, cp, cn = P.batch_image_step(cpu, xyz, cnt, cfg)
+        assert torch.equal(gn.cpu(), cn)
+        assert float((gp.t.cpu() - cp.t).norm(dim=-1).max()) < 0.01

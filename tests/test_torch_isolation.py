@@ -25,6 +25,7 @@ from liodom_tpu_torch.ops import knn_pallas as KNN
 from liodom_tpu_torch.ops import probe_insert as PI
 from liodom_tpu_torch.ops import select_pallas as SEL
 from liodom_tpu_torch.ops import smoothness_pallas as SM
+from liodom_tpu_torch.parallel.sharded import init_batch_state
 
 torch.set_num_threads(1)
 
@@ -55,7 +56,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res["built"] == []          # importing builds and loads nothing
     for name in ("odometry.pipeline", "ops.knn_pallas", "ops.compact_pallas",
                  "ops.probe_insert", "mapping.grid", "mapping.service",
-                 "convert"):
+                 "parallel.sharded", "convert"):
         assert f"liodom_tpu_torch.{name}" in res["modules"]
 
 
@@ -95,12 +96,16 @@ def test_entry_points_default_to_cuda():
             S.MappingService(mcfg)
         with pytest.raises(RuntimeError, match="CUDA"):
             S.init_combined(cfg.replace(mapping=True), mcfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_batch_state(cfg, 2)
     assert G.init_map(64, device="cpu").code.device.type == "cpu"
+    assert init_batch_state(cfg, 2, device="cpu").odom.t.shape == (2, 3)
 
 
 def _counts():
     return (SM.smoothness_cuda.launches, SEL.select_edges_cuda.launches,
-            KNN.knn_launch.launches, K7.compact_hits_cuda.launches,
+            KNN.knn_launch.launches, KNN.knn_launch_batched.launches,
+            KNN.knn_lines_launch.launches, K7.compact_hits_cuda.launches,
             PI.probe_insert_cuda.launches)
 
 
@@ -121,6 +126,15 @@ def test_cpu_tensors_take_the_plain_versions():
     d, c = KNN.knn_coords(q, qm, r, qm, max_radius=1.0)
     d0, c0 = KNN.knn_coords_plain(q, qm, r, qm)
     assert torch.equal(d, d0) and torch.equal(c, c0)
+    qb, rb, qmb = torch.stack([q, r]), torch.stack([r, q]), torch.stack([qm,
+                                                                         qm])
+    d, c = KNN.knn_coords_batched(qb, qmb, rb, qmb, max_radius=1.0)
+    d0, c0 = KNN.knn_coords_batched_plain(qb, qmb, rb, qmb)
+    assert torch.equal(d, d0) and torch.equal(c, c0)
+    for args in ((q, qm, r, qm), (qb, qmb, rb, qmb)):
+        got = KNN.knn_lines(*args, max_sq_dist=4.0)
+        want = KNN.knn_lines_plain(*args, max_sq_dist=4.0)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
     mcfg = MapConfig(voxel_xysize=20.0, voxel_zsize=25.0)
     ones = torch.ones(256, dtype=torch.bool)
     m = G.update_map(G.init_map(4096, device="cpu"), xyz[0], ones,
@@ -151,6 +165,16 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         KNN.knn_launch(q4, torch.zeros((512, 4)),
                        torch.zeros((1, 1), dtype=torch.int32),
                        torch.zeros(64, dtype=torch.int32))
+    prep = (q4[None], torch.zeros((1, 512, 4)),
+            torch.zeros((1, 1, 1), dtype=torch.int32),
+            torch.zeros((1, 64), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        KNN.knn_launch_batched(*prep)
+    with pytest.raises(ValueError):
+        KNN.knn_lines_launch(*prep, 1.0, 3.0, 0.01)
+    with pytest.raises(ValueError):
+        KNN.knn_coords_batched_cuda(q4[None, :, :3], q4[None, :, 0] > 0,
+                                    q4[None, :, :3], q4[None, :, 0] > 0)
     m = G.init_map(64, device="cpu")
     with pytest.raises(ValueError):
         K7.compact_hits_cuda(m.xyz, m.key, m.valid,

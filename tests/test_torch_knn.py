@@ -9,6 +9,9 @@ fit.
   encoding, query un-permutation) runs on the CPU here: its output, fed to
   a brute force that stands in for the kernel, gives the plain version's
   answer.
+* K4: the batched plain version against ``knn_coords_pallas_batched(
+  interpret=True)`` with and without ``max_radius``, and the batched
+  wrapper work against the solo one lane by lane.
 * ``line_correspondences`` against the JAX one (``pallas_interpret``):
   validity equal except where the eigenvalue ratio sits within float32
   noise of ``eig_ratio`` (``MAX_GATE_FLIPS`` rows allowed; measured 0),
@@ -175,3 +178,54 @@ def test_line_correspondences_match_jax(seed):
                                np.asarray(want.lpa)[both], atol=1e-6)
     np.testing.assert_allclose(got.lpb.numpy()[both],
                                np.asarray(want.lpb)[both], atol=1e-6)
+
+
+def _batched_scene(seeds, e=192, m=1536):
+    scenes = [_scene(s, e=e, m=m) for s in seeds]
+    return tuple(np.stack([sc[i] for sc in scenes]) for i in range(4))
+
+
+@pytest.mark.parametrize("max_radius", [None, 1.0])
+def test_knn_batched_plain_matches_pallas_batched_interpret(max_radius):
+    """K4's plain version against the TPU kernel in interpret mode, each
+    lane a distinct scene: compared inside the radius, as K3 is."""
+    q, qm, r, rm = _batched_scene((7, 8, 9))
+    d_j, c_j = JK.knn_coords_pallas_batched(
+        jnp.asarray(q), jnp.asarray(qm), jnp.asarray(r), jnp.asarray(rm),
+        k=5, tile_e=64, tile_m=512, interpret=True, max_radius=max_radius)
+    d_t, c_t = K.knn_coords_batched_plain(*map(torch.from_numpy, (q, qm, r,
+                                                                  rm)))
+    assert d_t.shape == (3, 192, 5) and c_t.shape == (3, 192, 5, 3)
+    for b in range(3):
+        _check_knn(np.asarray(d_j[b]), np.asarray(c_j[b]), d_t[b].numpy(),
+                   c_t[b].numpy(), qm[b])
+        d_s, c_s = K.knn_coords_plain(*(torch.from_numpy(x[b])
+                                        for x in (q, qm, r, rm)))
+        assert torch.equal(d_t[b], d_s) and torch.equal(c_t[b], c_s)
+
+
+@pytest.mark.parametrize("presorted", [False, True])
+def test_batched_wrapper_matches_solo_per_lane(presorted):
+    """Each batch element gets its own sort, boxes and flags: the batched
+    preparation equals K3's on that element alone, tensor for tensor, so
+    K4's offsets see exactly K3's layout."""
+    q, qm, r, rm = map(torch.from_numpy, _batched_scene((10, 11),
+                                                        e=300, m=3000))
+    if presorted:
+        r, rm = K.spatial_sort_points(r, rm)
+        for b in range(2):
+            rs, rms = K.spatial_sort_points(*map(torch.from_numpy,
+                                                 _scene(10 + b, e=300,
+                                                        m=3000)[2:]))
+            assert torch.equal(r[b], rs) and torch.equal(rm[b], rms)
+    prep = K.knn_prepare_batched(q, qm, r, rm, 1.0, ref_presorted=presorted)
+    assert prep[2].shape[0] == 2 and prep[2].dtype == torch.int32
+    for b in range(2):
+        solo = K.knn_prepare(q[b], qm[b], r[b], rm[b], 1.0,
+                             ref_presorted=presorted)
+        for got, want in zip(prep, solo):
+            assert torch.equal(got[b], want)
+        d_e, c_e = _emulated_launch(*(t[b] for t in prep))
+        d_p, c_p = K.knn_coords_plain(q[b], qm[b], r[b], rm[b])
+        _check_knn(d_e.numpy(), c_e.numpy(), d_p.numpy(), c_p.numpy(),
+                   qm[b].numpy())
