@@ -58,15 +58,34 @@ Phases, each printing one JSON line:
    K6 twice a frame and K3 never, ATE over 20 frames below 0.1 m, poses
    within 1 cm and 1e-3 rad of the ``pallas_coords`` runs over those 20
    frames (every frame's gap printed), no host synchronisation.
-9. timing — the bench drive of ``bench.py`` (the same course with 1 cm
+9. sharded_path — the parallel layer on a one-rank NCCL mesh (data 1 x
+   map 1; a process group on a free local port, its communicators created
+   before any drive): 36 frames of ``make_sharded_combined_image_step`` at
+   the combined configuration, counters set to 0 just before and read just
+   after: K1, K2, K7 and the probe kernel once a frame, K5 twice, K3, K4
+   and K6 never; ATE over 20 frames below 0.1 m, within 1 cm and 1e-3 rad
+   of phase 4's ``combined_image_step`` over those 20 frames (every
+   frame's gap printed), equal edge counts, overflow 0, no host
+   synchronisation.  Then ``make_sharded_step`` on phase 6's 4 lanes as one
+   local batch, fed ``select_edges``' edges (taken before the counters
+   are reset): K5 twice a frame and nothing else, each lane within 1 cm and
+   1e-3 rad of its solo ``image_step`` over 20 frames; then
+   ``make_sharded_combined_step`` on lane 0's edges for 20 frames against
+   ``combined_image_step`` on the same bar; then ``launch.smoke`` and
+   ``launch.combined_smoke`` on the same mesh.
+10. sharded_cpu_parity — the flagship's first 6 frames on the CPU in a
+   one-rank gloo group (a subprocess: ``--sharded-cpu``): within 1 cm and
+   1e-3 rad of the card, equal edge counts.
+11. timing — the bench drive of ``bench.py`` (the same course with 1 cm
    sensor noise): steady-state ms/frame and scans/s by CUDA events after 6
    warm-up frames, for ``image_step``, for ``combined_image_step`` at the
    bench's two cadences (every frame, and every 4th frame), for
    ``batch_image_step`` at B = 4 and 8 (``bench.py:401``; lanes as in phase
-   6, with noise: ms a batched frame and aggregate scans/s) and for
-   ``chained_image_step`` (chunks of 12), each drive twice in turns; every
-   run at most 125 ms a frame for each lane (0.8 x the 10 Hz sensor rate).
-10. kernels — each kernel against its plain PyTorch version on the card, on
+   6, with noise: ms a batched frame and aggregate scans/s), for
+   ``chained_image_step`` (chunks of 12) and for the sharded flagship at
+   mesh 1 x 1, each drive twice in turns; every run at most 125 ms a frame
+   for each lane (0.8 x the 10 Hz sensor rate).
+12. kernels — each kernel against its plain PyTorch version on the card, on
    the bench drive's last frame, window, map and pose: K1 bit-exact, K2
    bit-exact edges for the same smoothness plane, K3 d2 within 1e-5
    relative where d2 < 1 and identical coordinates where the 5th-NN gate
@@ -75,17 +94,23 @@ Phases, each printing one JSON line:
    and its plain version accept and any flip of the gate where the plain
    eigenvalues sit at the ratio (|e_max - 3 e_mid| <= 1e-4 e_max), K7
    bit-exact rows, validity and hit count (at the bench capacity and at
-   one that truncates), the probe kernel bit-exact table, slots and flags;
-   then each kernel's time beside its plain version's and its bound.
-11. profile — torch.profiler over 5 frames of the bench drive, for
-   ``image_step``, ``combined_image_step`` and ``batch_image_step`` at B =
-   4 and 8: device busy time and share, device kernels a frame, the
-   largest kernels by time, and the host's operators by their own time.
+   one that truncates), the probe kernel bit-exact table, slots and flags,
+   K5 on the sharded flagship's last frame and matching map, without a
+   radius (the path's call) and with 1 m: indices identical wherever the
+   plain d2 is finite (within the radius), d2 within 1e-5 relative where
+   d2 < 1; then each kernel's time beside its plain version's and its
+   bound.
+13. profile — torch.profiler over 5 frames of the bench drive, for
+   ``image_step``, ``combined_image_step``, ``batch_image_step`` at B = 4
+   and 8 and the sharded flagship: device busy time and share, device
+   kernels a frame, the largest kernels by time, and the host's operators
+   by their own time.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line and, as the last
 line, ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that last line; no exception is caught.  Exits non-zero at once when
-no CUDA device is available.
+no CUDA device is available.  The process group is destroyed before the
+last lines; the CPU subprocess ends within its phase.
 """
 
 from __future__ import annotations
@@ -94,8 +119,10 @@ import argparse
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -103,6 +130,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -123,7 +151,11 @@ from liodom_tpu_torch.ops import neighbors as NB
 from liodom_tpu_torch.ops import probe_insert as PI
 from liodom_tpu_torch.ops import select_pallas as SEL
 from liodom_tpu_torch.ops import smoothness_pallas as SM
-from liodom_tpu_torch.parallel.sharded import init_batch_state
+from liodom_tpu_torch.parallel import combined as CB
+from liodom_tpu_torch.parallel import launch as LA
+from liodom_tpu_torch.parallel.mesh import make_mesh
+from liodom_tpu_torch.parallel.sharded import (all_gather, init_batch_state,
+                                               make_sharded_step)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
@@ -196,6 +228,7 @@ _COUNTED = {"smoothness": SM.smoothness_cuda,
             "knn_coords": KNN.knn_launch,
             "knn_coords_batched": KNN.knn_launch_batched,
             "knn_lines": KNN.knn_lines_launch,
+            "knn_index": KNN.knn_index_launch,
             "local_map_compact": K7.compact_hits_cuda,
             "probe_insert": PI.probe_insert_cuda}
 
@@ -331,6 +364,48 @@ def run_chained(state, imgs, cfg, keep: bool = True, quats=None):
     return states, poses, n_edges
 
 
+def run_sharded(state, mstate, imgs, step, keep: bool = True):
+    """Drive ``make_sharded_combined_image_step``'s ``step`` over the
+    images; as :func:`run_combined`, one (state, map shard) a frame."""
+    states, poses, n_edges = [], [], []
+    for img in imgs:
+        state, mstate, pose, ne = step(state, mstate, img.xyz, img.count)
+        states = (states if keep else []) + [(state, mstate)]
+        poses.append(pose)
+        n_edges.append(ne)
+    return states, poses, n_edges
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_cpu_run(workdir: Path) -> int:
+    """The flagship on the CPU in a one-rank gloo group (a subprocess of
+    the sharded_cpu_parity phase): ring images from ``workdir/imgs.npz``
+    in, poses and edge counts to ``workdir/poses.npz``."""
+    cfg = LiodomConfig(local_map_size=5, mapping=True)
+    data = np.load(workdir / "imgs.npz")
+    LA.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cpu")
+    try:
+        mesh = make_mesh(1, 1, device="cpu")
+        step = CB.make_sharded_combined_image_step(mesh, cfg, MCFG)
+        imgs = [RingImage(torch.from_numpy(x), torch.from_numpy(c))
+                for x, c in zip(data["xyz"], data["count"])]
+        _, poses, n_edges = run_sharded(
+            *CB.init_combined_image_sharded(cfg, MCFG, mesh, device="cpu"),
+            imgs, step, keep=False)
+        np.savez(workdir / "poses.npz",
+                 q=torch.stack([p.q for p in poses]).numpy(),
+                 t=torch.stack([p.t for p in poses]).numpy(),
+                 n_edges=torch.stack(n_edges).numpy())
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def drive_error(poses, gt_pos):
     """(t (F, ...), q (F, ...), error to ground truth per frame, ATE over
     the first N_ATE frames) of a drive's poses, the lane axis last but
@@ -419,7 +494,12 @@ def profile_frames(step, state, imgs, smi) -> dict:
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    # the sharded_cpu_parity phase's subprocess
+    ap.add_argument("--sharded-cpu", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.sharded_cpu is not None:
+        return sharded_cpu_run(args.sharded_cpu)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -722,7 +802,141 @@ def main() -> int:
     os.environ["LIODOM_KNN_IMPL"] = "pallas_coords"
     emit({"phase": "lines_path", "frames": N_FRAMES, **lines})
 
-    # ---- 9. the bench drive: steady-state time a frame --------------------
+    # ---- 9. the parallel layer on a one-rank NCCL mesh ---------------------
+    LA.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    mesh = make_mesh(1, 1)
+    # the first collective of each group creates its communicator, which
+    # synchronises; do that before any drive
+    probe = torch.ones(1, device=dev)
+    for group in mesh.get_all_groups():
+        all_gather(probe, group, 1)
+        dist.all_reduce(probe, group=group)
+    torch.cuda.synchronize()
+    sstep = CB.make_sharded_combined_image_step(mesh, ccfg, MCFG)
+    reset_counters()
+    (s_states, sposes, sedges), ssyncs = sync_free(
+        lambda: run_sharded(*CB.init_combined_image_sharded(ccfg, MCFG, mesh),
+                            imgs, sstep, keep=True))
+    scounts = read_counters()
+    st_, sq_, serr, sate = drive_error(sposes, gt_pos)
+    sne = torch.stack(sedges).cpu().numpy()
+    s_dt, s_dr = pose_gaps(st_, sq_, ct, cq)
+    s_gap = (float(s_dt[:N_ATE].max()), float(s_dr[:N_ATE].max()))
+    s_overflow = int(s_states[-1][1].overflow)
+    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
+                    knn_index=2 * N_FRAMES, local_map_compact=N_FRAMES,
+                    probe_insert=N_FRAMES)
+    check(scounts == want, f"sharded launch counts {scounts} != {want}")
+    check(bool(np.isfinite(sq_).all() and np.isfinite(st_).all()),
+          "sharded: non-finite pose")
+    check(sate < 0.1, f"sharded ATE over {N_ATE} frames {sate:.4f} m >= 0.1")
+    check(s_gap[0] < 0.01 and s_gap[1] < 1e-3, f"sharded vs "
+          f"combined_image_step over {N_ATE} frames: {s_gap}")
+    check(np.array_equal(sne, cne), "sharded vs combined_image_step: "
+          "different edge counts")
+    check(s_overflow == 0, f"sharded: {s_overflow} points dropped by the map")
+    check(not ssyncs, f"{len(ssyncs)} host synchronisations in the sharded "
+          f"path: {ssyncs[:1]}")
+    sharded = {"launches": scounts, f"ate_m_first_{N_ATE}": sate,
+               "ate_m_all": float(np.sqrt(np.mean(serr ** 2))),
+               f"vs_combined_max_dt_m_drot_rad_first_{N_ATE}": s_gap,
+               "vs_combined_dt_m_per_frame": s_dt.tolist(),
+               "vs_combined_drot_rad_per_frame": s_dr.tolist(),
+               "same_n_edges": bool(np.array_equal(sne, cne)),
+               "overflow": s_overflow,
+               "occupied_slots": int(s_states[-1][1].valid.sum()),
+               "host_syncs": len(ssyncs)}
+
+    # make_sharded_step: the 4 lanes as one local batch, fed the edges of
+    # select_edges (taken before the counters are set to 0)
+    lane_edges = [F.select_edges(im, F.smoothness(im, cfg), cfg)
+                  for im in lane_imgs]
+    kstep = make_sharded_step(mesh, cfg)
+    torch.cuda.synchronize()
+    reset_counters()
+
+    def run_lanes():
+        st, poses = init_batch_state(cfg, LANES), []
+        for ec in lane_edges:
+            st, pose = kstep(st, ec.xyz, ec.valid)
+            poses.append(pose)
+        return poses
+
+    kposes, ksyncs = sync_free(run_lanes)
+    kcounts = read_counters()
+    kt, kq, _, _ = drive_error(kposes, lane_gt)
+    k_dt, k_dr = (np.stack(g, axis=1) for g in zip(*(
+        pose_gaps(kt[:, s], kq[:, s], solo[s][0], solo[s][1])
+        for s in range(LANES))))
+    k_gap = (float(k_dt[:N_ATE].max()), float(k_dr[:N_ATE].max()))
+    want = launches(knn_index=2 * N_FRAMES)
+    check(kcounts == want, f"sharded step launch counts {kcounts} != {want}")
+    check(k_gap[0] < 0.01 and k_gap[1] < 1e-3, f"sharded step vs solo "
+          f"image_step over {N_ATE} frames: {k_gap}")
+    check(not ksyncs, f"{len(ksyncs)} host synchronisations in the sharded "
+          f"step: {ksyncs[:1]}")
+    sharded["make_sharded_step"] = {
+        "batch": LANES, "launches": kcounts,
+        f"vs_solo_max_dt_m_drot_rad_first_{N_ATE}": k_gap,
+        "vs_solo_dt_m_per_frame_max_over_lanes": k_dt.max(axis=1).tolist(),
+        "host_syncs": len(ksyncs)}
+
+    # make_sharded_combined_step: lane 0's edges, N_ATE frames
+    cstep = CB.make_sharded_combined_step(mesh, ccfg, MCFG)
+    edges0 = [(ec.xyz[0], ec.valid[0]) for ec in lane_edges[:N_ATE]]
+    torch.cuda.synchronize()
+    reset_counters()
+
+    def run_composed():
+        o, m, poses = *CB.init_combined_sharded(ccfg, MCFG, mesh), []
+        for x, v in edges0:
+            o, m, pose = cstep(o, m, x, v)
+            poses.append(pose)
+        return m, poses
+
+    (c_map, c_poses), c_syncs = sync_free(run_composed)
+    c_counts = read_counters()
+    c_t = torch.stack([p.t for p in c_poses]).cpu().numpy()
+    c_q = torch.stack([p.q for p in c_poses]).cpu().numpy()
+    c_gap = pose_gap(c_t, c_q, ct[:N_ATE], cq[:N_ATE])
+    want = launches(knn_index=2 * N_ATE, local_map_compact=N_ATE,
+                    probe_insert=N_ATE)
+    check(c_counts == want, f"sharded combined step launch counts "
+          f"{c_counts} != {want}")
+    check(c_gap[0] < 0.01 and c_gap[1] < 1e-3, f"sharded combined step vs "
+          f"combined_image_step over {N_ATE} frames: {c_gap}")
+    check(int(c_map.overflow) == 0, "sharded combined step: map overflow")
+    check(not c_syncs, f"{len(c_syncs)} host synchronisations in the "
+          f"sharded combined step: {c_syncs[:1]}")
+    sharded["make_sharded_combined_step"] = {
+        "frames": N_ATE, "launches": c_counts,
+        "vs_combined_max_dt_m_drot_rad": c_gap, "host_syncs": len(c_syncs)}
+    sharded["launch_smoke_checksum"] = LA.smoke(mesh)
+    sharded["launch_combined_smoke_checksum"] = LA.combined_smoke(mesh)
+    emit({"phase": "sharded_path", "frames": N_FRAMES, "mesh": [1, 1],
+          "backend": dist.get_backend(), **sharded})
+
+    # ---- 10. the flagship's CPU route, a one-rank gloo group -------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(Path(tmp) / "imgs.npz",
+                 xyz=np.stack([im.xyz.numpy() for im in cpu_imgs]),
+                 count=np.stack([im.count.numpy() for im in cpu_imgs]))
+        subprocess.run([sys.executable, str(here / "chip_smoke.py"),
+                        "--sharded-cpu", tmp], check=True, timeout=600,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        got = np.load(Path(tmp) / "poses.npz")
+        sc_gap = pose_gap(got["t"], got["q"], st_[:N_CPU_FRAMES],
+                          sq_[:N_CPU_FRAMES])
+        sc_same = bool(np.array_equal(got["n_edges"], sne[:N_CPU_FRAMES]))
+    check(sc_gap[0] < 0.01 and sc_gap[1] < 1e-3,
+          f"sharded card vs CPU path: {sc_gap}")
+    check(sc_same, "sharded: card and CPU path picked different edge counts")
+    emit({"phase": "sharded_cpu_parity", "frames": N_CPU_FRAMES,
+          "backend": "gloo", "max_dt_m": sc_gap[0], "max_drot_rad": sc_gap[1],
+          "same_n_edges": sc_same, "seconds": time.perf_counter() - t0})
+
+    # ---- 11. the bench drive: steady-state time a frame -------------------
     bimgs = bench[0][0]
     bench_b = {b: stack_lanes([bench[s][0] for s in range(b)])
                for b in TIMED_BATCHES}
@@ -743,6 +957,9 @@ def main() -> int:
         "chained": (
             lambda st, ims, _first: run_chained(st, ims, cfg, keep=False),
             lambda: P.init_state(cfg), bimgs),
+        "sharded": (
+            lambda st, ims, _first: run_sharded(*st, ims, sstep, keep=False),
+            lambda: CB.init_combined_image_sharded(ccfg, MCFG, mesh), bimgs),
     }
     for b in TIMED_BATCHES:
         drives[f"batch_{b}"] = (
@@ -771,6 +988,11 @@ def main() -> int:
     chained_timing = {"ms_per_frame": mean["chained"][0],
                       "host_ms_per_frame": mean["chained"][1],
                       "scans_per_s": 1e3 / mean["chained"][0]}
+    sharded_timing = {"mesh": [1, 1], "ms_per_frame": mean["sharded"][0],
+                      "host_ms_per_frame": mean["sharded"][1],
+                      "scans_per_s": 1e3 / mean["sharded"][0],
+                      "minus_combined_every_frame_ms":
+                          mean["sharded"][0] - mean["every_frame"][0]}
     batch_timing = {}
     for b in TIMED_BATCHES:
         b_ms, b_host = mean[f"batch_{b}"]
@@ -792,7 +1014,7 @@ def main() -> int:
           "realtime_factor_vs_10hz": (1e3 / ms_frame) / 10.0,
           "n_edges_min": int(bne.min()), "n_edges_max": int(bne.max()),
           "combined": combined_timing, "chained": chained_timing,
-          "batch": batch_timing,
+          "batch": batch_timing, "sharded_combined_image_step": sharded_timing,
           "runs_ms_and_host_ms_in_turns": runs})
     # the states every frame of the bench drive left, for the kernel checks
     # and the profile (untimed)
@@ -802,11 +1024,13 @@ def main() -> int:
     bb_states, bb_poses, _ = run_course(init_batch_state(cfg, LANES),
                                         bench_b[LANES], cfg,
                                         step=P.batch_image_step)
+    bs_states, bs_poses, _ = run_sharded(
+        *CB.init_combined_image_sharded(ccfg, MCFG, mesh), bimgs, sstep)
     b8_state = run_course(init_batch_state(cfg, max(TIMED_BATCHES)),
                           bench_b[max(TIMED_BATCHES)][:N_FRAMES - 5], cfg,
                           keep=False, step=P.batch_image_step)[0][-1]
 
-    # ---- 10. each kernel against its plain version, bench shapes ----------
+    # ---- 12. each kernel against its plain version, bench shapes ---------
     img = bimgs[N_FRAMES - 1]
     sm_k = SM.smoothness_cuda(img.xyz, img.count)
     sm_p = SM.smoothness_plain(img.xyz, img.count)
@@ -925,10 +1149,39 @@ def main() -> int:
           "plain rounds")
     check(probe_drive, "probe kernel: table differs from the drive's map")
 
+    # K5 on the matching map the sharded flagship's last frame met (its
+    # window slots and received map after the frame before) and on that
+    # frame's edges (the gathered slots, not compacted) at its pose: the
+    # path's call (no radius) and with a radius of 1 m
+    s_map, s_valid = CB.matching_shard(bs_states[-2][0], 1, 0,
+                                       ccfg.local_map_size)
+    s_query = se3.transform(bs_poses[-1], ec_k.xyz)
+    d5_p, i5_p = KNN.knn_index_plain(s_query, ec_k.valid, s_map, s_valid)
+    k5 = {}
+    for name, rad in (("no_radius", None), ("radius_1m", radius)):
+        d5_k, i5_k = KNN.knn_index_cuda(s_query, ec_k.valid, s_map, s_valid,
+                                        max_radius=rad)
+        lim = d5_p < (rad * rad if rad else 1e29)
+        near5 = d5_p < cfg.knn_max_sq_dist
+        rel5 = ((d5_k - d5_p).abs()
+                / torch.clamp(d5_p.abs(), min=1e-12))[near5]
+        same_idx = torch.equal(i5_k[lim], i5_p[lim])
+        k5[name] = {"compared": int(lim.sum()), "indices_equal": same_idx,
+                    "d2_bit_equal": torch.equal(d5_k[lim], d5_p[lim]),
+                    "max_rel_err": float(rel5.max()) if rel5.numel() else 0.0,
+                    "max_abs_err": float((d5_k - d5_p).abs()[lim].max())}
+        check(same_idx, f"K5 ({name}) indices differ from the plain version")
+        check(k5[name]["max_rel_err"] <= 1e-5,
+              f"K5 ({name}) d2 rel err {k5[name]['max_rel_err']:.2e}")
+    prep5 = KNN.knn_prepare_batched(s_query[None], ec_k.valid[None],
+                                    s_map[None], s_valid[None], None)
+    m5 = s_map.shape[0]
+
     flags = prep[2]
     n_e, n_m = flags.shape
     flagged = int(flags.sum())
     flagged_b = int(prep_b[2].sum())
+    flagged5 = int(prep5[2].sum())
     emit({"phase": "kernels",
           "smoothness": {"bit_exact": torch.equal(sm_k, sm_p),
                          "max_abs_err": k1_err},
@@ -960,6 +1213,12 @@ def main() -> int:
                                 "occupied": int(kmap.valid.sum()),
                                 "targets": len(koffs),
                                 "checks": list(k7.values())},
+          "knn_index": {"queries": int(ec_k.valid.sum()),
+                        "refs": int(s_valid.sum()), "E": s_query.shape[0],
+                        "M": m5, "tile_pairs": prep5[2].numel(),
+                        "flagged_pairs": flagged5,
+                        "splits": min(KNN.KNN_INDEX_SPLITS,
+                                      prep5[2].shape[-1]), **k5},
           "probe_insert": {"bit_exact": probe_same,
                            "table_equals_drive": probe_drive,
                            "table_slots": pmap.code.shape[0],
@@ -1024,6 +1283,21 @@ def main() -> int:
                      flagged * KNN.TILE_E * KNN.TILE_M * 8
                      + e_q * K6_OPS_PER_QUERY)
 
+    k5_ms = cuda_ms(lambda: KNN.knn_index_launch(*prep5, m5), 50)
+    k5_wrapper_ms = cuda_ms(lambda: KNN.knn_index_cuda(
+        s_query, ec_k.valid, s_map, s_valid), 50)
+    k5_plain = cuda_ms(lambda: KNN.knn_index_plain(
+        s_query, ec_k.valid, s_map, s_valid), 3, 1)
+    e5 = s_query.shape[0]
+    # reads the prepared queries, refs, flags and permutation once, writes
+    # d2 and an index a neighbour; without a radius an exact 5-NN needs
+    # every valid query against every valid ref, 8 operations a distance
+    # (the flagged tile pairs' slots, invalid ones included, beside it)
+    k5_bytes = sum(t.numel() * 4 for t in prep5) + e5 * KNN.K * 8
+    k5_bound = bound(k5_bytes,
+                     int(ec_k.valid.sum()) * int(s_valid.sum()) * 8)
+    k5_tile_bound = bound(k5_bytes, flagged5 * KNN.TILE_E * KNN.TILE_M * 8)
+
     kargs = (kmap.xyz, kmap.key, kmap.valid, kbase, koffs, cap)
     k7_ms = cuda_ms(lambda: K7.compact_hits_cuda(*kargs), 100)
     k7_plain = cuda_ms(lambda: K7.compact_hits_plain(*kargs), 10, 2)
@@ -1072,6 +1346,15 @@ def main() -> int:
          "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound[0],
          "bound_by": k4_bound[1], "library_ms": None, "batch": LANES,
          "wrapper_ms": k4_wrapper_ms},
+        {"name": "knn_index", "route": "cuda",
+         "source": "liodom_tpu_torch/csrc/knn_index.cu",
+         "replaces": "liodom_tpu/ops/knn_pallas.py:44",
+         "launches": scounts["knn_index"],
+         "max_abs_err": k5["no_radius"]["max_abs_err"], "ms": k5_ms,
+         "plain_ms": k5_plain, "bound_ms": k5_bound[0],
+         "bound_by": k5_bound[1], "library_ms": None,
+         "wrapper_ms": k5_wrapper_ms, "flagged_pairs": flagged5,
+         "tile_pair_bound_ms": k5_tile_bound[0]},
         {"name": "knn_lines", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_lines.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:580",
@@ -1097,7 +1380,7 @@ def main() -> int:
          "library_ms": None, "table_copy_ms": clone_ms},
     ]
 
-    # ---- 11. where a frame's device time goes -----------------------------
+    # ---- 13. where a frame's device time goes ----------------------------
     # the bench drive's last frames again, from the states they met
     n_prof = 5
     last = bimgs[N_FRAMES - n_prof:]
@@ -1117,7 +1400,11 @@ def main() -> int:
           f"batch_image_step_b{max(TIMED_BATCHES)}": profile_frames(
               lambda st, im: P.batch_image_step(st, im.xyz, im.count, cfg)[0],
               b8_state, bench_b[max(TIMED_BATCHES)][N_FRAMES - n_prof:],
-              smi)})
+              smi),
+          "sharded_combined_image_step": profile_frames(
+              lambda st, im: sstep(*st, im.xyz, im.count)[:2],
+              bs_states[N_FRAMES - n_prof - 1], last, smi)})
+    dist.destroy_process_group()
 
     if failures:
         emit({"phase": "failed", "failures": failures})

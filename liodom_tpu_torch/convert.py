@@ -4,13 +4,14 @@ The JAX engine's ``OdomState`` (window xyz/valid/next_slot/nframes, odom,
 prev_odom, received map, imu_ori), turned into numpy arrays by its caller,
 becomes the port's :class:`~liodom_tpu_torch.odometry.pipeline.OdomState`,
 and its ``MapState`` the port's :class:`~liodom_tpu_torch.mapping.grid.
-MapState`, so both engines can continue from the same mid-course state.  The
+MapState`, so both engines can continue from the same mid-course state; the
+sharded layouts of the parallel layer are taken apart rank by rank.  The
 system has no weights; this is their counterpart.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Union
+from typing import Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -107,3 +108,43 @@ def map_state_from_numpy(np_map: Union[Mapping, Sequence], device=None
                     torch.tensor(np.asarray(valid, bool), device=dev),
                     torch.tensor(np.asarray(overflow, np.int32), device=dev),
                     torch.tensor(code, device=dev))
+
+
+def sharded_map_state_from_numpy(np_map: Sequence, at: Tuple[int, ...],
+                                 device=None) -> MapState:
+    """This rank's map shard from the JAX package's stacked sharded
+    ``MapState`` (a tuple in ``MAP_KEYS`` order): every leaf indexed by
+    ``at``, the rank's mesh coordinate over the leading axes — ``(d, m)``
+    for the composed steps' (data, map) layout (``combined.py:62-64``,
+    ``:167-169``), ``(m,)`` for ``init_sharded_map``'s (map,) layout."""
+    return map_state_from_numpy(tuple(np.asarray(x)[at] for x in np_map),
+                                device)
+
+
+def sharded_combined_state_from_numpy(np_state: Sequence, d: int, m: int,
+                                      device=None):
+    """This rank's :class:`~liodom_tpu_torch.parallel.combined.
+    ShardedCombinedState` from the JAX package's host-stacked one (a tuple
+    in its field order, e.g. mapped through ``np.asarray``): the poses and
+    the two scalars carry a leading (data,) axis, the window and received
+    leaves (data, map) (``combined.py:165-169``); rank (d, m) takes its
+    slices."""
+    from liodom_tpu_torch.parallel.combined import ShardedCombinedState
+    dev = resolve_device(device)
+    odom, prev, wxyz, wvalid, slot, nframes, rxyz, rvalid = np_state
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def flag(a):
+        return torch.as_tensor(np.asarray(a, bool), device=dev)
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+    return ShardedCombinedState(
+        Pose(f32(np.asarray(odom[0])[d]), f32(np.asarray(odom[1])[d])),
+        Pose(f32(np.asarray(prev[0])[d]), f32(np.asarray(prev[1])[d])),
+        f32(np.asarray(wxyz)[d, m]), flag(np.asarray(wvalid)[d, m]),
+        idx(np.asarray(slot)[d]), idx(np.asarray(nframes)[d]),
+        f32(np.asarray(rxyz)[d, m]), flag(np.asarray(rvalid)[d, m]))

@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("smoothness", "select", "knn_coords", "knn_lines",
+SOURCES = ("smoothness", "select", "knn_coords", "knn_lines", "knn_index",
            "local_map_compact", "probe_insert")
 
 # -fmad=false: the kernels round every product and sum as the plain PyTorch

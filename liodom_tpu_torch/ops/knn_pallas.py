@@ -1,12 +1,16 @@
-"""K3, K4 and K6: exact 5-NN with neighbour coordinates, batched, and with
-the line-fit gate fused in: CUDA kernel wrappers + plain versions.
+"""K3, K4, K5 and K6: exact 5-NN with neighbour coordinates, batched, with
+indices, and with the line-fit gate fused in: CUDA kernel wrappers + plain
+versions.
 
 Port of ``liodom_tpu/ops/knn_pallas.py``: ``knn_coords_pallas`` (K3),
-``knn_coords_pallas_batched`` (K4) and ``knn_lines_pallas`` (K6), with their
-helpers.  The correspondence search (laser_odometry.cc:318-323) runs an exact
-5-NN of every edge against the matching map, twice a frame; the line fit
-only reads the neighbours' coordinates, so the kernels return those (K3, K4)
-or the fitted line itself (K6) instead of indices.
+``knn_coords_pallas_batched`` (K4), ``knn_pallas`` (K5) and
+``knn_lines_pallas`` (K6), with their helpers.  The correspondence search
+(laser_odometry.cc:318-323) runs an exact 5-NN of every edge against the
+matching map, twice a frame; the line fit only reads the neighbours'
+coordinates, so the kernels return those (K3, K4) or the fitted line itself
+(K6).  The map-sharded step (``parallel/sharded.py``) gathers its
+neighbours' rows itself and merges them across ranks, so K5 returns the
+indices into the caller's map shard.
 
 CUDA route: both sides are sorted on coarse 2 m cells (:func:`_spatial_order`;
 the map once a frame by :func:`spatial_sort_points`), per-tile bounding boxes
@@ -22,6 +26,14 @@ batch dimension: a batch element gets its own sort, boxes and flags
 CPU route (:func:`knn_coords_plain`): exact brute force over ref chunks with
 ``torch.topk``, invalid refs at ``_BIG``; K4's and K6's plain versions loop
 it over the batch (and K6's adds ``neighbors._line_fit``).
+
+K5 (``csrc/knn_index.cu``) searches without a radius on the sharded path:
+nothing is sorted then, so its indices address the caller's ref directly,
+and the flags only skip empty tiles.  With a radius both sides are sorted
+and the indices are mapped back through the ref permutation, as
+``knn_pallas.py:249-255`` does.  Its plain version (:func:`knn_index_plain`)
+selects on int64 keys ``(d2 bits << 32) | index``, so that equal distances
+go to the lower index, the TPU kernel's tie order, as a stable sort would.
 """
 
 from __future__ import annotations
@@ -49,11 +61,17 @@ SORT_CELL = 2.0  # metres; the spatial sort's cell on the CUDA route
 _CHUNK = 4096    # refs per brute-force chunk of the plain version
 _QBLOCK = 512    # queries per block of the plain version
 
+# ref-tile splits of K5's search: a query tile's flagged ref tiles are dealt
+# to this many blocks (csrc/knn_index.cu), whose partial best-5 lists a
+# second pass merges
+KNN_INDEX_SPLITS = 16
+
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIG = [("liodom_knn_coords", [_PTR] * 6 + [_INT] * 6 + [_PTR]),
         ("liodom_knn_coords_batched", [_PTR] * 6 + [_INT] * 7 + [_PTR])]
 _LINES_SIG = [("liodom_knn_lines", [_PTR] * 7 + [_INT] * 7
                + [ctypes.c_float] * 3 + [_PTR])]
+_INDEX_SIG = [("liodom_knn_index", [_PTR] * 8 + [_INT] * 9 + [_PTR])]
 
 
 def _rows(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -186,16 +204,30 @@ def knn_prepare_batched(query: torch.Tensor, qmask: torch.Tensor,
     (B, M)): sorted and padded queries ``q4`` (B, Ep, 4) [x y z valid],
     encoded and padded refs ``r4`` (B, Mp, 4), the (B, n_e, n_m) pair flags
     and the query permutation (B, E).  Each element gets its own sort, boxes
-    and flags (``knn_pallas.py:464-494``)."""
+    and flags (``knn_pallas.py:464-494``).  Without ``max_radius`` nothing
+    is sorted (``knn_pallas.py:182-187``): the permutation is the identity
+    and the flags only mark the non-empty tile pairs."""
+    return _prepare_batched(query, qmask, ref, rmask, max_radius,
+                            ref_presorted)[:4]
+
+
+def _prepare_batched(query, qmask, ref, rmask, max_radius, ref_presorted):
+    """:func:`knn_prepare_batched` plus the ref permutation it applied (B,
+    M), or None where the refs kept the caller's order."""
     b, e, m = query.shape[0], query.shape[1], ref.shape[1]
-    qperm = _spatial_order(query, qmask)
-    qs, qms = _rows(query, qperm), _rows(qmask, qperm)
-    if not ref_presorted:
-        rperm = _spatial_order(ref, rmask)
-        ref, rmask = _rows(ref, rperm), _rows(rmask, rperm)
+    dev = query.device
+    rperm = None
+    if max_radius is None:
+        qperm = torch.arange(e, device=dev).expand(b, e)
+        qs, qms = query, qmask
+    else:
+        qperm = _spatial_order(query, qmask)
+        qs, qms = _rows(query, qperm), _rows(qmask, qperm)
+        if not ref_presorted:
+            rperm = _spatial_order(ref, rmask)
+            ref, rmask = _rows(ref, rperm), _rows(rmask, rperm)
     ep = e + (-e) % TILE_E
     mp = m + (-m) % TILE_M
-    dev = query.device
     q4 = torch.zeros((b, ep, 4), dtype=torch.float32, device=dev)
     q4[:, :e, :3] = qs
     q4[:, :e, 3] = qms.to(torch.float32)
@@ -208,7 +240,7 @@ def knn_prepare_batched(query: torch.Tensor, qmask: torch.Tensor,
     qlo, qhi, qne = _tile_aabbs(q4[..., :3], qm_p, TILE_E)
     rlo, rhi, rne = _tile_aabbs(r4[..., :3], rm_p, TILE_M)
     flags = _pair_flags(qlo, qhi, qne, rlo, rhi, rne, max_radius).contiguous()
-    return q4, r4, flags, qperm.to(torch.int32)
+    return q4, r4, flags, qperm.to(torch.int32).contiguous(), rperm
 
 
 def knn_prepare(query: torch.Tensor, qmask: torch.Tensor, ref: torch.Tensor,
@@ -446,3 +478,141 @@ def knn_lines(query: torch.Tensor, qmask: torch.Tensor, ref: torch.Tensor,
     kernels.require_cpu(query, "knn_lines")
     return knn_lines_plain(query, qmask, ref, rmask, k, max_sq_dist,
                            eig_ratio, min_line_sep)
+
+
+def _index_keys(d2: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """int64 keys ordering (d2, index) pairs lexicographically: a
+    non-negative float32's bits order as the float does."""
+    return (d2.view(torch.int32).to(torch.int64) << 32) | idx
+
+
+def knn_index_plain(query: torch.Tensor, qmask: torch.Tensor,
+                    ref: torch.Tensor, rmask: torch.Tensor, k: int = K
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's plain version: exact k-NN by brute force over ref chunks, query
+    (..., E, 3), qmask (..., E), ref (..., M, 3), rmask (..., M) -> (d2
+    (..., E, k) ascending, idx (..., E, k) int32 into ref); a leading batch
+    dimension is looped.
+
+    d2 is ``(dx*dx + dy*dy) + dz*dz`` with each operation rounded, the
+    kernel's expression; equal distances go to the lower index.  Invalid
+    refs are never picked and invalid queries read ``_BIG``; a row with
+    fewer than k valid refs is filled with ``_BIG`` at index ``M - 1``
+    (``knn_pallas.py:244-247`` clamps there).  As in :func:`knn_coords_plain`
+    only the valid refs are searched, and blocks of queries without a valid
+    one are skipped."""
+    if query.ndim == 3:
+        outs = [knn_index_plain(query[b], qmask[b], ref[b], rmask[b], k)
+                for b in range(query.shape[0])]
+        return (torch.stack([d for d, _ in outs]),
+                torch.stack([i for _, i in outs]))
+    e, m = query.shape[0], ref.shape[0]
+    dev = query.device
+    keep = torch.nonzero(rmask).squeeze(1)              # valid refs, in order
+    planes = ref[keep].t().contiguous()                 # (3, M_valid)
+    none = _index_keys(torch.full((), _BIG, dtype=torch.float32),
+                       torch.tensor(m - 1, dtype=torch.int64))
+    best = torch.full((e, k), int(none), dtype=torch.int64, device=dev)
+    for q0 in range(0, e, _QBLOCK):
+        q1 = q0 + _QBLOCK
+        if not bool(qmask[q0:q1].any()):
+            continue
+        q = query[q0:q1]
+        bk = best[q0:q1]
+        for off in range(0, keep.shape[0], _CHUNK):
+            rx, ry, rz = planes[:, off:off + _CHUNK]
+            d2 = q[:, 0:1] - rx[None, :]
+            d2.mul_(d2)
+            t = q[:, 1:2] - ry[None, :]
+            t.mul_(t)
+            d2.add_(t)
+            torch.sub(q[:, 2:3], rz[None, :], out=t)
+            t.mul_(t)
+            d2.add_(t)
+            ck = _index_keys(d2, keep[None, off:off + _CHUNK])
+            ck = torch.topk(ck, min(k, ck.shape[1]), dim=1, largest=False,
+                            sorted=True).values
+            bk = torch.topk(torch.cat([bk, ck], dim=1), k, dim=1,
+                            largest=False, sorted=True).values
+        best[q0:q1] = bk
+    d2 = (best >> 32).to(torch.int32).view(torch.float32)
+    idx = (best & 0xFFFFFFFF).to(torch.int32)
+    d2 = d2.masked_fill(~qmask[:, None], _BIG)
+    return torch.clamp(d2, min=0.0), idx
+
+
+def knn_index_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
+                     qperm: torch.Tensor, m: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K5 on tensors from :func:`knn_prepare_batched` (``m`` refs
+    before padding) -> (d2 (B, E, 5), idx (B, E, 5) int32 into the r4 rows,
+    clamped to ``m - 1``) in each element's query order.  One call is the
+    search and the merge of its splits, two kernels on the stream."""
+    if flags.ndim != 3:
+        raise ValueError(f"knn_index_launch takes a batch, flags "
+                         f"{tuple(flags.shape)}")
+    e, n_e, n_m = _check_prepared(q4, r4, flags, qperm, "knn_index_launch")
+    if not 0 < m <= r4.shape[1]:
+        raise ValueError(f"knn_index_launch: {m} refs in {r4.shape[1]} rows")
+    b = flags.shape[0]
+    splits = max(1, min(KNN_INDEX_SPLITS, n_m))
+    dev = q4.device
+    part_d = torch.empty((b, splits, n_e * TILE_E, K), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((b, splits, n_e * TILE_E, K), dtype=torch.int32,
+                         device=dev)
+    out_d = torch.empty((b, e, K), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, e, K), dtype=torch.int32, device=dev)
+    lib = kernels.load("knn_index", _INDEX_SIG)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.liodom_knn_index(
+            q4.data_ptr(), r4.data_ptr(), flags.data_ptr(), qperm.data_ptr(),
+            part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), b, e, n_e, n_m, m, splits, TILE_E, TILE_M, K,
+            stream)
+    kernels.check(err, "liodom_knn_index")
+    knn_index_launch.launches += 1
+    return out_d, out_i
+
+
+knn_index_launch.launches = 0
+
+
+def knn_index_cuda(query: torch.Tensor, qmask: torch.Tensor,
+                   ref: torch.Tensor, rmask: torch.Tensor, k: int = K,
+                   max_radius: Optional[float] = None,
+                   ref_presorted: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 on CUDA tensors, one pair (query (E, 3), ...) or a batch (query
+    (B, E, 3), ...) -> (d2, idx) with the query's leading shape, the
+    contract of ``knn_pallas.py:144-256``: idx int32 into the caller's ref.
+    With ``max_radius`` neighbours within it are exact and farther ones may
+    read ``_BIG``; both sides are sorted and the indices mapped back."""
+    batched = query.ndim == 3
+    _check_points(query, qmask, ref, rmask, k, batched, "knn_index_cuda")
+    if not batched:
+        query, qmask, ref, rmask = (t[None] for t in (query, qmask, ref,
+                                                      rmask))
+    *prep, rperm = _prepare_batched(query, qmask, ref, rmask, max_radius,
+                                    ref_presorted)
+    d2, idx = knn_index_launch(*prep, ref.shape[1])
+    if rperm is not None:
+        idx = rperm.gather(1, idx.flatten(1).long()).view(idx.shape).to(
+            torch.int32)
+    return (d2, idx) if batched else (d2[0], idx[0])
+
+
+def knn_index(query: torch.Tensor, qmask: torch.Tensor, ref: torch.Tensor,
+              rmask: torch.Tensor, k: int = K,
+              max_radius: Optional[float] = None,
+              ref_presorted: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 on the tensors' device: the CUDA kernel for CUDA tensors, the
+    plain brute force for CPU tensors (exact everywhere, so it needs no
+    sort or radius)."""
+    if query.is_cuda:
+        return knn_index_cuda(query, qmask, ref, rmask, k, max_radius,
+                              ref_presorted)
+    kernels.require_cpu(query, "knn_index")
+    return knn_index_plain(query, qmask, ref, rmask, k)

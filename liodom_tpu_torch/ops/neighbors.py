@@ -1,4 +1,4 @@
-"""Correspondence search: exact kNN (kernels K3, K4, K6) + PCA line fit.
+"""Correspondence search: exact kNN (kernels K3-K6) + PCA line fit.
 
 Port of ``liodom_tpu/ops/neighbors.py``.  The reference rebuilds a kd-tree
 over the local map and runs a 5-NN query per edge (laser_odometry.cc:318-
@@ -18,7 +18,16 @@ from typing import NamedTuple
 import torch
 
 from liodom_tpu_torch.ops.knn_pallas import (knn_coords, knn_coords_batched,
+                                             knn_index, knn_index_plain,
                                              knn_lines)
+
+# The index-returning exact kNN under the JAX package's names: ``knn_auto``
+# (neighbors.py:69) runs K5 for CUDA tensors and ``knn`` (neighbors.py:87),
+# K5's plain version, for CPU tensors; any other device raises.  Contract:
+# query (..., E, 3), qmask, ref (..., M, 3), rmask -> (d2 (..., E, k)
+# ascending, idx (..., E, k) int32 into ref).
+knn_auto = knn_index
+knn = knn_index_plain
 
 # The kNN implementations a caller may choose (knn_impl, LIODOM_KNN_IMPL).
 # The JAX package's "xla" and "*_interpret" values are test hooks of the

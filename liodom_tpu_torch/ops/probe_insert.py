@@ -35,18 +35,21 @@ _SIG = [("liodom_probe_insert", [ctypes.c_void_p, ctypes.c_int,
          + [ctypes.c_void_p] * 5)]
 
 
+def mul32(a: torch.Tensor, m: int) -> torch.Tensor:
+    """``(a * m) mod 2^32`` of int64 tensors holding uint32 values, as
+    uint32 arithmetic wraps: the product is taken on 16-bit halves so
+    nothing leaves int64 before the mod."""
+    a = a & _U32
+    lo = (a & 0xFFFF) * m
+    hi = ((a >> 16) * m) & 0xFFFF
+    return (lo + (hi << 16)) & _U32
+
+
 def hash_pair(k1: torch.Tensor, k2: torch.Tensor, table_size: int
               ) -> torch.Tensor:
     """Slot hash of a (k1, k2) word pair, the JAX package's uint32 mix
     ``(k1 * 0x9E3779B1) ^ (k2 * 0x85EBCA77)``, ``h ^= h >> 15``, ``h % n``,
-    on int64 tensors holding the words' uint32 values.  Each product is
-    taken on 16-bit halves so nothing leaves int64 before the mod 2^32."""
-    def mul32(a, m):
-        a = a & _U32
-        lo = (a & 0xFFFF) * m
-        hi = ((a >> 16) * m) & 0xFFFF
-        return (lo + (hi << 16)) & _U32
-
+    on int64 tensors holding the words' uint32 values (:func:`mul32`)."""
     h = mul32(k1, 0x9E3779B1) ^ mul32(k2, 0x85EBCA77)
     h = h ^ (h >> 15)
     return h % table_size

@@ -14,7 +14,9 @@ iterations):
 * the normal equations reduce to a 6x6 system, solved by
   ``torch.linalg.solve_ex`` (no error check, so no wait on the device);
 * accept/reject and the damping update are tensor selects, so the whole
-  solve is enqueued without a host synchronisation.
+  solve is enqueued without a host synchronisation;
+* with a process group the correspondences may be split over its members,
+  whose sums are all-reduced (the JAX package's ``axis_name`` psum).
 
 The residual follows factors.hpp:71-105, including the distance weight
 ``w = 1.01 - d_norm`` whose dependence on ``t`` enters the Jacobian.
@@ -25,6 +27,7 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from liodom_tpu_torch.core import pose as se3
 from liodom_tpu_torch.core.pose import Pose
@@ -163,25 +166,44 @@ def robust_cost(pose: Pose, cp, lpa, lpb, valid, min_range, max_range,
     return 0.5 * (huber_cost(s, huber_delta) * valid.to(r.dtype)).sum(dim=-1)
 
 
+def _all_reduce_equations(ne: NormalEquations, group) -> NormalEquations:
+    """JtJ, Jtr and cost summed over ``group`` (the JAX package's psum of
+    each, ``solver.py:192-198``), packed into one collective."""
+    flat = torch.cat([ne.JtJ.flatten(-2), ne.Jtr, ne.cost[..., None]], -1)
+    dist.all_reduce(flat, group=group)
+    return NormalEquations(flat[..., :36].unflatten(-1, (6, 6)),
+                           flat[..., 36:42], flat[..., 42])
+
+
 def lm_solve(pose0: Pose, cp: torch.Tensor, lpa: torch.Tensor,
              lpb: torch.Tensor, valid: torch.Tensor, *, min_range: float,
              max_range: float, huber_delta: float = 0.2, iters: int = 4,
-             init_lambda: float = 1e-4) -> Pose:
+             init_lambda: float = 1e-4, group=None) -> Pose:
     """Levenberg-Marquardt on the SE(3) tangent: ``iters`` damped steps
     (laser_odometry.cc:214) with correspondences fixed; a step is kept when
     it lowers the robust cost (lambda x 0.5), else dropped (lambda x 4).
     A batch of poses (B, 4)/(B, 3) with correspondences (B, E, ...) is B
-    independent solves, each with its own damping and accept."""
+    independent solves, each with its own damping and accept.
+
+    ``group``: a ``torch.distributed`` process group over which the
+    correspondences are split (the edge-sharded multi-card solve): the
+    normal equations, the costs and each candidate's cost are summed over it
+    (``solver.py:186-213``), so every member takes the same steps."""
     dtype, dev = pose0.t.dtype, pose0.t.device
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     q, t = pose0.q, pose0.t
     lam = torch.full(t.shape[:-1], init_lambda, dtype=dtype, device=dev)
-    cost = build_normal_equations(pose0, cp, lpa, lpb, valid, min_range,
-                                  max_range, huber_delta).cost
+    ne = build_normal_equations(pose0, cp, lpa, lpb, valid, min_range,
+                                max_range, huber_delta)
+    if group is not None:
+        ne = _all_reduce_equations(ne, group)
+    cost = ne.cost
     for _ in range(iters):
         pose = Pose(q, t)
         ne = build_normal_equations(pose, cp, lpa, lpb, valid, min_range,
                                     max_range, huber_delta)
+        if group is not None:
+            ne = _all_reduce_equations(ne, group)
         # damped system: (JtJ + lam * diag(JtJ) + eps I) delta = -Jtr
         diag = torch.diag_embed(torch.diagonal(ne.JtJ, dim1=-2, dim2=-1))
         damped = ne.JtJ + lam[..., None, None] * diag + 1e-8 * eye6
@@ -189,6 +211,8 @@ def lm_solve(pose0: Pose, cp: torch.Tensor, lpa: torch.Tensor,
         cand = se3.retract(pose, delta)
         new_cost = robust_cost(cand, cp, lpa, lpb, valid, min_range,
                                max_range, huber_delta)
+        if group is not None:
+            dist.all_reduce(new_cost, group=group)
         accept = new_cost < cost
         q = torch.where(accept[..., None], cand.q, q)
         t = torch.where(accept[..., None], cand.t, t)

@@ -126,6 +126,35 @@ def test_knn_batched_kernel_is_k3_lane_by_lane(dev):
         assert torch.equal(c_b[b][gate], c_p[b][gate])
 
 
+def test_knn_index_kernel_matches_plain(dev):
+    """K5 without a radius (the sharded step's call: nothing sorted, every
+    non-empty tile visited) and with one, one pair and a batch of distinct
+    pairs: indices identical to the plain version's wherever its d2 is
+    finite (within the radius when pruned), d2 bit-identical there."""
+    rng = np.random.default_rng(3)
+    lanes = []
+    for _ in range(3):
+        centers = rng.uniform(-30, 30, (40, 3))
+        lanes.append(_clustered(rng, dev, 3000, centers)
+                     + _clustered(rng, dev, 20000, centers))
+    q, qm, r, rm = (torch.stack([ln[i] for ln in lanes]) for i in range(4))
+    for radius in (None, 1.0):
+        lim_d2 = radius * radius if radius else 1e29
+        before = KNN.knn_index_launch.launches
+        d_b, i_b = KNN.knn_index_cuda(q, qm, r, rm, max_radius=radius)
+        assert KNN.knn_index_launch.launches == before + 1
+        for b in range(3):
+            d_s, i_s = KNN.knn_index_cuda(q[b], qm[b], r[b], rm[b],
+                                          max_radius=radius)
+            assert torch.equal(d_b[b], d_s) and torch.equal(i_b[b], i_s)
+            d_p, i_p = KNN.knn_index_plain(q[b], qm[b], r[b], rm[b])
+            lim = d_p < lim_d2
+            assert int(lim.sum()) > 5000
+            assert torch.equal(d_s[lim], d_p[lim])
+            assert torch.equal(i_s[lim], i_p[lim])
+            assert bool(rm[b][i_s[d_s < 1e29].long()].all())
+
+
 def test_knn_lines_kernel_matches_plain(dev):
     rng = np.random.default_rng(2)
     bases = rng.uniform(-15, 15, (120, 3))

@@ -1,9 +1,11 @@
-"""The port stands alone: it imports neither jax nor liodom_tpu, its entry
-points default to CUDA and raise without it, and a CPU tensor takes each
-kernel's plain version without touching a launch counter."""
+"""The port stands alone: it imports neither jax nor liodom_tpu (nor does a
+``parallel.launch`` run), its entry points default to CUDA and raise
+without it, and a CPU tensor takes each kernel's plain version without
+touching a launch counter."""
 
 import json
 import os
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -22,9 +24,13 @@ from liodom_tpu_torch.mapping import service as S
 from liodom_tpu_torch.odometry import pipeline as P
 from liodom_tpu_torch.ops import compact_pallas as K7
 from liodom_tpu_torch.ops import knn_pallas as KNN
+from liodom_tpu_torch.ops import neighbors as NB
 from liodom_tpu_torch.ops import probe_insert as PI
 from liodom_tpu_torch.ops import select_pallas as SEL
 from liodom_tpu_torch.ops import smoothness_pallas as SM
+from liodom_tpu_torch.parallel import combined as CB
+from liodom_tpu_torch.parallel import launch
+from liodom_tpu_torch.parallel.mesh import make_mesh
 from liodom_tpu_torch.parallel.sharded import init_batch_state
 
 torch.set_num_threads(1)
@@ -56,8 +62,39 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res["built"] == []          # importing builds and loads nothing
     for name in ("odometry.pipeline", "ops.knn_pallas", "ops.compact_pallas",
                  "ops.probe_insert", "mapping.grid", "mapping.service",
-                 "parallel.sharded", "convert"):
+                 "parallel.mesh", "parallel.sharded", "parallel.sharded_map",
+                 "parallel.combined", "parallel.launch", "convert"):
         assert f"liodom_tpu_torch.{name}" in res["modules"]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+_LAUNCH = """
+import json, runpy, sys
+sys.argv = ["launch", "--coordinator", "127.0.0.1:%d", "--num-processes", "1",
+            "--process-id", "0", "--device", "cpu", "smoke"]
+try:
+    runpy.run_module("liodom_tpu_torch.parallel.launch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "liodom_tpu"))
+print(json.dumps({"bad": bad}))
+"""
+
+
+def test_launch_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _LAUNCH % _free_port()],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "smoke step OK" in out.stdout
+    assert json.loads(out.stdout.strip().splitlines()[-1])["bad"] == []
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
@@ -102,11 +139,44 @@ def test_entry_points_default_to_cuda():
     assert init_batch_state(cfg, 2, device="cpu").odom.t.shape == (2, 3)
 
 
+def test_parallel_entry_points_default_to_cuda():
+    """make_mesh, initialize and the composed steps' init functions run on
+    CUDA unless told otherwise, and raise without it; on the CPU they take
+    gloo (a one-rank group in this process)."""
+    import torch.distributed as dist
+    cfg = LiodomConfig(ring_width=256, mapping=True)
+    mcfg = MapConfig(map_capacity=64, local_map_capacity=16)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launch.initialize("127.0.0.1:1", 1, 0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_mesh(1, 1)
+    assert not dist.is_initialized()
+    launch.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cpu")
+    try:
+        assert dist.get_backend() == "gloo"
+        launch.initialize(None, None, None, device="cpu")   # idempotent
+        mesh = make_mesh(1, 1, device="cpu")
+        with pytest.raises(ValueError, match="mesh 2x1"):
+            make_mesh(2, 1, device="cpu")
+        for init in (CB.init_combined_sharded,
+                     CB.init_combined_image_sharded):
+            if not torch.cuda.is_available():
+                with pytest.raises(RuntimeError, match="CUDA"):
+                    init(cfg, mcfg, mesh)
+            st, ms = init(cfg, mcfg, mesh, device="cpu")
+            assert ms.xyz.device.type == "cpu" and ms.xyz.shape == (64, 3)
+    finally:
+        dist.destroy_process_group()
+    with pytest.raises(ValueError, match="coordinator"):
+        launch.initialize(None, None, None, device="cpu")
+
+
 def _counts():
     return (SM.smoothness_cuda.launches, SEL.select_edges_cuda.launches,
             KNN.knn_launch.launches, KNN.knn_launch_batched.launches,
-            KNN.knn_lines_launch.launches, K7.compact_hits_cuda.launches,
-            PI.probe_insert_cuda.launches)
+            KNN.knn_lines_launch.launches, KNN.knn_index_launch.launches,
+            K7.compact_hits_cuda.launches, PI.probe_insert_cuda.launches)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -134,6 +204,10 @@ def test_cpu_tensors_take_the_plain_versions():
     for args in ((q, qm, r, qm), (qb, qmb, rb, qmb)):
         got = KNN.knn_lines(*args, max_sq_dist=4.0)
         want = KNN.knn_lines_plain(*args, max_sq_dist=4.0)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for args in ((q, qm, r, qm), (qb, qmb, rb, qmb)):
+        got = NB.knn_auto(*args)
+        want = KNN.knn_index_plain(*args)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     mcfg = MapConfig(voxel_xysize=20.0, voxel_zsize=25.0)
     ones = torch.ones(256, dtype=torch.bool)
@@ -172,6 +246,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         KNN.knn_launch_batched(*prep)
     with pytest.raises(ValueError):
         KNN.knn_lines_launch(*prep, 1.0, 3.0, 0.01)
+    with pytest.raises(ValueError):
+        KNN.knn_index_launch(*prep, 512)
     with pytest.raises(ValueError):
         KNN.knn_coords_batched_cuda(q4[None, :, :3], q4[None, :, 0] > 0,
                                     q4[None, :, :3], q4[None, :, 0] > 0)
