@@ -92,7 +92,14 @@ Phases, each printing one JSON line:
    passes, K4 at B = 4 (the bench lanes) bit-identical to K3 launched on
    each lane and held to K3's checks, K6 endpoints identical where both it
    and its plain version accept and any flip of the gate where the plain
-   eigenvalues sit at the ratio (|e_max - 3 e_mid| <= 1e-4 e_max), K7
+   eigenvalues sit at the ratio (|e_max - 3 e_mid| <= 1e-4 e_max); the
+   shared walk of K3, K4 and K6 bit for bit on every slot (d2,
+   coordinates, endpoints; K6's gate as above) against the keyed (d2,
+   index) selection ``knn_launch_plain`` on K3's and K4's inputs and on
+   tie-heavy scenes (a 5 cm lattice with duplicate refs, one pair and 4 as
+   a batch), with the flagged tiles a query tile and the walk's cluster
+   blocks and thread groups in the K3, K4 and K6 rows beside their ptxas
+   usage; K7
    bit-exact rows, validity and hit count (at the bench capacity and at
    one that truncates), the probe kernel bit-exact table, slots and flags,
    K5 on the sharded flagship's last frame and matching map, without a
@@ -119,6 +126,7 @@ import argparse
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -139,7 +147,8 @@ from liodom_tpu_torch import kernels
 from liodom_tpu_torch.core import pose as se3
 from liodom_tpu_torch.core.config import LiodomConfig, MapConfig
 from liodom_tpu_torch.core.frame import RawScan, RingImage
-from liodom_tpu_torch.core.synth import BoxWorld, drive_trajectory, yaw_matrix
+from liodom_tpu_torch.core.synth import (BoxWorld, drive_trajectory,
+                                         tie_scene, yaw_matrix)
 from liodom_tpu_torch.mapping import grid as G
 from liodom_tpu_torch.mapping import service as S
 from liodom_tpu_torch.odometry import local_map
@@ -258,6 +267,81 @@ def sync_free(run):
     torch.cuda.synchronize()
     return out, [str(w.message) for w in caught
                  if "called a synchronizing" in str(w.message)]
+
+
+def ptxas_usage(log: str) -> dict:
+    """{entry function: registers, static shared memory, stack and spill
+    bytes} from a build log of ``nvcc -Xptxas -v``."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            if m:
+                out[name].update(stack_bytes=int(m.group(1)),
+                                 spill_store_bytes=int(m.group(2)),
+                                 spill_load_bytes=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                smem = re.search(r"(\d+) bytes smem", ln)
+                out[name].update(registers=int(m.group(1)),
+                                 static_smem_bytes=int(smem.group(1))
+                                 if smem else 0)
+    return out
+
+
+def walk_vs_oracle(prep, gates) -> dict:
+    """K3 (K4 for a batch) and K6 on the same prepared tensors against
+    ``knn_launch_plain`` and ``knn_lines_launch_plain``, the keyed (d2,
+    index) selection: d2, coordinates and endpoints bit for bit on every
+    slot; K6's gate may flip only where the plain eigenvalues sit at the
+    ratio (acosf / cosf ulps)."""
+    batched = prep[2].ndim == 3
+    launch = KNN.knn_launch_batched if batched else KNN.knn_launch
+    d_k, c_k = launch(*prep)
+    d_o, c_o = KNN.knn_launch_plain(*prep)
+    prep_l = prep if batched else tuple(x[None] for x in prep)
+    lpa, lpb, ok = KNN.knn_lines_launch(*prep_l, *gates)
+    lpa_o, lpb_o, ok_o = KNN.knn_lines_launch_plain(*prep_l, *gates)
+    near = c_o if batched else c_o[None]
+    zm = near - near.mean(dim=-2, keepdim=True)
+    eigs = NB.sym3_eigenvalues(torch.einsum("...ki,...kj->...ij", zm, zm))
+    at_ratio = ((eigs[..., 2] - gates[1] * eigs[..., 1]).abs()
+                <= 1e-4 * eigs[..., 2].abs())
+    flips = ok != ok_o
+    real = d_o < 1.0
+    tied = (real[..., 1:] & (d_o.diff(dim=-1) == 0)).any(-1)
+    flags = prep[2]
+    per_tile = flags.sum(-1).float()
+    return {"rows": int(d_o[..., 0].numel()),
+            "rows_with_a_tie_within_1m": int(tied.sum()),
+            "flagged_pairs": int(flags.sum()),
+            "flagged_tiles_per_query_tile_max": int(per_tile.max()),
+            "flagged_tiles_per_query_tile_mean": float(per_tile.mean()),
+            "d2_equal": torch.equal(d_k, d_o),
+            "coords_equal": torch.equal(c_k, c_o),
+            "k6_endpoints_equal": (torch.equal(lpa, lpa_o)
+                                   and torch.equal(lpb, lpb_o)),
+            "k6_gate_flips": int(flips.sum()),
+            "k6_gate_flips_off_ratio_boundary": int((flips & ~at_ratio)
+                                                    .sum())}
+
+
+def walk_row(tie: dict, source: str, n_m: int) -> dict:
+    """The kernels-line keys of the shared walk: its inputs' flagged tiles
+    a query tile, and, as the built library of ``source`` reports them, the
+    cluster's blocks it deals them over, the thread groups that split each
+    staged tile and the dynamic shared memory a block takes
+    (``csrc/knn_search.cuh``)."""
+    return {"flagged_tiles_per_query_tile_max":
+                tie["flagged_tiles_per_query_tile_max"],
+            "flagged_tiles_per_query_tile_mean":
+                tie["flagged_tiles_per_query_tile_mean"],
+            **KNN.knn_walk_shape(source, n_m)}
 
 
 def quat_angle(qa: np.ndarray, qb: np.ndarray) -> float:
@@ -527,12 +611,10 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = kernels.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "bytes stack" in ln]
-             for name, log in logs.items()}
+    usage = {name: ptxas_usage(log) for name, log in logs.items()}
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "ptxas": ptxas})
+          "build_s": build_s, "ptxas": usage})
 
     # ---- 2. main path: the accuracy drive -------------------------------
     cfg = LiodomConfig(local_map_size=5)
@@ -1114,6 +1196,29 @@ def main() -> int:
     check(k6_same, "K6 endpoints differ where both accept")
     check(k6_off == 0, f"K6: {k6_off} gate flips away from the ratio "
           f"boundary")
+
+    # the walk's tie order, bit for bit on every slot against the keyed
+    # (d2, index) selection: K3 and K6 on K3's inputs above, K4 and K6 on
+    # K4's, and both on tie-heavy scenes (one pair; 4 distinct as a batch)
+    ties = {"bench": walk_vs_oracle(prep, gates),
+            f"bench_b{LANES}": walk_vs_oracle(prep_b, gates)}
+    scenes = [tie_scene(s_, 3000, 20000) for s_ in range(LANES)]
+    tq, tqm, tr, trm = (torch.from_numpy(np.stack([sc[i] for sc in scenes]))
+                        .to(dev) for i in range(4))
+    ties["tie_scene"] = walk_vs_oracle(
+        KNN.knn_prepare(tq[0], tqm[0], tr[0], trm[0], radius), gates)
+    ties[f"tie_scene_b{LANES}"] = walk_vs_oracle(
+        KNN.knn_prepare_batched(tq, tqm, tr, trm, radius), gates)
+    for name, tv in ties.items():
+        check(tv["d2_equal"] and tv["coords_equal"],
+              f"kNN walk ({name}): d2 or coordinates differ from the "
+              f"(d2, index) selection")
+        check(tv["k6_endpoints_equal"],
+              f"K6 ({name}): endpoints differ from the (d2, index) selection")
+        check(tv["k6_gate_flips_off_ratio_boundary"] == 0,
+              f"K6 ({name}): gate flips away from the ratio boundary")
+    n_tied = ties["tie_scene"]["rows_with_a_tie_within_1m"]
+    check(n_tied > 1000, f"the tie scene has {n_tied} rows with a tie")
     # K7 on the bench map after the last frame (every-frame cadence), at
     # the last pose: at the bench capacity and at one that truncates
     kmap = bc_states[-1][1]
@@ -1204,6 +1309,7 @@ def main() -> int:
                                  "coords_equal": k4_coords_same,
                                  "tile_pairs": prep_b[2].numel(),
                                  "flagged_pairs": flagged_b},
+          "knn_walk_tie_order": ties,
           "knn_lines": {"accepted_kernel": int(ok_k.sum()),
                         "accepted_plain": int(ok_p.sum()),
                         "endpoints_equal": k6_same,
@@ -1338,14 +1444,19 @@ def main() -> int:
          "bound_by": k3_bound[1], "library_ms": None,
          "wrapper_ms": k3_wrapper_ms,
          "unpruned_bound_ms": e_q * map_xyz.shape[0] * 8
-         / FP32_OPS_PER_S * 1e3},
+         / FP32_OPS_PER_S * 1e3,
+         **walk_row(ties["bench"], "knn_coords", n_m),
+         "ptxas": usage.get("knn_coords")},
         {"name": "knn_coords_batched", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_coords.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:526",
          "launches": lcounts["knn_coords_batched"], "max_abs_err": k4_abs,
          "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound[0],
          "bound_by": k4_bound[1], "library_ms": None, "batch": LANES,
-         "wrapper_ms": k4_wrapper_ms},
+         "wrapper_ms": k4_wrapper_ms,
+         **walk_row(ties[f"bench_b{LANES}"], "knn_coords",
+                   prep_b[2].shape[-1]),
+         "ptxas": usage.get("knn_coords")},
         {"name": "knn_index", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_index.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:44",
@@ -1361,7 +1472,9 @@ def main() -> int:
          "launches": lines["image_step"]["launches"]["knn_lines"],
          "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain,
          "bound_ms": k6_bound[0], "bound_by": k6_bound[1],
-         "library_ms": None, "gate_flips": k6_flips},
+         "library_ms": None, "gate_flips": k6_flips,
+         **walk_row(ties["bench"], "knn_lines", n_m),
+         "ptxas": usage.get("knn_lines")},
         {"name": "local_map_compact", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/local_map_compact.cu",
          "replaces": "scripts/compact_pallas_experiment.py:50",

@@ -4,6 +4,7 @@ Simulates an HDL-64-like scanner in a structured world (ground plane,
 building walls, poles) so the pipeline can be run and scored against exact
 ground truth without sensor data.  ``chip_smoke.py`` renders its scenes with
 it.  The unbounded ``StreamWorld`` is not part of this slice.
+:func:`tie_scene` (no JAX counterpart) makes kNN inputs full of exact ties.
 """
 
 from __future__ import annotations
@@ -163,3 +164,23 @@ def drive_trajectory_6dof(n_frames: int, speed: float = 1.0,
                      for f in range(n_frames)])
     quats = np.stack([quat_from_matrix_np(rots[f]) for f in range(n_frames)])
     return pos, rots, quats
+
+
+def tie_scene(seed: int, e: int, m: int, lattice: float = 0.05
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """kNN inputs whose answer rests on the tie order: queries and refs on a
+    ``lattice`` grid in three 2.4 m clusters 8 m apart, refs repeating m / 3
+    lattice sites, queries on ref sites and next to them, ~10 % of either
+    side invalid, so many distances in a row are exactly equal.
+
+    Returns (query (e, 3), query mask (e,), ref (m, 3), ref mask (m,))."""
+    rng = np.random.default_rng(seed)
+    centers = np.array([[0.0, 0.0, 0.0], [8.0, 0.0, 0.0], [0.0, 8.0, 0.0]])
+    half = int(1.2 / lattice)
+    c = centers[rng.integers(0, len(centers), m // 3)]
+    off = rng.integers(-half, half + 1, (m // 3, 3)) * [1, 1, 0.25]
+    base = c + np.round(off) * lattice
+    r = base[rng.integers(0, len(base), m)]
+    q = r[rng.integers(0, m, e)] + rng.integers(-1, 2, (e, 3)) * lattice
+    return (q.astype(np.float32), rng.random(e) > 0.1,
+            r.astype(np.float32), rng.random(m) > 0.1)

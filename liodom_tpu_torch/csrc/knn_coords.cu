@@ -14,21 +14,26 @@
 //
 // What bounds it on the card: operations.  A flagged (query, ref) pair
 // costs 8 FP32 operations (3 sub, 3 mul, 2 add) plus a compare; the inputs
-// are ~0.5 MB a batch element.  Unpruned, 5632 x 28160 pairs are ~1.3 GFLOP
-// (~19 us at the 67 TFLOP/s non-tensor FP32 peak); the tile flags cut that
-// to the fraction chip_smoke.py reports.
+// are ~0.5 MB a batch element.  At the bench drive's last frame the 627
+// flagged tile pairs are ~2.1e7 distances, ~2.5 us at the 67 TFLOP/s
+// non-tensor FP32 peak.
 //
 // Design: the TPU kernel walked ref tiles on a sequential grid axis and
-// carried the running best-5 in scratch memory between grid steps.  Blocks
-// on the GPU run in no order, so here one block owns one tile of 64
-// spatially sorted queries (one thread per query) and loops over the ref
-// tiles itself (knn_search.cuh).  The epilogue applies the wrapper steps of
-// the TPU version: a FAR pick (d2 > _FAR_PICK_D2) or an invalid query reads
-// back as _BIG, d2 is clamped at 0, and each row is written at its query's
-// original index (the query sort is undone here).  K4 is the same block on
-// a (n_e, B) grid: blockIdx.y selects the batch element, whose queries,
-// refs, flags, permutation and outputs start at that element's offset, so a
-// batch element is bit-identical to a K3 launch on that element alone.
+// carried the running best-5 in scratch memory between grid steps.  Here a
+// cluster of blocks owns one tile of 64 spatially sorted queries and deals
+// its flagged ref tiles over its blocks by rank; each block double-buffers
+// its tiles with cp.async and splits every staged copy over its thread
+// groups, each thread keeping a partial (d2, index) best-5; the partial
+// lists merge through shared and distributed shared memory into the
+// sequential walk's exact answer (knn_search.cuh, which says what held the
+// earlier one-block walk back, 0.86 ms for K3).  The
+// epilogue applies the wrapper steps of the TPU version: a FAR pick (d2 >
+// _FAR_PICK_D2) or an invalid query reads back as _BIG, d2 is clamped at 0,
+// and each row is written at its query's original index (the query sort is
+// undone here).  K3 is the batch of one: blockIdx.y selects the batch
+// element, whose queries, refs, flags, permutation and outputs start at
+// that element's offset, so a batch element is bit-identical to a K3 launch
+// on that element alone.
 
 #include <cuda_runtime.h>
 
@@ -38,20 +43,26 @@ namespace {
 
 using namespace liodom_knn;
 
-// One query tile of one (query set, ref set) pair; pointers are that pair's.
-__device__ __forceinline__ void coords_tile(
-    const float4* __restrict__ q4, const float4* __restrict__ r4,
-    const int* __restrict__ flags, const int* __restrict__ qperm,
-    int n_query, int n_m, float* __restrict__ out_d,
-    float* __restrict__ out_c) {
-  __shared__ float4 tile[kTileM];
-  const int et = blockIdx.x;
-  const int pos = et * kTileE + threadIdx.x;   // position in the sorted order
-  const float4 q = q4[pos];                    // w = 1 for a valid query
-  Best b;
-  search(q, r4, flags + static_cast<size_t>(et) * n_m, n_m, tile, b);
+__global__ void __launch_bounds__(kThreads)
+knn_coords_kernel(const float4* __restrict__ q4, const float4* __restrict__ r4,
+                  const int* __restrict__ flags, const int* __restrict__ qperm,
+                  int n_query, int n_e, int n_m, float* __restrict__ out_d,
+                  float* __restrict__ out_c) {
+  const size_t bi = blockIdx.y;
+  q4 += bi * n_e * kTileE;
+  r4 += bi * n_m * kTileM;
+  flags += bi * n_e * n_m;
+  qperm += bi * n_query;
+  out_d += bi * n_query * kK;
+  out_c += bi * n_query * kK * 3;
 
+  const int et = blockIdx.x / kCluster;
+  const int pos = et * kTileE + threadIdx.x % kTileE;   // sorted position
+  const float4 q = q4[pos];                             // w = 1 if valid
+  Best b;
+  if (!search(q, r4, flags + static_cast<size_t>(et) * n_m, n_m, b)) return;
   if (pos >= n_query) return;
+
   const size_t dst = static_cast<size_t>(qperm[pos]);
   const bool valid = q.w != 0.0f;
 #pragma unroll
@@ -65,25 +76,18 @@ __device__ __forceinline__ void coords_tile(
   }
 }
 
-__global__ void __launch_bounds__(kTileE)
-knn_coords_kernel(const float4* __restrict__ q4, const float4* __restrict__ r4,
-                  const int* __restrict__ flags, const int* __restrict__ qperm,
-                  int n_query, int n_m, float* __restrict__ out_d,
-                  float* __restrict__ out_c) {
-  coords_tile(q4, r4, flags, qperm, n_query, n_m, out_d, out_c);
-}
-
-__global__ void __launch_bounds__(kTileE)
-knn_coords_batched_kernel(const float4* __restrict__ q4,
-                          const float4* __restrict__ r4,
-                          const int* __restrict__ flags,
-                          const int* __restrict__ qperm, int n_query, int n_e,
-                          int n_m, float* __restrict__ out_d,
-                          float* __restrict__ out_c) {
-  const size_t b = blockIdx.y;
-  coords_tile(q4 + b * n_e * kTileE, r4 + b * n_m * kTileM,
-              flags + b * n_e * n_m, qperm + b * n_query, n_query, n_m,
-              out_d + b * n_query * kK, out_c + b * n_query * kK * 3);
+int launch_coords(const void* q4, const void* r4, const void* flags,
+                  const void* qperm, void* out_d, void* out_c, int batch,
+                  int n_query, int n_e, int n_m, int tile_e, int tile_m,
+                  int k, void* stream) {
+  if (tile_e != kTileE || tile_m != kTileM || k != kK || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_e <= 0 || batch <= 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(launch(
+      knn_coords_kernel, n_e, batch, n_m, stream,
+      static_cast<const float4*>(q4), static_cast<const float4*>(r4),
+      static_cast<const int*>(flags), static_cast<const int*>(qperm), n_query,
+      n_e, n_m, static_cast<float*>(out_d), static_cast<float*>(out_c)));
 }
 
 }  // namespace
@@ -97,14 +101,8 @@ extern "C" int liodom_knn_coords(const void* q4, const void* r4,
                                  void* out_d, void* out_c, int n_query,
                                  int n_e, int n_m, int tile_e, int tile_m,
                                  int k, void* stream) {
-  if (tile_e != kTileE || tile_m != kTileM || k != kK)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_e <= 0) return static_cast<int>(cudaSuccess);
-  knn_coords_kernel<<<n_e, kTileE, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(q4), static_cast<const float4*>(r4),
-      static_cast<const int*>(flags), static_cast<const int*>(qperm), n_query,
-      n_m, static_cast<float*>(out_d), static_cast<float*>(out_c));
-  return static_cast<int>(cudaGetLastError());
+  return launch_coords(q4, r4, flags, qperm, out_d, out_c, 1, n_query, n_e,
+                       n_m, tile_e, tile_m, k, stream);
 }
 
 // K4: the same over a batch of B pairs, each laid out as K3's and stacked:
@@ -116,13 +114,6 @@ extern "C" int liodom_knn_coords_batched(const void* q4, const void* r4,
                                          int n_query, int n_e, int n_m,
                                          int tile_e, int tile_m, int k,
                                          void* stream) {
-  if (tile_e != kTileE || tile_m != kTileM || k != kK || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_e <= 0 || batch <= 0) return static_cast<int>(cudaSuccess);
-  knn_coords_batched_kernel<<<dim3(n_e, batch), kTileE, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(q4), static_cast<const float4*>(r4),
-      static_cast<const int*>(flags), static_cast<const int*>(qperm), n_query,
-      n_e, n_m, static_cast<float*>(out_d), static_cast<float*>(out_c));
-  return static_cast<int>(cudaGetLastError());
+  return launch_coords(q4, r4, flags, qperm, out_d, out_c, batch, n_query,
+                       n_e, n_m, tile_e, tile_m, k, stream);
 }

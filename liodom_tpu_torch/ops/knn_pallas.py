@@ -15,7 +15,12 @@ indices into the caller's map shard.
 CUDA route: both sides are sorted on coarse 2 m cells (:func:`_spatial_order`;
 the map once a frame by :func:`spatial_sort_points`), per-tile bounding boxes
 give (query tile, ref tile) pair flags (:func:`_pair_flags`), and
-``csrc/knn_coords.cu`` / ``csrc/knn_lines.cu`` visit the flagged pairs only.
+``csrc/knn_coords.cu`` / ``csrc/knn_lines.cu`` visit the flagged pairs only:
+a cluster of blocks a query tile deals its flagged ref tiles over its
+blocks, thread groups a block split each staged tile, and the partial lists
+merge (``csrc/knn_search.cuh``; :func:`knn_walk_shape` reads the split).
+:func:`knn_launch_plain` and :func:`knn_lines_launch_plain` compute what
+those launches return from the same prepared tensors, exactly.
 Invalid refs are displaced by ``2 * _FAR`` and read back through
 ``_FAR_PICK_D2``.  Neighbours within ``max_radius`` are exact; beyond it a
 distance may read ``_BIG``, which the consumer's accept gate
@@ -67,10 +72,12 @@ _QBLOCK = 512    # queries per block of the plain version
 KNN_INDEX_SPLITS = 16
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_SHAPE_SIG = ("liodom_knn_walk_shape", [_INT, _PTR])
 _SIG = [("liodom_knn_coords", [_PTR] * 6 + [_INT] * 6 + [_PTR]),
-        ("liodom_knn_coords_batched", [_PTR] * 6 + [_INT] * 7 + [_PTR])]
+        ("liodom_knn_coords_batched", [_PTR] * 6 + [_INT] * 7 + [_PTR]),
+        _SHAPE_SIG]
 _LINES_SIG = [("liodom_knn_lines", [_PTR] * 7 + [_INT] * 7
-               + [ctypes.c_float] * 3 + [_PTR])]
+               + [ctypes.c_float] * 3 + [_PTR]), _SHAPE_SIG]
 _INDEX_SIG = [("liodom_knn_index", [_PTR] * 8 + [_INT] * 9 + [_PTR])]
 
 
@@ -275,6 +282,21 @@ def _check_prepared(q4, r4, flags, qperm, what: str) -> Tuple[int, int, int]:
     if not all(t.is_contiguous() for t in (q4, r4, flags, qperm)):
         raise ValueError(f"{what} needs contiguous tensors")
     return e, n_e, n_m
+
+
+def knn_walk_shape(source: str, n_m: int) -> dict:
+    """The walk of ``csrc/knn_search.cuh`` as the built library of
+    ``source`` (``"knn_coords"`` or ``"knn_lines"``) has it: blocks a query
+    tile's cluster, thread groups a block, and a block's dynamic shared
+    memory for ``n_m`` ref tiles.  Builds the library if needed; launches
+    nothing."""
+    lib = kernels.load(source, {"knn_coords": _SIG,
+                                "knn_lines": _LINES_SIG}[source])
+    out = (ctypes.c_int * 3)()
+    kernels.check(lib.liodom_knn_walk_shape(n_m, ctypes.addressof(out)),
+                  "liodom_knn_walk_shape")
+    return {"cluster_blocks": out[0], "thread_groups_per_block": out[1],
+            "dynamic_smem_bytes": out[2]}
 
 
 def knn_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
@@ -484,6 +506,87 @@ def _index_keys(d2: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """int64 keys ordering (d2, index) pairs lexicographically: a
     non-negative float32's bits order as the float does."""
     return (d2.view(torch.int32).to(torch.int64) << 32) | idx
+
+
+_NONE = 0x7FFFFFFF   # the kernels' index of an empty slot
+
+
+def knn_launch_plain(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
+                     qperm: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What K3 (flags (n_e, n_m)) or K4 (a leading batch dimension) returns
+    on tensors from :func:`knn_prepare_batched`, in plain PyTorch.
+
+    Each query's candidates are the refs of its tile's flagged ref tiles,
+    FAR-encoded and padding rows included, at distances under ``_BIG``; the
+    5 smallest (d2, ref index) pairs are selected on int64 keys
+    (:func:`_index_keys`), so equal distances go to the lower index, the
+    kernels' tie order, whatever ``topk``'s.  Then the read-back rules: a
+    FAR pick or an invalid query reads ``_BIG``, d2 is clamped at 0, an
+    empty slot reads ``_BIG`` with zero coordinates, and each row lands at
+    its query's original index.  A host loop over query tiles: a reference
+    for checks, not a route."""
+    if flags.ndim == 3:
+        outs = [knn_launch_plain(q4[b], r4[b], flags[b], qperm[b])
+                for b in range(flags.shape[0])]
+        return (torch.stack([d for d, _ in outs]),
+                torch.stack([c for _, c in outs]))
+    dev = q4.device
+    e = qperm.shape[0]
+    none = int(_index_keys(torch.full((), _BIG, dtype=torch.float32),
+                           torch.tensor(_NONE, dtype=torch.int64)))
+    best = torch.full((q4.shape[0], K), none, dtype=torch.int64, device=dev)
+    cols = torch.arange(TILE_M, device=dev)
+    for et, row in enumerate(flags.cpu()):
+        tiles = torch.nonzero(row).squeeze(1).to(dev)
+        if tiles.numel() == 0:
+            continue
+        idx = (tiles[:, None] * TILE_M + cols).flatten()
+        q = q4[et * TILE_E:(et + 1) * TILE_E]
+        r = r4[idx]
+        d2 = q[:, 0:1] - r[None, :, 0]
+        d2.mul_(d2)
+        t = q[:, 1:2] - r[None, :, 1]
+        t.mul_(t)
+        d2.add_(t)
+        torch.sub(q[:, 2:3], r[None, :, 2], out=t)
+        t.mul_(t)
+        d2.add_(t)
+        keys = torch.where(d2 < _BIG, _index_keys(d2, idx[None, :]),
+                           torch.full_like(t, none, dtype=torch.int64))
+        best[et * TILE_E:(et + 1) * TILE_E] = torch.topk(
+            keys, K, dim=1, largest=False, sorted=True).values
+    d2 = (best >> 32).to(torch.int32).view(torch.float32)
+    idx = best & 0xFFFFFFFF
+    empty = idx == _NONE
+    coords = torch.where(empty[..., None], 0.0,
+                         r4[torch.where(empty, 0, idx), :3])
+    d2 = torch.where(d2 > _FAR_PICK_D2, _BIG, d2)
+    d2 = torch.where(q4[:, 3:4] != 0, torch.clamp(d2, min=0.0), _BIG)
+    out_d = torch.empty((e, K), dtype=torch.float32, device=dev)
+    out_c = torch.empty((e, K, 3), dtype=torch.float32, device=dev)
+    out_d[qperm.long()] = d2[:e]
+    out_c[qperm.long()] = coords[:e]
+    return out_d, out_c
+
+
+def knn_lines_launch_plain(q4: torch.Tensor, r4: torch.Tensor,
+                           flags: torch.Tensor, qperm: torch.Tensor,
+                           max_sq_dist: float, eig_ratio: float,
+                           min_line_sep: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """What K6 returns on tensors from :func:`knn_prepare_batched` (flags
+    (B, n_e, n_m)): :func:`knn_launch_plain`'s neighbours through
+    ``neighbors._line_fit`` with each query's own mask -> (lpa, lpb, valid)
+    (B, E, ...)."""
+    # imported here: neighbors builds on this module
+    from liodom_tpu_torch.ops.neighbors import _line_fit
+    d2, near = knn_launch_plain(q4, r4, flags, qperm)
+    qmask = torch.zeros(qperm.shape, dtype=torch.bool, device=q4.device)
+    qmask.scatter_(-1, qperm.long(), q4[..., :qperm.shape[-1], 3] != 0)
+    return tuple(_line_fit(near, d2[..., K - 1], qmask, max_sq_dist,
+                           eig_ratio, min_line_sep))
 
 
 def knn_index_plain(query: torch.Tensor, qmask: torch.Tensor,

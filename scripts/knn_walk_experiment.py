@@ -1,0 +1,308 @@
+#!/usr/bin/env python3
+"""The kNN walk of K3, K4 and K6 on the card: splits of the cluster walk
+against each other and against an earlier walk, on the same inputs, in one
+process.
+
+    python3 scripts/knn_walk_experiment.py [--earlier DIR]
+        [--splits 8x4,16x4,...] [--out FILE]
+
+Builds ``csrc/knn_coords.cu`` and ``csrc/knn_lines.cu`` of this checkout
+as they are (the shipped split, labelled by what the library's
+``liodom_knn_walk_shape`` reports) and once for each other split ``SxG``
+of ``--splits`` (S blocks a cluster, G thread groups a block: a copy of
+the sources under ``kernels/build/experiment/`` whose ``knn_search.cuh``
+has ``kCluster = S`` and ``kGroups = G`` written in, its report checked)
+and, with ``--earlier`` (and ``--also LABEL=DIR``), those of other
+``csrc`` directories (for example an earlier commit's, unpacked by ``git
+archive``: the C entry points are the same), one ``nvcc`` a source, all
+started together, into ``kernels/build/experiment/``.
+
+Inputs: the bench drive's last frame as ``chip_smoke.py``'s kernels phase
+builds them (K3 and K6 on lane 0's edges against the window they met, K4
+on lanes 0-3 at B = 4) and its tie-heavy scenes (one pair; 4 as a batch).
+Every build's K3, K4 and K6 outputs on every input must be ``torch.equal``
+to the shipped build's, and the shipped build's to ``knn_launch_plain``.
+Then each build's K3, K4 and K6 time by CUDA events over 50 launches, the
+builds in turns (forward, then backward), beside K5 (this checkout's
+``csrc/knn_index.cu``, untouched) on K3's inputs without a radius as a
+same-process control of the card's speed.  Prints one JSON object (and
+writes it to ``--out``); exits 1 if any output differs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+import chip_smoke as CS  # noqa: E402
+from liodom_tpu_torch import kernels  # noqa: E402
+from liodom_tpu_torch.core import pose as se3  # noqa: E402
+from liodom_tpu_torch.core.config import LiodomConfig  # noqa: E402
+from liodom_tpu_torch.core.synth import tie_scene  # noqa: E402
+from liodom_tpu_torch.odometry import local_map  # noqa: E402
+from liodom_tpu_torch.odometry import pipeline as P  # noqa: E402
+from liodom_tpu_torch.ops import features as F  # noqa: E402
+from liodom_tpu_torch.ops import knn_pallas as KNN  # noqa: E402
+from liodom_tpu_torch.parallel.sharded import init_batch_state  # noqa: E402
+
+SOURCES = ("knn_coords", "knn_lines")
+REPS = 50
+
+
+def split_csrc(src: Path, out: Path, split: str) -> Path:
+    """A copy of the ``.cu`` and ``.cuh`` sources of ``src`` in ``out``,
+    with the walk's split ``SxG`` written into ``knn_search.cuh``'s
+    ``kCluster`` and ``kGroups``."""
+    out.mkdir(parents=True, exist_ok=True)
+    for f in list(src.glob("*.cu")) + list(src.glob("*.cuh")):
+        shutil.copy(f, out / f.name)
+    head = (out / "knn_search.cuh").read_text()
+    for name, value in zip(("kCluster", "kGroups"), split.split("x")):
+        head, n = re.subn(rf"constexpr int {name} = \d+;",
+                          f"constexpr int {name} = {int(value)};", head)
+        if n != 1:
+            raise SystemExit(f"{src}/knn_search.cuh: no single {name}")
+    (out / "knn_search.cuh").write_text(head)
+    return out
+
+
+def walk_shape(lib) -> tuple:
+    """(blocks a cluster, thread groups a block) of a built library."""
+    out = (ctypes.c_int * 3)()
+    kernels.check(lib.liodom_knn_walk_shape(0, ctypes.addressof(out)),
+                  "liodom_knn_walk_shape")
+    return out[0], out[1]
+
+
+def build(variants: dict, sources=SOURCES,
+          out_dir: Path = kernels.BUILD_DIR / "experiment") -> dict:
+    """{label: {source: (CDLL, ptxas usage)}}; variants {label: csrc
+    directory}; the libraries land in ``out_dir``."""
+    nvcc = kernels.nvcc_path()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for label, csrc in variants.items():
+        for name in sources:
+            so = out_dir / f"{name}-{label}.so"
+            cmd = [nvcc, *kernels.NVCC_FLAGS, "-o", str(so),
+                   str(Path(csrc) / f"{name}.cu")]
+            jobs[label, name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), so)
+    libs = {}
+    for (label, name), (proc, so) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"{label} {name}.cu: nvcc exit "
+                             f"{proc.returncode}\n{log}")
+        lib = ctypes.CDLL(str(so))
+        sigs = KNN._SIG if name == "knn_coords" else KNN._LINES_SIG
+        for symbol, argtypes in sigs:
+            if symbol == KNN._SHAPE_SIG[0] and not hasattr(lib, symbol):
+                continue                  # a walk that predates the query
+            fn = getattr(lib, symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        libs.setdefault(label, {})[name] = (lib, CS.ptxas_usage(log))
+    return libs
+
+
+def coords(lib, q4, r4, flags, qperm):
+    """K3 (flags 2-D) or K4 (3-D) of one build, as the port's wrappers
+    call it."""
+    batched = flags.ndim == 3
+    lead = flags.shape[:-2]
+    n_e, n_m = flags.shape[-2:]
+    e = qperm.shape[-1]
+    out_d = torch.empty(lead + (e, KNN.K), device=q4.device)
+    out_c = torch.empty(lead + (e, KNN.K, 3), device=q4.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (q4, r4, flags, qperm, out_d, out_c)]
+    tail = [KNN.TILE_E, KNN.TILE_M, KNN.K, stream]
+    if batched:
+        err = lib.liodom_knn_coords_batched(*ptrs, lead[0], e, n_e, n_m,
+                                            *tail)
+    else:
+        err = lib.liodom_knn_coords(*ptrs, e, n_e, n_m, *tail)
+    kernels.check(err, "knn_coords")
+    return out_d, out_c
+
+
+def lines(lib, q4, r4, flags, qperm, gates):
+    """K6 of one build on a batch of prepared pairs."""
+    b, n_e, n_m = flags.shape
+    e = qperm.shape[-1]
+    lpa = torch.empty((b, e, 3), device=q4.device)
+    lpb = torch.empty((b, e, 3), device=q4.device)
+    ok = torch.empty((b, e), dtype=torch.bool, device=q4.device)
+    err = lib.liodom_knn_lines(
+        *[t.data_ptr() for t in (q4, r4, flags, qperm, lpa, lpb, ok)], b, e,
+        n_e, n_m, KNN.TILE_E, KNN.TILE_M, KNN.K, float(gates[0]),
+        float(gates[1]), float(gates[2]) ** 2,
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "knn_lines")
+    return lpa, lpb, ok
+
+
+def bench_inputs(cfg, dev, radius):
+    """K3's (lane 0) and K4's (lanes 0-3) prepared inputs at the bench
+    drive's last frame, as chip_smoke.py's kernels phase builds them, and
+    K5's on K3's edges without a radius."""
+    lanes = CS.render_lanes(cfg, dev, range(CS.LANES), noise=0.01)
+    imgs = lanes[0][0]
+    states, poses, _ = CS.run_course(P.init_state(cfg), imgs, cfg)
+    img = imgs[-1]
+    ec = F.select_edges(img, F.smoothness(img, cfg), cfg)
+    map_xyz, map_valid = KNN.spatial_sort_points(
+        *local_map.flatten(states[-2].window))
+    qxyz, qvalid = local_map.compact(ec.xyz, ec.valid)
+    query = se3.transform(poses[-1], qxyz)
+    prep = KNN.knn_prepare(query, qvalid, map_xyz, map_valid, radius,
+                           ref_presorted=True)
+    prep5 = KNN.knn_prepare_batched(query[None], qvalid[None],
+                                    map_xyz[None], map_valid[None], None)
+
+    bimgs = CS.stack_lanes([lanes[s][0] for s in range(CS.LANES)])
+    bstates, bposes, _ = CS.run_course(init_batch_state(cfg, CS.LANES),
+                                       bimgs, cfg, step=P.batch_image_step)
+    bimg = bimgs[-1]
+    ec_b = F.select_edges(bimg, F.smoothness(bimg, cfg), cfg)
+    qxyz_b, qvalid_b = local_map.compact(ec_b.xyz, ec_b.valid)
+    query_b = se3.transform(bposes[-1], qxyz_b)
+    map_b, mvalid_b = KNN.spatial_sort_points(
+        *local_map.flatten(bstates[-2].window))
+    prep_b = KNN.knn_prepare_batched(query_b, qvalid_b, map_b, mvalid_b,
+                                     radius, ref_presorted=True)
+    return prep, prep_b, (prep5, map_xyz.shape[0])
+
+
+def tie_inputs(dev, radius):
+    scenes = [tie_scene(s, 3000, 20000) for s in range(CS.LANES)]
+    q, qm, r, rm = (torch.from_numpy(np.stack([sc[i] for sc in scenes]))
+                    .to(dev) for i in range(4))
+    return (KNN.knn_prepare(q[0], qm[0], r[0], rm[0], radius),
+            KNN.knn_prepare_batched(q, qm, r, rm, radius))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--earlier", type=Path,
+                    help="another csrc directory to build and compare")
+    ap.add_argument("--also", action="append", default=[],
+                    metavar="LABEL=DIR",
+                    help="more csrc directories to build, compare and time")
+    ap.add_argument("--splits", default="8x4,4x2,16x2,8x1",
+                    help="other splits to build, cluster blocks x thread "
+                         "groups a block (empty: none)")
+    ap.add_argument("--out", type=Path,
+                    help="also write the JSON object to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("knn_walk_experiment: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    smi = CS.nvidia_smi_line()
+    splits = [sg for sg in args.splits.split(",") if sg]
+    out_dir = kernels.BUILD_DIR / "experiment"
+    variants = {"shipped": kernels.CSRC}
+    for sg in splits:
+        variants[sg] = split_csrc(kernels.CSRC, out_dir / f"csrc-{sg}", sg)
+    if args.earlier is not None:
+        variants["earlier"] = args.earlier
+    for spec in args.also:
+        label, _, path = spec.partition("=")
+        variants[label] = Path(path)
+    libs = build(variants)
+    for sg in splits:
+        for name, (lib, _) in libs[sg].items():
+            got = "x".join(map(str, walk_shape(lib)))
+            if got != sg:
+                raise SystemExit(f"{sg} {name}: the build reports {got}")
+    shipped = "x".join(map(str, walk_shape(libs["shipped"]["knn_coords"][0])))
+    if shipped in libs:
+        raise SystemExit(f"--splits holds the shipped split {shipped}")
+    libs = {shipped: libs.pop("shipped"), **libs}
+
+    cfg = LiodomConfig(local_map_size=5)
+    radius = cfg.knn_max_sq_dist ** 0.5
+    gates = (cfg.knn_max_sq_dist, cfg.eig_ratio, cfg.min_line_sep)
+    prep, prep_b, (prep5, m5) = bench_inputs(cfg, dev, radius)
+    tie, tie_b = tie_inputs(dev, radius)
+    inputs = {"bench_k3": prep, f"bench_b{CS.LANES}": prep_b,
+              "tie_scene": tie, f"tie_scene_b{CS.LANES}": tie_b}
+
+    def run_all(label):
+        co = libs[label]["knn_coords"][0]
+        li = libs[label]["knn_lines"][0]
+        out = {}
+        for name, p in inputs.items():
+            pl = p if p[2].ndim == 3 else tuple(x[None] for x in p)
+            out[name] = coords(co, *p) + lines(li, *pl, gates)
+        return out
+
+    ref = run_all(shipped)
+    equal, failed = {}, []
+    for name, p in inputs.items():
+        ok = all(torch.equal(a, b) for a, b in
+                 zip(ref[name][:2], KNN.knn_launch_plain(*p)))
+        equal[f"{shipped} vs knn_launch_plain, {name}"] = ok
+        failed += [] if ok else [name]
+    for label in libs:
+        if label == shipped:
+            continue
+        got = run_all(label)
+        for name in inputs:
+            ok = all(torch.equal(a, b) for a, b in zip(got[name], ref[name]))
+            equal[f"{label} vs {shipped}, {name}"] = ok
+            failed += [] if ok else [f"{label} {name}"]
+    torch.cuda.synchronize()
+
+    prep_l = tuple(x[None] for x in prep)
+    times = {label: {"k3": [], "k4": [], "k6": []} for label in libs}
+    k5 = []
+    order = list(libs) + list(libs)[::-1]
+    for label in order:
+        co = libs[label]["knn_coords"][0]
+        li = libs[label]["knn_lines"][0]
+        times[label]["k3"].append(CS.cuda_ms(lambda: coords(co, *prep), REPS))
+        times[label]["k4"].append(CS.cuda_ms(lambda: coords(co, *prep_b),
+                                             REPS))
+        times[label]["k6"].append(CS.cuda_ms(
+            lambda: lines(li, *prep_l, gates), REPS))
+        k5.append(CS.cuda_ms(lambda: KNN.knn_index_launch(*prep5, m5), REPS))
+    per_tile = {name: p[2].sum(-1).float() for name, p in inputs.items()}
+    res = {"nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
+           "torch": torch.__version__, "cuda": torch.version.cuda,
+           "shipped": shipped, "reps": REPS, "turns": order,
+           "ms": times, "k5_control_ms": k5,
+           "ms_mean": {label: {k: float(np.mean(v)) for k, v in t.items()}
+                       for label, t in times.items()},
+           "flagged_pairs": {n: int(p[2].sum()) for n, p in inputs.items()},
+           "flagged_tiles_per_query_tile_max":
+               {n: int(t.max()) for n, t in per_tile.items()},
+           "flagged_tiles_per_query_tile_mean":
+               {n: float(t.mean()) for n, t in per_tile.items()},
+           "ptxas": {label: {n: u for n, (_, u) in v.items()}
+                     for label, v in libs.items()},
+           "torch_equal": equal, "failed": failed}
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(res, indent=1))
+    print(json.dumps(res), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,13 +16,15 @@ from liodom_tpu_torch import kernels
 from liodom_tpu_torch.core.config import LiodomConfig, MapConfig
 from liodom_tpu_torch.core.frame import RawScan, RingImage
 from liodom_tpu_torch.core.pose import Pose
-from liodom_tpu_torch.core.synth import BoxWorld, drive_trajectory, yaw_matrix
+from liodom_tpu_torch.core.synth import (BoxWorld, drive_trajectory,
+                                         tie_scene, yaw_matrix)
 from liodom_tpu_torch.mapping import grid as G
 from liodom_tpu_torch.mapping import service as S
 from liodom_tpu_torch.odometry import pipeline as P
 from liodom_tpu_torch.ops import compact_pallas as K7
 from liodom_tpu_torch.ops import features as F
 from liodom_tpu_torch.ops import knn_pallas as KNN
+from liodom_tpu_torch.ops import neighbors as NB
 from liodom_tpu_torch.ops import probe_insert as PI
 from liodom_tpu_torch.ops import select_pallas as SEL
 from liodom_tpu_torch.ops import smoothness_pallas as SM
@@ -153,6 +155,40 @@ def test_knn_index_kernel_matches_plain(dev):
             assert torch.equal(d_s[lim], d_p[lim])
             assert torch.equal(i_s[lim], i_p[lim])
             assert bool(rm[b][i_s[d_s < 1e29].long()].all())
+
+
+def test_knn_walk_tie_order_bit_exact(dev):
+    """K3, K4 and K6 share the cluster walk of csrc/knn_search.cuh.  On a
+    5 cm lattice with duplicate refs (equal distances in most rows), one
+    pair and 4 distinct pairs as a batch, every slot is bit for bit the
+    keyed (d2, index) selection ``knn_launch_plain``: d2, coordinates and
+    K6's endpoints; K6's gate flips only where the plain eigenvalues sit at
+    the ratio (|e_max - 3 e_mid| <= 1e-4 e_max), where acosf / cosf ulps
+    can flip it."""
+    lanes = [tie_scene(s, 3000, 20000) for s in range(4)]
+    q, qm, r, rm = (torch.from_numpy(np.stack([ln[i] for ln in lanes]))
+                    .to(dev) for i in range(4))
+    for prep in (KNN.knn_prepare(q[0], qm[0], r[0], rm[0], 1.0),
+                 KNN.knn_prepare_batched(q, qm, r, rm, 1.0)):
+        batched = prep[2].ndim == 3
+        launch = KNN.knn_launch_batched if batched else KNN.knn_launch
+        d_k, c_k = launch(*prep)
+        d_o, c_o = KNN.knn_launch_plain(*prep)
+        assert torch.equal(d_k, d_o) and torch.equal(c_k, c_o)
+        tied = ((d_o[..., 1:] < 1.0) & (d_o.diff(dim=-1) == 0)).any(-1)
+        assert int(tied.sum()) > 1000
+        prep_l = prep if batched else tuple(x[None] for x in prep)
+        got = KNN.knn_lines_launch(*prep_l, 1.0, 3.0, 0.01)
+        want = KNN.knn_lines_launch_plain(*prep_l, 1.0, 3.0, 0.01)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        near = c_o if batched else c_o[None]
+        zm = near - near.mean(dim=-2, keepdim=True)
+        eigs = NB.sym3_eigenvalues(torch.einsum("...ki,...kj->...ij", zm, zm))
+        at_ratio = ((eigs[..., 2] - 3.0 * eigs[..., 1]).abs()
+                    <= 1e-4 * eigs[..., 2].abs())
+        flips = got[2] != want[2]
+        assert int(flips.sum()) <= 2 and not bool((flips & ~at_ratio).any())
+        assert int(want[2].sum()) > 100
 
 
 def test_knn_lines_kernel_matches_plain(dev):
