@@ -87,7 +87,10 @@ Phases, each printing one JSON line:
    for each lane (0.8 x the 10 Hz sensor rate).
 12. kernels — each kernel against its plain PyTorch version on the card, on
    the bench drive's last frame, window, map and pose: K1 bit-exact, K2
-   bit-exact edges for the same smoothness plane, K3 d2 within 1e-5
+   bit-exact edges for the same smoothness plane (also at 8 x 21 = 168
+   slots a ring, above the JAX kernel's 128, with the kernel's cluster,
+   list length and shared memory and the walk's dependent steps, a
+   latency bound beside the byte bound), K3 d2 within 1e-5
    relative where d2 < 1 and identical coordinates where the 5th-NN gate
    passes, K4 at B = 4 (the bench lanes) bit-identical to K3 launched on
    each lane and held to K3's checks, K6 endpoints identical where both it
@@ -105,7 +108,14 @@ Phases, each printing one JSON line:
    K5 on the sharded flagship's last frame and matching map, without a
    radius (the path's call) and with 1 m: indices identical wherever the
    plain d2 is finite (within the radius), d2 within 1e-5 relative where
-   d2 < 1; then each kernel's time beside its plain version's and its
+   d2 < 1; the path's call and the tie scenes without a radius bit for bit
+   on every row against ``knn_index_launch_plain``, one kernel a call
+   under the profiler, its cluster blocks and thread groups beside its
+   ptxas usage; K3, K4, K5 and K6 at k = 3 and 8 (the walk built for
+   every 1 <= k <= 16) bit for bit against ``knn_launch_plain`` /
+   ``knn_index_launch_plain`` / ``knn_lines_launch_plain`` on the bench
+   inputs (K6's gate as above), with ptxas registers and spills at k = 5
+   and 8; then each kernel's time beside its plain version's and its
    bound.
 13. profile — torch.profiler over 5 frames of the bench drive, for
    ``image_step``, ``combined_image_step``, ``batch_image_step`` at B = 4
@@ -180,6 +190,10 @@ N_BATCH_CPU = 3             # frames of the batch path's CPU parity
 N_LOCKSTEP = 3              # tests/test_batch.py's horizon, reported
 CHUNK = 12                  # chained_image_step frames a call (bench.py:147)
 K6_OPS_PER_QUERY = 160      # csrc/knn_lines.cu's epilogue, counted by hand
+OTHER_K = (3, 8)            # the kNN kernels at k other than 5
+# one dependent step of K2's walk: a shared-memory load and a warp vote,
+# ~30 cycles at the H100's 1.98 GHz boost clock (published latency)
+WALK_STEP_S = 30 / 1.98e9
 # bench.py's combined configuration (bench.py:91)
 MCFG = MapConfig(map_capacity=524288, local_map_capacity=16384)
 
@@ -292,6 +306,15 @@ def ptxas_usage(log: str) -> dict:
                                  static_smem_bytes=int(smem.group(1))
                                  if smem else 0)
     return out
+
+
+def usage_at_k(usage: dict, kernel: str, k: int) -> dict:
+    """ptxas usage of the instantiation of template ``kernel`` at ``k``
+    (its mangled name holds ``<kernel>ILi<k>E``)."""
+    for name, u in (usage or {}).items():
+        if re.search(rf"{kernel}ILi{k}E", name):
+            return u
+    return {}
 
 
 def walk_vs_oracle(prep, gates) -> dict:
@@ -1126,6 +1149,20 @@ def main() -> int:
     k2_err = float((ec_k.xyz - ec_p.xyz).abs().max()) + float(
         (ec_k.valid != ec_p.valid).sum())
     check(k2_same, "K2 edges not bit-exact")
+    # K2 above the JAX kernel's 128 slots a ring: 8 x 21 = 168
+    cfg168 = cfg.replace(edges_per_region=20)
+    ec168_k = SEL.select_edges_cuda(img, sm_k, cfg168)
+    ec168_p = SEL.select_edges_plain(img, sm_k, cfg168)
+    k2_168 = (torch.equal(ec168_k.valid, ec168_p.valid)
+              and torch.equal(ec168_k.xyz, ec168_p.xyz))
+    check(k2_168, "K2 at 168 slots a ring not bit-exact")
+    # the walk's dependent steps a ring on this frame (its model)
+    _, w_val, w_stats = SEL.select_walk(
+        sm_k.cpu(), SEL._reach_plane(img.xyz, cfg.neighbor_gap_sq).cpu(),
+        img.count.cpu(), cfg)
+    check(torch.equal(w_val.reshape(-1), ec_p.valid.cpu()),
+          "K2's walk model differs from the plain pick chain")
+    check(w_stats["overflow"] == 0, "K2's walk ran out of a region's list")
 
     # K3 on the matching map the last frame met (the window of the 5
     # frames before it) and on the last frame's edges at its pose
@@ -1281,6 +1318,67 @@ def main() -> int:
     prep5 = KNN.knn_prepare_batched(s_query[None], ec_k.valid[None],
                                     s_map[None], s_valid[None], None)
     m5 = s_map.shape[0]
+    # every row bit for bit against the keyed selection: the path's call
+    # and the tie scenes, without a radius
+    k5_rows = {"bench": all(torch.equal(a, b) for a, b in zip(
+        KNN.knn_index_launch(*prep5, m5),
+        KNN.knn_index_launch_plain(*prep5, m5)))}
+    for name, t_prep in (("tie_scene", KNN.knn_prepare_batched(
+            tq[:1], tqm[:1], tr[:1], trm[:1], None)),
+            (f"tie_scene_b{LANES}", KNN.knn_prepare_batched(
+                tq, tqm, tr, trm, None))):
+        k5_rows[name] = all(torch.equal(a, b) for a, b in zip(
+            KNN.knn_index_launch(*t_prep, tr.shape[1]),
+            KNN.knn_index_launch_plain(*t_prep, tr.shape[1])))
+    for name, ok in k5_rows.items():
+        check(ok, f"K5 ({name}): d2 or indices differ from the (d2, index) "
+              f"selection")
+    # one kernel a call: no merge kernel, no partial lists
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as k5_prof:
+        KNN.knn_index_launch(*prep5, m5)
+        torch.cuda.synchronize()
+    k5_kernels = [e.name for e in k5_prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    check(len(k5_kernels) == 1, f"K5 ran {k5_kernels} in one call")
+
+    # the kNN kernels at other k, bit for bit on every slot against the
+    # keyed selection on the bench inputs
+    other_k = {}
+    for kk in OTHER_K:
+        got3 = KNN.knn_launch(*prep, k=kk)
+        got4 = KNN.knn_launch_batched(*prep_b, k=kk)
+        got5 = KNN.knn_index_launch(*prep5, m5, k=kk)
+        got6 = KNN.knn_lines_launch(*prep_l, *gates, k=kk)
+        want3 = KNN.knn_launch_plain(*prep, k=kk)
+        want4 = KNN.knn_launch_plain(*prep_b, k=kk)
+        want5 = KNN.knn_index_launch_plain(*prep5, m5, k=kk)
+        want6 = KNN.knn_lines_launch_plain(*prep_l, *gates, k=kk)
+        near = want3[1][None]
+        zm = near - near.mean(dim=-2, keepdim=True)
+        eigs = NB.sym3_eigenvalues(torch.einsum("...ki,...kj->...ij", zm,
+                                                zm))
+        at_ratio = ((eigs[..., 2] - cfg.eig_ratio * eigs[..., 1]).abs()
+                    <= 1e-4 * eigs[..., 2].abs())
+        flips = got6[2] != want6[2]
+        other_k[kk] = {
+            "knn_coords_equal": all(torch.equal(a, b)
+                                    for a, b in zip(got3, want3)),
+            "knn_coords_batched_equal": all(torch.equal(a, b)
+                                            for a, b in zip(got4, want4)),
+            "knn_index_equal": all(torch.equal(a, b)
+                                   for a, b in zip(got5, want5)),
+            "knn_lines_endpoints_equal": (torch.equal(got6[0], want6[0])
+                                          and torch.equal(got6[1], want6[1])),
+            "knn_lines_gate_flips": int(flips.sum()),
+            "knn_lines_gate_flips_off_ratio_boundary":
+                int((flips & ~at_ratio).sum()),
+            "rows_accepted": int(want6[2].sum())}
+        for key in ("knn_coords_equal", "knn_coords_batched_equal",
+                    "knn_index_equal", "knn_lines_endpoints_equal"):
+            check(other_k[kk][key], f"k={kk}: {key} is False")
+        check(other_k[kk]["knn_lines_gate_flips_off_ratio_boundary"] == 0,
+              f"k={kk}: K6 gate flips away from the ratio boundary")
 
     flags = prep[2]
     n_e, n_m = flags.shape
@@ -1291,7 +1389,12 @@ def main() -> int:
           "smoothness": {"bit_exact": torch.equal(sm_k, sm_p),
                          "max_abs_err": k1_err},
           "select_edges": {"bit_exact": k2_same,
-                           "n_edges": int(ec_k.valid.sum())},
+                           "n_edges": int(ec_k.valid.sum()),
+                           "slots_168_bit_exact": k2_168,
+                           "n_edges_168": int(ec168_k.valid.sum()),
+                           "walk_steps_per_ring_max": max(w_stats["steps"]),
+                           "walk_entries_visited_max":
+                               max(w_stats["visited"])},
           "knn_coords": {"queries": int(qvalid.sum()),
                          "refs": int(map_valid.sum()),
                          "E": query.shape[0], "M": map_xyz.shape[0],
@@ -1323,8 +1426,9 @@ def main() -> int:
                         "refs": int(s_valid.sum()), "E": s_query.shape[0],
                         "M": m5, "tile_pairs": prep5[2].numel(),
                         "flagged_pairs": flagged5,
-                        "splits": min(KNN.KNN_INDEX_SPLITS,
-                                      prep5[2].shape[-1]), **k5},
+                        "rows_equal_to_keyed_selection": k5_rows,
+                        "kernels_a_call": k5_kernels, **k5},
+          "knn_other_k": other_k,
           "probe_insert": {"bit_exact": probe_same,
                            "table_equals_drive": probe_drive,
                            "table_slots": pmap.code.shape[0],
@@ -1354,6 +1458,13 @@ def main() -> int:
     # scanned column
     k2_bound = bound(r * w * 4 + r * 4 + img.xyz.numel() * 4
                      + r * slots * (4 + 4 + 12), 8 * r * w + 2 * scanned)
+    # the longest ring's chain of dependent walk steps, one shared-memory
+    # step each
+    k2_latency_ms = max(w_stats["steps"]) * WALK_STEP_S * 1e3
+    k2_shape = SEL.select_shape(w, cfg.scan_regions, cfg.max_edges_per_region)
+    check(k2_shape["dynamic_smem_bytes"] == SEL.select_smem_bytes(
+        w, cfg.scan_regions, cfg.max_edges_per_region),
+        f"K2's shared memory {k2_shape} differs from the wrapper's count")
 
     k3_ms = cuda_ms(lambda: KNN.knn_launch(*prep), 50)
     k3_wrapper_ms = cuda_ms(lambda: KNN.knn_coords_cuda(
@@ -1435,7 +1546,10 @@ def main() -> int:
          "replaces": "liodom_tpu/ops/select_pallas.py:70",
          "launches": counts["select_edges"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "bound_by": k2_bound[1], "library_ms": None,
+         "latency_bound_ms": k2_latency_ms,
+         "walk_steps_per_ring_max": max(w_stats["steps"]),
+         **k2_shape, "ptxas": usage.get("select")},
         {"name": "knn_coords", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_coords.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:259",
@@ -1446,7 +1560,10 @@ def main() -> int:
          "unpruned_bound_ms": e_q * map_xyz.shape[0] * 8
          / FP32_OPS_PER_S * 1e3,
          **walk_row(ties["bench"], "knn_coords", n_m),
-         "ptxas": usage.get("knn_coords")},
+         "ptxas_k5": usage_at_k(usage.get("knn_coords"), "knn_coords_kernel",
+                                5),
+         "ptxas_k8": usage_at_k(usage.get("knn_coords"), "knn_coords_kernel",
+                                8)},
         {"name": "knn_coords_batched", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_coords.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:526",
@@ -1456,7 +1573,8 @@ def main() -> int:
          "wrapper_ms": k4_wrapper_ms,
          **walk_row(ties[f"bench_b{LANES}"], "knn_coords",
                    prep_b[2].shape[-1]),
-         "ptxas": usage.get("knn_coords")},
+         "ptxas_k5": usage_at_k(usage.get("knn_coords"), "knn_coords_kernel",
+                                5)},
         {"name": "knn_index", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_index.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:44",
@@ -1465,7 +1583,17 @@ def main() -> int:
          "plain_ms": k5_plain, "bound_ms": k5_bound[0],
          "bound_by": k5_bound[1], "library_ms": None,
          "wrapper_ms": k5_wrapper_ms, "flagged_pairs": flagged5,
-         "tile_pair_bound_ms": k5_tile_bound[0]},
+         "tile_pair_bound_ms": k5_tile_bound[0],
+         "kernels_a_call": len(k5_kernels),
+         "flagged_tiles_per_query_tile_max":
+             int(prep5[2].sum(-1).max()),
+         "flagged_tiles_per_query_tile_mean":
+             float(prep5[2].sum(-1).float().mean()),
+         **KNN.knn_walk_shape("knn_index", prep5[2].shape[-1]),
+         "ptxas_k5": usage_at_k(usage.get("knn_index"), "knn_index_kernel",
+                                5),
+         "ptxas_k8": usage_at_k(usage.get("knn_index"), "knn_index_kernel",
+                                8)},
         {"name": "knn_lines", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_lines.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:580",
@@ -1474,7 +1602,10 @@ def main() -> int:
          "bound_ms": k6_bound[0], "bound_by": k6_bound[1],
          "library_ms": None, "gate_flips": k6_flips,
          **walk_row(ties["bench"], "knn_lines", n_m),
-         "ptxas": usage.get("knn_lines")},
+         "ptxas_k5": usage_at_k(usage.get("knn_lines"), "knn_lines_kernel",
+                                5),
+         "ptxas_k8": usage_at_k(usage.get("knn_lines"), "knn_lines_kernel",
+                                8)},
         {"name": "local_map_compact", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/local_map_compact.cu",
          "replaces": "scripts/compact_pallas_experiment.py:50",

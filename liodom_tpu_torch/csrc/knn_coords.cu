@@ -1,11 +1,11 @@
-// K3 and K4: exact 5-nearest-neighbours carrying the neighbours'
-// coordinates, written by hand for Hopper (sm_90a).
+// K3 and K4: exact k-nearest-neighbours (1 <= k <= 16) carrying the
+// neighbours' coordinates, written by hand for Hopper (sm_90a).
 //
 // K3 replaces the TPU kernel liodom_tpu/ops/knn_pallas.py:_knn_coords_kernel
 // (launched by knn_coords_pallas); K4 replaces the same kernel with
 // batched=True (launched by knn_coords_pallas_batched), which runs K3 over B
 // independent (query set, ref set) pairs in one launch.  For every query (an
-// edge in the world frame) it returns the 5 smallest squared distances to the
+// edge in the world frame) it returns the k smallest squared distances to the
 // reference points (the matching map) and those points' coordinates,
 // ascending.  The wrapper sorts the queries spatially, flags the (query tile,
 // ref tile) pairs whose bounding boxes are within the accept radius, and
@@ -19,11 +19,11 @@
 // non-tensor FP32 peak.
 //
 // Design: the TPU kernel walked ref tiles on a sequential grid axis and
-// carried the running best-5 in scratch memory between grid steps.  Here a
+// carried the running best-k in scratch memory between grid steps.  Here a
 // cluster of blocks owns one tile of 64 spatially sorted queries and deals
 // its flagged ref tiles over its blocks by rank; each block double-buffers
 // its tiles with cp.async and splits every staged copy over its thread
-// groups, each thread keeping a partial (d2, index) best-5; the partial
+// groups, each thread keeping a partial (d2, index) best-k; the partial
 // lists merge through shared and distributed shared memory into the
 // sequential walk's exact answer (knn_search.cuh, which says what held the
 // earlier one-block walk back, 0.86 ms for K3).  The
@@ -33,7 +33,8 @@
 // undone here).  K3 is the batch of one: blockIdx.y selects the batch
 // element, whose queries, refs, flags, permutation and outputs start at
 // that element's offset, so a batch element is bit-identical to a K3 launch
-// on that element alone.
+// on that element alone.  The kernel is a template on k; the entry points
+// dispatch the caller's k to its instantiation.
 
 #include <cuda_runtime.h>
 
@@ -43,7 +44,8 @@ namespace {
 
 using namespace liodom_knn;
 
-__global__ void __launch_bounds__(kThreads)
+template <int K>
+__global__ void __launch_bounds__(CoordsWalk<K>::kThreads)
 knn_coords_kernel(const float4* __restrict__ q4, const float4* __restrict__ r4,
                   const int* __restrict__ flags, const int* __restrict__ qperm,
                   int n_query, int n_e, int n_m, float* __restrict__ out_d,
@@ -53,26 +55,30 @@ knn_coords_kernel(const float4* __restrict__ q4, const float4* __restrict__ r4,
   r4 += bi * n_m * kTileM;
   flags += bi * n_e * n_m;
   qperm += bi * n_query;
-  out_d += bi * n_query * kK;
-  out_c += bi * n_query * kK * 3;
+  out_d += bi * n_query * K;
+  out_c += bi * n_query * K * 3;
 
   const int et = blockIdx.x / kCluster;
   const int pos = et * kTileE + threadIdx.x % kTileE;   // sorted position
   const float4 q = q4[pos];                             // w = 1 if valid
-  Best b;
-  if (!search(q, r4, flags + static_cast<size_t>(et) * n_m, n_m, b)) return;
+  float bd[K], x[K], y[K], z[K];
+  int idx[K];
+  if (!CoordsWalk<K>::search(q, r4, flags + static_cast<size_t>(et) * n_m,
+                             n_m, bd, idx))
+    return;
   if (pos >= n_query) return;
+  gather<K>(r4, idx, x, y, z);
 
   const size_t dst = static_cast<size_t>(qperm[pos]);
   const bool valid = q.w != 0.0f;
 #pragma unroll
-  for (int s = 0; s < kK; ++s) {
-    float d = b.d[s] > kFarPickD2 ? kBig : b.d[s];
+  for (int s = 0; s < K; ++s) {
+    float d = bd[s] > kFarPickD2 ? kBig : bd[s];
     d = valid ? fmaxf(d, 0.0f) : kBig;
-    out_d[dst * kK + s] = d;
-    out_c[(dst * kK + s) * 3 + 0] = b.x[s];
-    out_c[(dst * kK + s) * 3 + 1] = b.y[s];
-    out_c[(dst * kK + s) * 3 + 2] = b.z[s];
+    out_d[dst * K + s] = d;
+    out_c[(dst * K + s) * 3 + 0] = x[s];
+    out_c[(dst * K + s) * 3 + 1] = y[s];
+    out_c[(dst * K + s) * 3 + 2] = z[s];
   }
 }
 
@@ -80,22 +86,27 @@ int launch_coords(const void* q4, const void* r4, const void* flags,
                   const void* qperm, void* out_d, void* out_c, int batch,
                   int n_query, int n_e, int n_m, int tile_e, int tile_m,
                   int k, void* stream) {
-  if (tile_e != kTileE || tile_m != kTileM || k != kK || batch > 65535)
+  if (tile_e != kTileE || tile_m != kTileM || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   if (n_e <= 0 || batch <= 0) return static_cast<int>(cudaSuccess);
-  return static_cast<int>(launch(
-      knn_coords_kernel, n_e, batch, n_m, stream,
-      static_cast<const float4*>(q4), static_cast<const float4*>(r4),
-      static_cast<const int*>(flags), static_cast<const int*>(qperm), n_query,
-      n_e, n_m, static_cast<float*>(out_d), static_cast<float*>(out_c)));
+  return static_cast<int>(with_k(k, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    return CoordsWalk<K>::launch(
+        knn_coords_kernel<K>, n_e, batch, n_m, stream,
+        static_cast<const float4*>(q4), static_cast<const float4*>(r4),
+        static_cast<const int*>(flags), static_cast<const int*>(qperm),
+        n_query, n_e, n_m, static_cast<float*>(out_d),
+        static_cast<float*>(out_c));
+  }));
 }
 
 }  // namespace
 
 // q4 (n_e * 64, 4) f32 sorted queries [x y z valid], r4 (n_m * 512, 4) f32
 // encoded refs, flags (n_e, n_m) i32, qperm (n_query,) i32 sorted -> original
-// -> out_d (n_query, 5) f32, out_c (n_query, 5, 3) f32.  tile_e, tile_m and k
-// are the caller's layout and must equal the kernel's.
+// -> out_d (n_query, k) f32, out_c (n_query, k, 3) f32, 1 <= k <= 16.
+// tile_e and tile_m are the caller's layout and must equal the kernel's.
 extern "C" int liodom_knn_coords(const void* q4, const void* r4,
                                  const void* flags, const void* qperm,
                                  void* out_d, void* out_c, int n_query,
@@ -107,7 +118,7 @@ extern "C" int liodom_knn_coords(const void* q4, const void* r4,
 
 // K4: the same over a batch of B pairs, each laid out as K3's and stacked:
 // q4 (B, n_e * 64, 4), r4 (B, n_m * 512, 4), flags (B, n_e, n_m), qperm
-// (B, n_query) -> out_d (B, n_query, 5), out_c (B, n_query, 5, 3).
+// (B, n_query) -> out_d (B, n_query, k), out_c (B, n_query, k, 3).
 extern "C" int liodom_knn_coords_batched(const void* q4, const void* r4,
                                          const void* flags, const void* qperm,
                                          void* out_d, void* out_c, int batch,
@@ -116,4 +127,11 @@ extern "C" int liodom_knn_coords_batched(const void* q4, const void* r4,
                                          void* stream) {
   return launch_coords(q4, r4, flags, qperm, out_d, out_c, batch, n_query,
                        n_e, n_m, tile_e, tile_m, k, stream);
+}
+
+// The walk as built (knn_search.cuh): out[0] blocks a cluster, out[1]
+// thread groups a block, out[2] a block's dynamic shared memory in bytes
+// for n_m ref tiles at k = 5.
+extern "C" int liodom_knn_walk_shape(int n_m, int* out) {
+  return CoordsWalk<5>::shape(n_m, out);
 }

@@ -1,10 +1,10 @@
-// K5: exact 5-nearest-neighbours returning the neighbours' indices, written
-// by hand for Hopper (sm_90a).
+// K5: exact k-nearest-neighbours (1 <= k <= 16) returning the neighbours'
+// indices, written by hand for Hopper (sm_90a).
 //
 // Replaces the TPU kernel liodom_tpu/ops/knn_pallas.py:_knn_kernel (launched
 // by knn_pallas), the search of the map-sharded correspondence step
 // (liodom_tpu/parallel/sharded.py:54).  For every query (an edge in the world
-// frame) it returns the 5 smallest squared distances to the reference points
+// frame) it returns the k smallest squared distances to the reference points
 // (this rank's shard of the matching map) and those points' row indices,
 // ascending.  Each rank then gathers its neighbours' rows and the ranks merge
 // their candidates.
@@ -15,148 +15,84 @@
 // ~2.0 GFLOP, ~30 us at the 67 TFLOP/s non-tensor FP32 peak; the inputs are
 // under 1 MB.
 //
+// What held the earlier design back (0.18273 ms at the bench shape, NVIDIA
+// H100 80GB HBM3, 700 W): 88 query tiles x 16 splits of one 64-thread block
+// each, a branchy bubble insert for every ref, the 16 partial best-5 lists
+// of every query written to device memory (~3.6 MB) and read back by a
+// second merge kernel.
+//
 // Design: the TPU kernel walked the ref tiles on a sequential grid axis and
-// carried the running best-5 (distance, column) in scratch memory; on equal
+// carried the running best-k (distance, column) in scratch memory; on equal
 // distances the lowest column wins, the carried best ahead of a new tile.
-// That is the 5 smallest (d2, index) pairs in lexicographic order.  Here the
-// ref tiles of a query tile are dealt round-robin to `splits` blocks, so that
-// the unpruned search fills the card (88 query tiles alone would leave 44 of
-// 132 SMs idle and the rest at 2 warps).  Each block keeps one thread per
-// query, stages its flagged ref tiles in shared memory as float4 and keeps a
-// partial best-5 in registers by insertion with a strict '<' (its refs come
-// in ascending index, so a tie keeps the earlier).  A second kernel merges the
-// partial lists of every split by (d2, index) order, which gives exactly the
-// sequential walk's answer whatever the split.  The distance is rounded per
-// operation (__fsub_rn/__fmul_rn/__fadd_rn, -fmad=false) in the plain
-// version's order.  The merge applies the wrapper steps of the TPU version:
-// a FAR pick (an invalid or padding ref, d2 > _FAR_PICK_D2) or an invalid
-// query reads back as _BIG, d2 is clamped at 0, the index is clamped to
-// m - 1, and each row is written at its query's original index.  A batch of
-// B independent (query set, ref set) pairs runs on blockIdx.z.
+// That is the k smallest (d2, index) pairs in lexicographic order.  Here the
+// search is the cluster walk of knn_search.cuh that K3, K4 and K6 share: a
+// query tile's flagged ref tiles dealt by rank over a cluster of
+// kIndexCluster blocks of kIndexGroups thread groups, cp.async double
+// buffering, 8 distances behind one minimum test, a branch-free insert of
+// only the refs that beat the K-th best, and the partial lists merged in
+// (d2, index) order through shared and distributed shared memory into
+// cluster rank 0: the sequential walk's exact answer, one launch and no
+// partial list in device memory.  Without a radius the flags are dense and
+// even (every non-empty tile pair, ~63 of 87 ref tiles a query tile at the
+// bench shape) and the refs unsorted, so fresh lists take many refs in:
+// pushing only the refs that beat the K-th best took K5 from 0.1929 to
+// 0.1375 ms (scripts/knn_walk_experiment.py, one call).  The split is K5's
+// own, chosen by timing (the experiment builds copies with other values:
+// 4 x 2, 4 x 4 and 16 x 2 were slower than 8 x 2).  Rank
+// 0's epilogue applies the wrapper steps of the TPU version: a FAR pick (an
+// invalid or padding ref, d2 > _FAR_PICK_D2) or an invalid query reads back
+// as _BIG, d2 is clamped at 0,
+// the index is clamped to m - 1 (an empty slot reads index 0, the TPU
+// kernel's initial index), and each row is written at its query's original
+// index through qperm.  A batch of B independent (query set, ref set) pairs
+// runs on the grid's second axis.  The kernel is a template on k; the entry
+// point dispatches the caller's k to its instantiation.
 
 #include <cuda_runtime.h>
 
+#include "knn_search.cuh"
+
 namespace {
 
-constexpr int kTileE = 64;    // queries per block, one thread each
-constexpr int kTileM = 512;   // refs per staged tile (8 KB of float4)
-constexpr int kK = 5;
-constexpr int kMaxSplits = 64;
-constexpr int kMergeThreads = 256;
-constexpr float kBig = 1e30f;
-constexpr float kFarPickD2 = 1.0e6f;
+using namespace liodom_knn;
 
-// Partial best-5 of one split: q4 (B, n_e * 64, 4) sorted-or-not queries
-// [x y z valid], r4 (B, n_m * 512, 4) encoded refs, flags (B, n_e, n_m) ->
-// part_d / part_i (B, splits, n_e * 64, 5).
-__global__ void __launch_bounds__(kTileE)
-knn_index_partial(const float4* __restrict__ q4, const float4* __restrict__ r4,
-                  const int* __restrict__ flags, int n_e, int n_m, int splits,
-                  float* __restrict__ part_d, int* __restrict__ part_i) {
-  __shared__ float4 tile[kTileM];
-  const int et = blockIdx.x;
-  const int s = blockIdx.y;
-  const size_t b = blockIdx.z;
-  const size_t ep = static_cast<size_t>(n_e) * kTileE;
-  const int pos = et * kTileE + threadIdx.x;
-  const float4 q = q4[b * ep + pos];
-  const float4* refs = r4 + b * static_cast<size_t>(n_m) * kTileM;
-  const int* row_flags = flags + (b * n_e + et) * static_cast<size_t>(n_m);
+constexpr int kIndexCluster = 8;   // blocks a query tile
+constexpr int kIndexGroups = 2;    // thread groups a block
 
-  float bd[kK];
-  int bi[kK];
-#pragma unroll
-  for (int j = 0; j < kK; ++j) {
-    bd[j] = kBig;
-    bi[j] = 0;
-  }
-  for (int mt = s; mt < n_m; mt += splits) {
-    if (row_flags[mt] == 0) continue;          // uniform across the block
-    __syncthreads();                           // previous tile fully read
-    const float4* src = refs + static_cast<size_t>(mt) * kTileM;
-    for (int i = threadIdx.x; i < kTileM; i += kTileE) tile[i] = src[i];
-    __syncthreads();
-    const int base = mt * kTileM;
-#pragma unroll 4
-    for (int i = 0; i < kTileM; ++i) {
-      const float4 r = tile[i];
-      const float dx = __fsub_rn(q.x, r.x);
-      const float dy = __fsub_rn(q.y, r.y);
-      const float dz = __fsub_rn(q.z, r.z);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                __fmul_rn(dz, dz));
-      if (d < bd[kK - 1]) {
-        bd[kK - 1] = d;
-        bi[kK - 1] = base + i;
-#pragma unroll
-        for (int j = kK - 1; j > 0; --j) {
-          if (bd[j] < bd[j - 1]) {     // strict: ties keep the earlier entry
-            const float td = bd[j]; bd[j] = bd[j - 1]; bd[j - 1] = td;
-            const int ti = bi[j]; bi[j] = bi[j - 1]; bi[j - 1] = ti;
-          }
-        }
-      }
-    }
-  }
-  const size_t dst = ((b * splits + s) * ep + pos) * kK;
-#pragma unroll
-  for (int j = 0; j < kK; ++j) {
-    part_d[dst + j] = bd[j];
-    part_i[dst + j] = bi[j];
-  }
-}
+template <int K>
+using IndexWalk = Walk<K, kIndexCluster, kIndexGroups>;
 
-__device__ __forceinline__ bool before(float da, int ia, float db, int ib) {
-  return da < db || (da == db && ia < ib);
-}
+template <int K>
+__global__ void __launch_bounds__(IndexWalk<K>::kThreads)
+knn_index_kernel(const float4* __restrict__ q4, const float4* __restrict__ r4,
+                 const int* __restrict__ flags, const int* __restrict__ qperm,
+                 int n_query, int n_e, int n_m, int m,
+                 float* __restrict__ out_d, int* __restrict__ out_i) {
+  const size_t b = blockIdx.y;
+  q4 += b * n_e * kTileE;
+  r4 += b * n_m * kTileM;
+  flags += b * n_e * n_m;
+  qperm += b * n_query;
+  out_d += b * n_query * K;
+  out_i += b * n_query * K;
 
-// Merge of the splits' partial lists in (d2, index) order, then the
-// wrapper's read-back rules; one thread per (batch element, query).
-__global__ void __launch_bounds__(kMergeThreads)
-knn_index_merge(const float* __restrict__ part_d,
-                const int* __restrict__ part_i, const float4* __restrict__ q4,
-                const int* __restrict__ qperm, int batch, int n_query, int n_e,
-                int splits, int m, float* __restrict__ out_d,
-                int* __restrict__ out_i) {
-  const size_t t = static_cast<size_t>(blockIdx.x) * kMergeThreads +
-                   threadIdx.x;
-  if (t >= static_cast<size_t>(batch) * n_query) return;
-  const size_t b = t / n_query;
-  const int pos = static_cast<int>(t % n_query);
-  const size_t ep = static_cast<size_t>(n_e) * kTileE;
+  const int et = blockIdx.x / kIndexCluster;
+  const int pos = et * kTileE + threadIdx.x % kTileE;
+  const float4 q = q4[pos];                             // w = 1 if valid
+  float bd[K];
+  int bi[K];
+  if (!IndexWalk<K>::search(q, r4, flags + static_cast<size_t>(et) * n_m,
+                            n_m, bd, bi))
+    return;
+  if (pos >= n_query) return;
 
-  float bd[kK];
-  int bi[kK];
+  const size_t dst = static_cast<size_t>(qperm[pos]);
+  const bool valid = q.w != 0.0f;
 #pragma unroll
-  for (int j = 0; j < kK; ++j) {
-    bd[j] = kBig;
-    bi[j] = 0;
-  }
-  for (int s = 0; s < splits; ++s) {
-    const size_t src = ((b * splits + s) * ep + pos) * kK;
-    for (int c = 0; c < kK; ++c) {
-      const float d = part_d[src + c];
-      const int i = part_i[src + c];
-      if (!before(d, i, bd[kK - 1], bi[kK - 1])) break;   // list ascending
-      bd[kK - 1] = d;
-      bi[kK - 1] = i;
-#pragma unroll
-      for (int j = kK - 1; j > 0; --j) {
-        if (before(bd[j], bi[j], bd[j - 1], bi[j - 1])) {
-          const float td = bd[j]; bd[j] = bd[j - 1]; bd[j - 1] = td;
-          const int ti = bi[j]; bi[j] = bi[j - 1]; bi[j - 1] = ti;
-        }
-      }
-    }
-  }
-  const bool valid = q4[b * ep + pos].w != 0.0f;
-  const size_t dst = (b * n_query + static_cast<size_t>(
-                          qperm[b * n_query + pos])) * kK;
-#pragma unroll
-  for (int j = 0; j < kK; ++j) {
-    float d = bd[j] > kFarPickD2 ? kBig : bd[j];
-    out_d[dst + j] = valid ? fmaxf(d, 0.0f) : kBig;
-    out_i[dst + j] = bi[j] < m - 1 ? bi[j] : m - 1;
+  for (int s = 0; s < K; ++s) {
+    const float d = bd[s] > kFarPickD2 ? kBig : bd[s];
+    out_d[dst * K + s] = valid ? fmaxf(d, 0.0f) : kBig;
+    out_i[dst * K + s] = bi[s] == kNone ? 0 : min(bi[s], m - 1);
   }
 }
 
@@ -164,37 +100,35 @@ knn_index_merge(const float* __restrict__ part_d,
 
 // B stacked (query set, ref set) pairs: q4 (B, n_e * 64, 4) f32 queries
 // [x y z valid], r4 (B, n_m * 512, 4) f32 encoded refs, flags (B, n_e, n_m)
-// i32, qperm (B, n_query) i32 position -> original query index; scratch
-// part_d (B, splits, n_e * 64, 5) f32 and part_i (same) i32 ->
-// out_d (B, n_query, 5) f32, out_i (B, n_query, 5) i32 (indices into the
-// r4 rows, clamped to m - 1).  Two launches on the stream, no sync.
-// tile_e, tile_m and k are the caller's layout and must equal the kernel's.
+// i32, qperm (B, n_query) i32 position -> original query index ->
+// out_d (B, n_query, k) f32, out_i (B, n_query, k) i32 (indices into the
+// r4 rows, clamped to m - 1), 1 <= k <= 16.  One launch on the stream, no
+// sync.  tile_e and tile_m are the caller's layout and must equal the
+// kernel's.
 extern "C" int liodom_knn_index(const void* q4, const void* r4,
                                 const void* flags, const void* qperm,
-                                void* part_d, void* part_i, void* out_d,
-                                void* out_i, int batch, int n_query, int n_e,
-                                int n_m, int m, int splits, int tile_e,
-                                int tile_m, int k, void* stream) {
-  if (tile_e != kTileE || tile_m != kTileM || k != kK || batch > 65535 ||
-      splits < 1 || splits > kMaxSplits || m < 1 ||
-      n_query > n_e * kTileE)
+                                void* out_d, void* out_i, int batch,
+                                int n_query, int n_e, int n_m, int m,
+                                int tile_e, int tile_m, int k, void* stream) {
+  if (tile_e != kTileE || tile_m != kTileM || batch > 65535 || m < 1 ||
+      n_query > n_e * kTileE || k < 1 || k > kMaxK)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_e <= 0 || batch <= 0 || n_query <= 0)
     return static_cast<int>(cudaSuccess);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  knn_index_partial<<<dim3(n_e, splits, batch), kTileE, 0, st>>>(
-      static_cast<const float4*>(q4), static_cast<const float4*>(r4),
-      static_cast<const int*>(flags), n_e, n_m, splits,
-      static_cast<float*>(part_d), static_cast<int*>(part_i));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t rows = static_cast<size_t>(batch) * n_query;
-  const unsigned blocks =
-      static_cast<unsigned>((rows + kMergeThreads - 1) / kMergeThreads);
-  knn_index_merge<<<blocks, kMergeThreads, 0, st>>>(
-      static_cast<const float*>(part_d), static_cast<const int*>(part_i),
-      static_cast<const float4*>(q4), static_cast<const int*>(qperm), batch,
-      n_query, n_e, splits, m, static_cast<float*>(out_d),
-      static_cast<int*>(out_i));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_k(k, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    return IndexWalk<K>::launch(
+        knn_index_kernel<K>, n_e, batch, n_m, stream,
+        static_cast<const float4*>(q4), static_cast<const float4*>(r4),
+        static_cast<const int*>(flags), static_cast<const int*>(qperm),
+        n_query, n_e, n_m, m, static_cast<float*>(out_d),
+        static_cast<int*>(out_i));
+  }));
+}
+
+// K5's walk as built: out[0] blocks a cluster, out[1] thread groups a
+// block, out[2] a block's dynamic shared memory in bytes for n_m ref tiles
+// at k = 5.
+extern "C" int liodom_knn_walk_shape(int n_m, int* out) {
+  return IndexWalk<5>::shape(n_m, out);
 }

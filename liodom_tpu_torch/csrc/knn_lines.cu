@@ -1,5 +1,5 @@
-// K6: exact 5-NN with the line-fit gate fused into the epilogue, written by
-// hand for Hopper (sm_90a).
+// K6: exact k-NN (1 <= k <= 16) with the line-fit gate fused into the
+// epilogue, written by hand for Hopper (sm_90a).
 //
 // Replaces the TPU kernel liodom_tpu/ops/knn_pallas.py:_knn_lines_kernel
 // (launched by knn_lines_pallas).  The search is K3's (knn_search.cuh: the
@@ -7,11 +7,11 @@
 // partial lists merged through distributed shared memory, the same tie
 // order); then, per query and still in registers of the cluster's rank-0
 // block, the line test of laser_odometry.cc:325-357: the centroid and
-// un-normalised covariance of the 5 neighbours, the Cardano eigenvalues,
+// un-normalised covariance of the k neighbours, the Cardano eigenvalues,
 // and the gates dk < max_sq_dist, e_max > eig_ratio * e_mid and
 // sep^2 > min_line_sep^2.  Out: lpa (the nearest neighbour), lpb (the second)
 // and valid (the gates AND the query's own mask), each at its query's
-// original index.  The (E, 5, 3) neighbour planes never reach device memory.
+// original index.  The (E, k, 3) neighbour planes never reach device memory.
 //
 // What bounds it on the card: operations, as K3 (8 FP32 operations a flagged
 // (query, ref) pair) plus about 160 a query for the epilogue.  What held it
@@ -28,7 +28,8 @@
 // eig_ratio * e_mid.  The p == 0 branch (A = qI) sets every eigenvalue to
 // q, as sym3_eigenvalues does.  Like K4, the kernel runs on a (n_e *
 // cluster, B) grid: a solo call is B = 1, and a batched step makes one
-// launch a solve iteration.
+// launch a solve iteration.  The kernel is a template on k; the entry point
+// dispatches the caller's k to its instantiation.
 
 #include <cuda_runtime.h>
 
@@ -40,7 +41,8 @@ using namespace liodom_knn;
 
 constexpr float kTwoThirdsPi = 2.0943951023931953f;
 
-__global__ void __launch_bounds__(kThreads)
+template <int K>
+__global__ void __launch_bounds__(CoordsWalk<K>::kThreads)
 knn_lines_kernel(const float4* __restrict__ q4, const float4* __restrict__ r4,
                  const int* __restrict__ flags, const int* __restrict__ qperm,
                  int n_query, int n_e, int n_m, float max_sq_dist,
@@ -58,25 +60,29 @@ knn_lines_kernel(const float4* __restrict__ q4, const float4* __restrict__ r4,
   const int et = blockIdx.x / kCluster;
   const int pos = et * kTileE + threadIdx.x % kTileE;
   const float4 q = q4[pos];
-  Best b;
-  if (!search(q, r4, flags + static_cast<size_t>(et) * n_m, n_m, b)) return;
+  float bd[K], x[K], y[K], z[K];
+  int idx[K];
+  if (!CoordsWalk<K>::search(q, r4, flags + static_cast<size_t>(et) * n_m,
+                             n_m, bd, idx))
+    return;
   if (pos >= n_query) return;
+  gather<K>(r4, idx, x, y, z);
 
   // centroid and un-normalised covariance (sums in neighbour order)
-  float mx = b.x[0], my = b.y[0], mz = b.z[0];
+  float mx = x[0], my = y[0], mz = z[0];
 #pragma unroll
-  for (int s = 1; s < kK; ++s) {
-    mx = mx + b.x[s];
-    my = my + b.y[s];
-    mz = mz + b.z[s];
+  for (int s = 1; s < K; ++s) {
+    mx = mx + x[s];
+    my = my + y[s];
+    mz = mz + z[s];
   }
-  mx = mx / static_cast<float>(kK);
-  my = my / static_cast<float>(kK);
-  mz = mz / static_cast<float>(kK);
+  mx = mx / static_cast<float>(K);
+  my = my / static_cast<float>(K);
+  mz = mz / static_cast<float>(K);
   float a00 = 0.0f, a01 = 0.0f, a02 = 0.0f, a11 = 0.0f, a12 = 0.0f, a22 = 0.0f;
 #pragma unroll
-  for (int s = 0; s < kK; ++s) {
-    const float cx = b.x[s] - mx, cy = b.y[s] - my, cz = b.z[s] - mz;
+  for (int s = 0; s < K; ++s) {
+    const float cx = x[s] - mx, cy = y[s] - my, cz = z[s] - mz;
     a00 = a00 + cx * cx;
     a01 = a01 + cx * cy;
     a02 = a02 + cx * cz;
@@ -107,18 +113,20 @@ knn_lines_kernel(const float4* __restrict__ q4, const float4* __restrict__ r4,
     e_mid = qm;
   }
 
-  const float sx = b.x[0] - b.x[1], sy = b.y[0] - b.y[1], sz = b.z[0] - b.z[1];
+  // the endpoints: the nearest neighbour and the second (itself at k = 1)
+  const int s1 = K > 1 ? 1 : 0;
+  const float sx = x[0] - x[s1], sy = y[0] - y[s1], sz = z[0] - z[s1];
   const float sep_sq = (sx * sx + sy * sy) + sz * sz;
-  const bool ok = (q.w != 0.0f) && (b.d[kK - 1] < max_sq_dist)
+  const bool ok = (q.w != 0.0f) && (bd[K - 1] < max_sq_dist)
                   && (e_max > eig_ratio * e_mid) && (sep_sq > min_sep_sq);
 
   const size_t dst = static_cast<size_t>(qperm[pos]);
-  out_a[dst * 3 + 0] = b.x[0];
-  out_a[dst * 3 + 1] = b.y[0];
-  out_a[dst * 3 + 2] = b.z[0];
-  out_b[dst * 3 + 0] = b.x[1];
-  out_b[dst * 3 + 1] = b.y[1];
-  out_b[dst * 3 + 2] = b.z[1];
+  out_a[dst * 3 + 0] = x[0];
+  out_a[dst * 3 + 1] = y[0];
+  out_a[dst * 3 + 2] = z[0];
+  out_b[dst * 3 + 0] = x[s1];
+  out_b[dst * 3 + 1] = y[s1];
+  out_b[dst * 3 + 2] = z[s1];
   out_ok[dst] = ok;
 }
 
@@ -126,7 +134,7 @@ knn_lines_kernel(const float4* __restrict__ q4, const float4* __restrict__ r4,
 
 // B stacked (query set, ref set) pairs laid out as K3's: q4 (B, n_e * 64, 4),
 // r4 (B, n_m * 512, 4), flags (B, n_e, n_m) i32, qperm (B, n_query) i32 ->
-// out_a, out_b (B, n_query, 3) f32, out_ok (B, n_query) bool.
+// out_a, out_b (B, n_query, 3) f32, out_ok (B, n_query) bool; 1 <= k <= 16.
 extern "C" int liodom_knn_lines(const void* q4, const void* r4,
                                 const void* flags, const void* qperm,
                                 void* out_a, void* out_b, void* out_ok,
@@ -134,14 +142,25 @@ extern "C" int liodom_knn_lines(const void* q4, const void* r4,
                                 int tile_e, int tile_m, int k,
                                 float max_sq_dist, float eig_ratio,
                                 float min_sep_sq, void* stream) {
-  if (tile_e != kTileE || tile_m != kTileM || k != kK || batch > 65535)
+  if (tile_e != kTileE || tile_m != kTileM || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   if (n_e <= 0 || batch <= 0) return static_cast<int>(cudaSuccess);
-  return static_cast<int>(launch(
-      knn_lines_kernel, n_e, batch, n_m, stream,
-      static_cast<const float4*>(q4), static_cast<const float4*>(r4),
-      static_cast<const int*>(flags), static_cast<const int*>(qperm), n_query,
-      n_e, n_m, max_sq_dist, eig_ratio, min_sep_sq,
-      static_cast<float*>(out_a), static_cast<float*>(out_b),
-      static_cast<bool*>(out_ok)));
+  return static_cast<int>(with_k(k, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    return CoordsWalk<K>::launch(
+        knn_lines_kernel<K>, n_e, batch, n_m, stream,
+        static_cast<const float4*>(q4), static_cast<const float4*>(r4),
+        static_cast<const int*>(flags), static_cast<const int*>(qperm),
+        n_query, n_e, n_m, max_sq_dist, eig_ratio, min_sep_sq,
+        static_cast<float*>(out_a), static_cast<float*>(out_b),
+        static_cast<bool*>(out_ok));
+  }));
+}
+
+// The walk as built (knn_search.cuh), as liodom_knn_coords' library reports
+// it: blocks a cluster, thread groups a block, dynamic shared memory for n_m
+// ref tiles at k = 5.
+extern "C" int liodom_knn_walk_shape(int n_m, int* out) {
+  return CoordsWalk<5>::shape(n_m, out);
 }

@@ -1,4 +1,4 @@
-"""K3, K4, K5 and K6: exact 5-NN with neighbour coordinates, batched, with
+"""K3, K4, K5 and K6: exact k-NN with neighbour coordinates, batched, with
 indices, and with the line-fit gate fused in: CUDA kernel wrappers + plain
 versions.
 
@@ -8,14 +8,17 @@ Port of ``liodom_tpu/ops/knn_pallas.py``: ``knn_coords_pallas`` (K3),
 (laser_odometry.cc:318-323) runs an exact 5-NN of every edge against the
 matching map, twice a frame; the line fit only reads the neighbours'
 coordinates, so the kernels return those (K3, K4) or the fitted line itself
-(K6).  The map-sharded step (``parallel/sharded.py``) gathers its
-neighbours' rows itself and merges them across ranks, so K5 returns the
-indices into the caller's map shard.
+(K6).  k is the caller's (``LiodomConfig.knn_k``, 5 by default): the
+kernels are built for every 1 <= k <= ``MAX_K`` and a larger k raises.
+The map-sharded step (``parallel/sharded.py``) gathers its neighbours' rows
+itself and merges them across ranks, so K5 returns the indices into the
+caller's map shard.
 
 CUDA route: both sides are sorted on coarse 2 m cells (:func:`_spatial_order`;
 the map once a frame by :func:`spatial_sort_points`), per-tile bounding boxes
 give (query tile, ref tile) pair flags (:func:`_pair_flags`), and
-``csrc/knn_coords.cu`` / ``csrc/knn_lines.cu`` visit the flagged pairs only:
+``csrc/knn_coords.cu`` / ``csrc/knn_lines.cu`` / ``csrc/knn_index.cu``
+visit the flagged pairs only:
 a cluster of blocks a query tile deals its flagged ref tiles over its
 blocks, thread groups a block split each staged tile, and the partial lists
 merge (``csrc/knn_search.cuh``; :func:`knn_walk_shape` reads the split).
@@ -32,9 +35,11 @@ CPU route (:func:`knn_coords_plain`): exact brute force over ref chunks with
 ``torch.topk``, invalid refs at ``_BIG``; K4's and K6's plain versions loop
 it over the batch (and K6's adds ``neighbors._line_fit``).
 
-K5 (``csrc/knn_index.cu``) searches without a radius on the sharded path:
-nothing is sorted then, so its indices address the caller's ref directly,
-and the flags only skip empty tiles.  With a radius both sides are sorted
+K5 (``csrc/knn_index.cu``, the same walk with an index epilogue, one launch
+a call) searches without a radius on the sharded path: nothing is sorted
+then, so its indices address the caller's ref directly, and the flags only
+skip empty tiles; :func:`knn_index_launch_plain` computes what its launch
+returns.  With a radius both sides are sorted
 and the indices are mapped back through the ref permutation, as
 ``knn_pallas.py:249-255`` does.  Its plain version (:func:`knn_index_plain`)
 selects on int64 keys ``(d2 bits << 32) | index``, so that equal distances
@@ -61,15 +66,11 @@ _FAR_PICK_D2 = 1.0e6
 
 TILE_E = 64    # queries per block in csrc/knn_search.cuh
 TILE_M = 512   # refs per staged tile in csrc/knn_search.cuh
-K = 5          # neighbours the kernels keep
+K = 5          # neighbours a search keeps unless the caller asks for k
+MAX_K = 16     # the largest k the kernels are built for (csrc/knn_search.cuh)
 SORT_CELL = 2.0  # metres; the spatial sort's cell on the CUDA route
 _CHUNK = 4096    # refs per brute-force chunk of the plain version
 _QBLOCK = 512    # queries per block of the plain version
-
-# ref-tile splits of K5's search: a query tile's flagged ref tiles are dealt
-# to this many blocks (csrc/knn_index.cu), whose partial best-5 lists a
-# second pass merges
-KNN_INDEX_SPLITS = 16
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SHAPE_SIG = ("liodom_knn_walk_shape", [_INT, _PTR])
@@ -78,7 +79,8 @@ _SIG = [("liodom_knn_coords", [_PTR] * 6 + [_INT] * 6 + [_PTR]),
         _SHAPE_SIG]
 _LINES_SIG = [("liodom_knn_lines", [_PTR] * 7 + [_INT] * 7
                + [ctypes.c_float] * 3 + [_PTR]), _SHAPE_SIG]
-_INDEX_SIG = [("liodom_knn_index", [_PTR] * 8 + [_INT] * 9 + [_PTR])]
+_INDEX_SIG = [("liodom_knn_index", [_PTR] * 6 + [_INT] * 8 + [_PTR]),
+              _SHAPE_SIG]
 
 
 def _rows(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -286,12 +288,12 @@ def _check_prepared(q4, r4, flags, qperm, what: str) -> Tuple[int, int, int]:
 
 def knn_walk_shape(source: str, n_m: int) -> dict:
     """The walk of ``csrc/knn_search.cuh`` as the built library of
-    ``source`` (``"knn_coords"`` or ``"knn_lines"``) has it: blocks a query
-    tile's cluster, thread groups a block, and a block's dynamic shared
-    memory for ``n_m`` ref tiles.  Builds the library if needed; launches
-    nothing."""
-    lib = kernels.load(source, {"knn_coords": _SIG,
-                                "knn_lines": _LINES_SIG}[source])
+    ``source`` (``"knn_coords"``, ``"knn_lines"`` or ``"knn_index"``) has
+    it: blocks a query tile's cluster, thread groups a block, and a block's
+    dynamic shared memory for ``n_m`` ref tiles at k = 5.  Builds the
+    library if needed; launches nothing."""
+    lib = kernels.load(source, {"knn_coords": _SIG, "knn_lines": _LINES_SIG,
+                                "knn_index": _INDEX_SIG}[source])
     out = (ctypes.c_int * 3)()
     kernels.check(lib.liodom_knn_walk_shape(n_m, ctypes.addressof(out)),
                   "liodom_knn_walk_shape")
@@ -299,23 +301,31 @@ def knn_walk_shape(source: str, n_m: int) -> dict:
             "dynamic_smem_bytes": out[2]}
 
 
+def _check_k(k: int, what: str) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{what}: k={k} outside 1..{MAX_K}, the range the "
+                         f"kNN kernels are built for")
+
+
 def knn_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
-               qperm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K3 on the prepared tensors -> (d2 (E, 5), coords (E, 5, 3)) in
+               qperm: torch.Tensor, k: int = K
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K3 on the prepared tensors -> (d2 (E, k), coords (E, k, 3)) in
     the caller's query order."""
     if flags.ndim != 2:
         raise ValueError(f"knn_launch takes one pair, flags "
                          f"{tuple(flags.shape)}")
     e, n_e, n_m = _check_prepared(q4, r4, flags, qperm, "knn_launch")
-    out_d = torch.empty((e, K), dtype=torch.float32, device=q4.device)
-    out_c = torch.empty((e, K, 3), dtype=torch.float32, device=q4.device)
+    _check_k(k, "knn_launch")
+    out_d = torch.empty((e, k), dtype=torch.float32, device=q4.device)
+    out_c = torch.empty((e, k, 3), dtype=torch.float32, device=q4.device)
     lib = kernels.load("knn_coords", _SIG)
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.liodom_knn_coords(
             q4.data_ptr(), r4.data_ptr(), flags.data_ptr(), qperm.data_ptr(),
             out_d.data_ptr(), out_c.data_ptr(), e, n_e, n_m, TILE_E, TILE_M,
-            K, stream)
+            k, stream)
     kernels.check(err, "liodom_knn_coords")
     knn_launch.launches += 1
     return out_d, out_c
@@ -325,24 +335,25 @@ knn_launch.launches = 0
 
 
 def knn_launch_batched(q4: torch.Tensor, r4: torch.Tensor,
-                       flags: torch.Tensor, qperm: torch.Tensor
+                       flags: torch.Tensor, qperm: torch.Tensor, k: int = K
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K4 on tensors from :func:`knn_prepare_batched` -> (d2 (B, E,
-    5), coords (B, E, 5, 3)) in each element's query order."""
+    k), coords (B, E, k, 3)) in each element's query order."""
     if flags.ndim != 3:
         raise ValueError(f"knn_launch_batched takes a batch, flags "
                          f"{tuple(flags.shape)}")
     e, n_e, n_m = _check_prepared(q4, r4, flags, qperm, "knn_launch_batched")
+    _check_k(k, "knn_launch_batched")
     b = flags.shape[0]
-    out_d = torch.empty((b, e, K), dtype=torch.float32, device=q4.device)
-    out_c = torch.empty((b, e, K, 3), dtype=torch.float32, device=q4.device)
+    out_d = torch.empty((b, e, k), dtype=torch.float32, device=q4.device)
+    out_c = torch.empty((b, e, k, 3), dtype=torch.float32, device=q4.device)
     lib = kernels.load("knn_coords", _SIG)
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.liodom_knn_coords_batched(
             q4.data_ptr(), r4.data_ptr(), flags.data_ptr(), qperm.data_ptr(),
             out_d.data_ptr(), out_c.data_ptr(), b, e, n_e, n_m, TILE_E,
-            TILE_M, K, stream)
+            TILE_M, k, stream)
     kernels.check(err, "liodom_knn_coords_batched")
     knn_launch_batched.launches += 1
     return out_d, out_c
@@ -353,8 +364,7 @@ knn_launch_batched.launches = 0
 
 def _check_points(query, qmask, ref, rmask, k: int, batched: bool,
                   what: str) -> None:
-    if k != K:
-        raise NotImplementedError(f"the kNN kernels keep k={K}, asked {k}")
+    _check_k(k, what)
     if query.dtype != torch.float32 or ref.dtype != torch.float32:
         raise TypeError(f"{what} takes float32 points")
     nd = 3 if batched else 2
@@ -376,7 +386,7 @@ def knn_coords_cuda(query: torch.Tensor, qmask: torch.Tensor,
     _check_points(query, qmask, ref, rmask, k, False, "knn_coords_cuda")
     q4, r4, flags, qperm = knn_prepare(query, qmask, ref, rmask, max_radius,
                                        ref_presorted)
-    return knn_launch(q4, r4, flags, qperm)
+    return knn_launch(q4, r4, flags, qperm, k)
 
 
 def knn_coords_batched_cuda(query: torch.Tensor, qmask: torch.Tensor,
@@ -386,11 +396,11 @@ def knn_coords_batched_cuda(query: torch.Tensor, qmask: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 on CUDA tensors: K3 over B independent (query, ref) pairs in one
     launch, query (B, E, 3), qmask (B, E), ref (B, M, 3), rmask (B, M) ->
-    (d2 (B, E, 5), coords (B, E, 5, 3))."""
+    (d2 (B, E, k), coords (B, E, k, 3))."""
     _check_points(query, qmask, ref, rmask, k, True,
                   "knn_coords_batched_cuda")
     return knn_launch_batched(*knn_prepare_batched(
-        query, qmask, ref, rmask, max_radius, ref_presorted))
+        query, qmask, ref, rmask, max_radius, ref_presorted), k)
 
 
 def knn_coords(query: torch.Tensor, qmask: torch.Tensor, ref: torch.Tensor,
@@ -423,15 +433,20 @@ def knn_coords_batched(query: torch.Tensor, qmask: torch.Tensor,
 
 def knn_lines_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
                      qperm: torch.Tensor, max_sq_dist: float,
-                     eig_ratio: float, min_line_sep: float
+                     eig_ratio: float, min_line_sep: float, k: int = K
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K6 on tensors from :func:`knn_prepare_batched` (flags radius
     ``sqrt(max_sq_dist)``) -> (lpa (B, E, 3), lpb (B, E, 3), valid (B, E))
-    in each element's query order; ``valid`` includes the query mask."""
+    in each element's query order; ``valid`` includes the query mask.  The
+    line fit needs k >= 2."""
     if flags.ndim != 3:
         raise ValueError(f"knn_lines_launch takes a batch, flags "
                          f"{tuple(flags.shape)}")
     e, n_e, n_m = _check_prepared(q4, r4, flags, qperm, "knn_lines_launch")
+    _check_k(k, "knn_lines_launch")
+    if k < 2:
+        raise ValueError(f"knn_lines_launch: k={k}, a line needs 2 "
+                         f"neighbours")
     b = flags.shape[0]
     lpa = torch.empty((b, e, 3), dtype=torch.float32, device=q4.device)
     lpb = torch.empty((b, e, 3), dtype=torch.float32, device=q4.device)
@@ -442,7 +457,7 @@ def knn_lines_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
         err = lib.liodom_knn_lines(
             q4.data_ptr(), r4.data_ptr(), flags.data_ptr(), qperm.data_ptr(),
             lpa.data_ptr(), lpb.data_ptr(), ok.data_ptr(), b, e, n_e, n_m,
-            TILE_E, TILE_M, K, float(max_sq_dist), float(eig_ratio),
+            TILE_E, TILE_M, k, float(max_sq_dist), float(eig_ratio),
             float(min_line_sep) * float(min_line_sep), stream)
     kernels.check(err, "liodom_knn_lines")
     knn_lines_launch.launches += 1
@@ -468,7 +483,7 @@ def knn_lines_cuda(query: torch.Tensor, qmask: torch.Tensor,
                                                       rmask))
     prep = knn_prepare_batched(query, qmask, ref, rmask,
                                float(max_sq_dist) ** 0.5, ref_presorted)
-    out = knn_lines_launch(*prep, max_sq_dist, eig_ratio, min_line_sep)
+    out = knn_lines_launch(*prep, max_sq_dist, eig_ratio, min_line_sep, k)
     return out if batched else tuple(t[0] for t in out)
 
 
@@ -511,31 +526,19 @@ def _index_keys(d2: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 _NONE = 0x7FFFFFFF   # the kernels' index of an empty slot
 
 
-def knn_launch_plain(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
-                     qperm: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What K3 (flags (n_e, n_m)) or K4 (a leading batch dimension) returns
-    on tensors from :func:`knn_prepare_batched`, in plain PyTorch.
-
-    Each query's candidates are the refs of its tile's flagged ref tiles,
-    FAR-encoded and padding rows included, at distances under ``_BIG``; the
-    5 smallest (d2, ref index) pairs are selected on int64 keys
-    (:func:`_index_keys`), so equal distances go to the lower index, the
-    kernels' tie order, whatever ``topk``'s.  Then the read-back rules: a
-    FAR pick or an invalid query reads ``_BIG``, d2 is clamped at 0, an
-    empty slot reads ``_BIG`` with zero coordinates, and each row lands at
-    its query's original index.  A host loop over query tiles: a reference
-    for checks, not a route."""
-    if flags.ndim == 3:
-        outs = [knn_launch_plain(q4[b], r4[b], flags[b], qperm[b])
-                for b in range(flags.shape[0])]
-        return (torch.stack([d for d, _ in outs]),
-                torch.stack([c for _, c in outs]))
+def _walk_plain(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
+                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The walk's merged lists for one prepared pair: per query position,
+    the k smallest (d2, ref index) pairs over the refs of its tile's flagged
+    ref tiles (FAR-encoded and padding rows included, at distances under
+    ``_BIG``), selected on int64 keys (:func:`_index_keys`) so that equal
+    distances go to the lower index, the kernels' tie order, whatever
+    ``topk``'s.  Returns raw (d2 (Ep, k), idx (Ep, k) int64), ``_BIG`` and
+    ``_NONE`` in an empty slot.  A host loop over query tiles."""
     dev = q4.device
-    e = qperm.shape[0]
     none = int(_index_keys(torch.full((), _BIG, dtype=torch.float32),
                            torch.tensor(_NONE, dtype=torch.int64)))
-    best = torch.full((q4.shape[0], K), none, dtype=torch.int64, device=dev)
+    best = torch.full((q4.shape[0], k), none, dtype=torch.int64, device=dev)
     cols = torch.arange(TILE_M, device=dev)
     for et, row in enumerate(flags.cpu()):
         tiles = torch.nonzero(row).squeeze(1).to(dev)
@@ -555,25 +558,70 @@ def knn_launch_plain(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
         keys = torch.where(d2 < _BIG, _index_keys(d2, idx[None, :]),
                            torch.full_like(t, none, dtype=torch.int64))
         best[et * TILE_E:(et + 1) * TILE_E] = torch.topk(
-            keys, K, dim=1, largest=False, sorted=True).values
-    d2 = (best >> 32).to(torch.int32).view(torch.float32)
-    idx = best & 0xFFFFFFFF
+            keys, k, dim=1, largest=False, sorted=True).values
+    return (best >> 32).to(torch.int32).view(torch.float32), best & 0xFFFFFFFF
+
+
+def _read_back(d2: torch.Tensor, q4: torch.Tensor) -> torch.Tensor:
+    """The kernels' read-back of a merged d2 list: a FAR pick or an invalid
+    query reads ``_BIG``, d2 is clamped at 0."""
+    d2 = torch.where(d2 > _FAR_PICK_D2, _BIG, d2)
+    return torch.where(q4[:, 3:4] != 0, torch.clamp(d2, min=0.0), _BIG)
+
+
+def knn_launch_plain(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
+                     qperm: torch.Tensor, k: int = K
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What K3 (flags (n_e, n_m)) or K4 (a leading batch dimension) returns
+    on tensors from :func:`knn_prepare_batched`, in plain PyTorch: the
+    walk's lists (:func:`_walk_plain`), then the read-back rules (a FAR pick
+    or an invalid query reads ``_BIG``, d2 is clamped at 0, an empty slot
+    reads ``_BIG`` with zero coordinates) and each row at its query's
+    original index.  A reference for checks, not a route."""
+    if flags.ndim == 3:
+        outs = [knn_launch_plain(q4[b], r4[b], flags[b], qperm[b], k)
+                for b in range(flags.shape[0])]
+        return (torch.stack([d for d, _ in outs]),
+                torch.stack([c for _, c in outs]))
+    e = qperm.shape[0]
+    d2, idx = _walk_plain(q4, r4, flags, k)
     empty = idx == _NONE
     coords = torch.where(empty[..., None], 0.0,
                          r4[torch.where(empty, 0, idx), :3])
-    d2 = torch.where(d2 > _FAR_PICK_D2, _BIG, d2)
-    d2 = torch.where(q4[:, 3:4] != 0, torch.clamp(d2, min=0.0), _BIG)
-    out_d = torch.empty((e, K), dtype=torch.float32, device=dev)
-    out_c = torch.empty((e, K, 3), dtype=torch.float32, device=dev)
-    out_d[qperm.long()] = d2[:e]
+    out_d = torch.empty((e, k), dtype=torch.float32, device=q4.device)
+    out_c = torch.empty((e, k, 3), dtype=torch.float32, device=q4.device)
+    out_d[qperm.long()] = _read_back(d2, q4)[:e]
     out_c[qperm.long()] = coords[:e]
     return out_d, out_c
+
+
+def knn_index_launch_plain(q4: torch.Tensor, r4: torch.Tensor,
+                           flags: torch.Tensor, qperm: torch.Tensor, m: int,
+                           k: int = K) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What K5 (:func:`knn_index_launch`) returns on tensors from
+    :func:`knn_prepare_batched` (flags (B, n_e, n_m), ``m`` refs before
+    padding), in plain PyTorch: the walk's lists read back as
+    :func:`knn_launch_plain` does, the indices clamped to ``m - 1`` and an
+    empty slot at index 0 (the TPU kernel's initial index).  A reference
+    for checks, not a route."""
+    outs = []
+    for b in range(flags.shape[0]):
+        e = qperm.shape[-1]
+        d2, idx = _walk_plain(q4[b], r4[b], flags[b], k)
+        idx = torch.where(idx == _NONE, 0, torch.clamp(idx, max=m - 1))
+        out_d = torch.empty((e, k), dtype=torch.float32, device=q4.device)
+        out_i = torch.empty((e, k), dtype=torch.int32, device=q4.device)
+        out_d[qperm[b].long()] = _read_back(d2, q4[b])[:e]
+        out_i[qperm[b].long()] = idx[:e].to(torch.int32)
+        outs.append((out_d, out_i))
+    return (torch.stack([d for d, _ in outs]),
+            torch.stack([i for _, i in outs]))
 
 
 def knn_lines_launch_plain(q4: torch.Tensor, r4: torch.Tensor,
                            flags: torch.Tensor, qperm: torch.Tensor,
                            max_sq_dist: float, eig_ratio: float,
-                           min_line_sep: float
+                           min_line_sep: float, k: int = K
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """What K6 returns on tensors from :func:`knn_prepare_batched` (flags
@@ -582,10 +630,10 @@ def knn_lines_launch_plain(q4: torch.Tensor, r4: torch.Tensor,
     (B, E, ...)."""
     # imported here: neighbors builds on this module
     from liodom_tpu_torch.ops.neighbors import _line_fit
-    d2, near = knn_launch_plain(q4, r4, flags, qperm)
+    d2, near = knn_launch_plain(q4, r4, flags, qperm, k)
     qmask = torch.zeros(qperm.shape, dtype=torch.bool, device=q4.device)
     qmask.scatter_(-1, qperm.long(), q4[..., :qperm.shape[-1], 3] != 0)
-    return tuple(_line_fit(near, d2[..., K - 1], qmask, max_sq_dist,
+    return tuple(_line_fit(near, d2[..., k - 1], qmask, max_sq_dist,
                            eig_ratio, min_line_sep))
 
 
@@ -645,35 +693,30 @@ def knn_index_plain(query: torch.Tensor, qmask: torch.Tensor,
 
 
 def knn_index_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
-                     qperm: torch.Tensor, m: int
+                     qperm: torch.Tensor, m: int, k: int = K
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K5 on tensors from :func:`knn_prepare_batched` (``m`` refs
-    before padding) -> (d2 (B, E, 5), idx (B, E, 5) int32 into the r4 rows,
-    clamped to ``m - 1``) in each element's query order.  One call is the
-    search and the merge of its splits, two kernels on the stream."""
+    before padding) -> (d2 (B, E, k), idx (B, E, k) int32 into the r4 rows,
+    clamped to ``m - 1``) in each element's query order: one kernel
+    launch."""
     if flags.ndim != 3:
         raise ValueError(f"knn_index_launch takes a batch, flags "
                          f"{tuple(flags.shape)}")
     e, n_e, n_m = _check_prepared(q4, r4, flags, qperm, "knn_index_launch")
+    _check_k(k, "knn_index_launch")
     if not 0 < m <= r4.shape[1]:
         raise ValueError(f"knn_index_launch: {m} refs in {r4.shape[1]} rows")
     b = flags.shape[0]
-    splits = max(1, min(KNN_INDEX_SPLITS, n_m))
     dev = q4.device
-    part_d = torch.empty((b, splits, n_e * TILE_E, K), dtype=torch.float32,
-                         device=dev)
-    part_i = torch.empty((b, splits, n_e * TILE_E, K), dtype=torch.int32,
-                         device=dev)
-    out_d = torch.empty((b, e, K), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, e, K), dtype=torch.int32, device=dev)
+    out_d = torch.empty((b, e, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, e, k), dtype=torch.int32, device=dev)
     lib = kernels.load("knn_index", _INDEX_SIG)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.liodom_knn_index(
             q4.data_ptr(), r4.data_ptr(), flags.data_ptr(), qperm.data_ptr(),
-            part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-            out_i.data_ptr(), b, e, n_e, n_m, m, splits, TILE_E, TILE_M, K,
-            stream)
+            out_d.data_ptr(), out_i.data_ptr(), b, e, n_e, n_m, m, TILE_E,
+            TILE_M, k, stream)
     kernels.check(err, "liodom_knn_index")
     knn_index_launch.launches += 1
     return out_d, out_i
@@ -699,7 +742,7 @@ def knn_index_cuda(query: torch.Tensor, qmask: torch.Tensor,
                                                       rmask))
     *prep, rperm = _prepare_batched(query, qmask, ref, rmask, max_radius,
                                     ref_presorted)
-    d2, idx = knn_index_launch(*prep, ref.shape[1])
+    d2, idx = knn_index_launch(*prep, ref.shape[1], k)
     if rperm is not None:
         idx = rperm.gather(1, idx.flatten(1).long()).view(idx.shape).to(
             torch.int32)

@@ -10,13 +10,23 @@ column on ties), which suppresses up to 5 neighbours per side.
 launches ``csrc/select.cu``; a CPU tensor takes :func:`select_plain`, which
 runs the chain with all rings in lockstep exactly as the TPU kernel does.
 Both compare values and never compute with them, so they are bit-exact with
-each other and with the TPU kernel for the same smoothness plane.
+each other and with the TPU kernel for the same smoothness plane.  The JAX
+package lays out at most 128 slots a ring in its kernel and takes
+``select_edges_xla`` above that; the CUDA kernel takes any slot count whose
+lists fit a block's shared memory (:func:`select_smem_bytes`).
+
+The kernel walks each region's columns in (value desc, column asc) order
+instead of repeating an arg-max: :func:`select_walk` is that algorithm in
+plain code (the top ``L = 11 * max_picks + 5`` columns of every region,
+then the ordered walk in windows of 32 entries, one warp step a window and
+a round of its resolution), the tests' model of the kernel and the count
+of its dependent steps.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,10 +35,12 @@ from liodom_tpu_torch import kernels
 from liodom_tpu_torch.core.config import LiodomConfig
 from liodom_tpu_torch.core.frame import EdgeCloud, RingImage
 
-_SLOT_LIMIT = 128  # slots per ring the TPU kernel lays out (n_regions * max_picks)
+_SMEM_LIMIT = 232448   # a block's shared memory on the card, 227 KB
+_WARP = 32             # entries a step of the kernel's walk
 
 _SIG = [("liodom_select_edges", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-         + [ctypes.c_float] * 2 + [ctypes.c_void_p])]
+         + [ctypes.c_float] * 2 + [ctypes.c_void_p]),
+        ("liodom_select_shape", [ctypes.c_int] * 3 + [ctypes.c_void_p])]
 
 
 def f32(x: float) -> float:
@@ -108,6 +120,130 @@ def select_plain(smooth: torch.Tensor, reach: torch.Tensor,
     return bidx, bval
 
 
+def walk_list_len(max_picks: int) -> int:
+    """L, the entries of a region's (value desc, column asc) order that the
+    kernel's walk can visit: each pick marks at most 10 other columns and
+    the earlier regions' picks at most the region's first 5."""
+    return 11 * max_picks + 5
+
+
+def select_smem_bytes(width: int, n_regions: int, max_picks: int) -> int:
+    """A K2 block's dynamic shared memory (``csrc/select.cu``): the
+    regions' lists, min(L, its length) entries each at 8 bytes (the regions
+    are disjoint, so min(n_regions L, width) in all), the slots at 4, a
+    region's values at 4 bytes a column and its gap flags at 1 (10 more)."""
+    lists = min(n_regions * walk_list_len(max_picks), width)
+    return 8 * lists + 4 * n_regions * max_picks + 5 * width + 10
+
+
+def select_walk(smooth: torch.Tensor, reach: torch.Tensor,
+                count: torch.Tensor, cfg: LiodomConfig,
+                list_len: Optional[int] = None):
+    """The kernel's algorithm in plain code, a model for checks: per ring
+    and region, the region's columns ranked by (value desc, column asc)
+    (-0.0 as +0.0, NaN as -inf) and cut to the first ``list_len`` (default
+    L, :func:`walk_list_len`); then the regions in order, walked a window
+    of 32 entries at a time as ``csrc/select.cu``'s warp does: the open
+    entries (not marked by an earlier window's pick) not marked by this
+    window's picks so far are candidates; every candidate before the first
+    that an earlier candidate's pick would mark (a conflict) and before the
+    first below the threshold is a pick, up to the picks left; a conflict
+    is dropped and the rest resolved again; a failing candidate ends the
+    region.  A pick marks itself and the neighbours its reach bits allow.
+
+    Returns ``(bidx (R, S) i32, bval (R, S) bool, stats)``: the slots as
+    :func:`select_plain` lays them out, and ``stats`` with per ring
+    ``steps`` (the walk's dependent steps: a window read and each round of
+    its resolution), ``visited`` (the most entries of one region's order
+    read up to its last pick or failing entry) and ``overflow`` (regions
+    whose cut list ran out before the walk ended, where the cut changed the
+    answer: 0 whenever ``list_len`` >= L)."""
+    r, w = smooth.shape
+    n_regions, max_picks = cfg.scan_regions, cfg.max_edges_per_region
+    cap = walk_list_len(max_picks) if list_len is None else list_len
+    thr = f32(cfg.smoothness_threshold)
+    sm = torch.where(torch.isnan(smooth), float("-inf"), smooth) + 0.0
+    sm = torch.where(sm == 0, torch.zeros_like(sm), sm).tolist()
+    reach = reach.tolist()
+    count = count.tolist()
+    bidx = [[0] * (n_regions * max_picks) for _ in range(r)]
+    bval = [[False] * (n_regions * max_picks) for _ in range(r)]
+    steps, visited, overflow = [0] * r, [0] * r, 0
+    for ring in range(r):
+        cnt = int(count[ring])
+        if cnt < cfg.min_points_per_scan:
+            continue
+        total = max(cnt - 10, 0)
+        sector = total // n_regions
+        row, bits = sm[ring], reach[ring]
+        picked = [False] * w
+
+        def marks(c):
+            """the columns a pick at c marks"""
+            out = [c]
+            for l in range(1, 6):
+                if c + l < w and (bits[c + l] >> (l - 1)) & 1:
+                    out.append(c + l)
+                if c - l >= 0 and (bits[c - l] >> (l + 4)) & 1:
+                    out.append(c - l)
+            return out
+
+        for j in range(n_regions):
+            start = 5 + sector * j
+            end = min(5 + (total if j == n_regions - 1
+                           else sector * (j + 1)), w)
+            order = sorted(range(start, max(end, start)),
+                           key=lambda c: (-row[c], c))
+            lst = order[:cap]
+            picks, pos, ended = 0, 0, False
+            while not ended and picks < max_picks and pos < len(lst):
+                win = lst[pos:pos + _WARP]
+                steps[ring] += 1
+                hit = [set(marks(c)) for c in win]
+                # cov[i]: the window's lanes before i whose pick marks i
+                cov = [{h for h in range(i) if win[i] in hit[h]}
+                       for i in range(len(win))]
+                rem = [i for i, c in enumerate(win) if not picked[c]]
+                taken = set()
+                while rem:
+                    steps[ring] += 1
+                    cands = [i for i in rem if not cov[i] & taken]
+                    if not cands:
+                        break
+                    conflict = [i for i in cands if cov[i] & set(cands)]
+                    fails = [i for i in cands if i not in conflict
+                             and not (row[win[i]] >= thr
+                                      and row[win[i]] > float("-inf"))]
+                    stop = min(conflict[:1] + fails[:1] + [_WARP])
+                    acc = [i for i in cands if i < stop]
+                    acc = acc[:max_picks - picks]
+                    for i in acc:
+                        bidx[ring][j * max_picks + picks] = win[i]
+                        bval[ring][j * max_picks + picks] = True
+                        picks += 1
+                        for m in hit[i]:
+                            picked[m] = True
+                    taken |= set(acc)
+                    last = (max(acc) if acc else -1)
+                    if picks == max_picks:
+                        break
+                    if fails and (not conflict or fails[0] < conflict[0]):
+                        last = fails[0]
+                        ended = True
+                        break
+                    if stop == _WARP:
+                        break
+                    rem = [i for i in cands if i > conflict[0]]
+                visited[ring] = max(visited[ring], pos + last + 1)
+                pos += _WARP
+            if (not ended and picks < max_picks and len(order) > cap):
+                overflow += 1
+    dev = smooth.device
+    stats = {"steps": steps, "visited": visited, "overflow": overflow}
+    return (torch.tensor(bidx, dtype=torch.int32, device=dev),
+            torch.tensor(bval, dtype=torch.bool, device=dev), stats)
+
+
 def select_edges_plain(img: RingImage, smooth: torch.Tensor,
                        cfg: LiodomConfig) -> EdgeCloud:
     """Plain version of the whole stage: reach plane, pick chain, gather.
@@ -124,8 +260,9 @@ def select_edges_plain(img: RingImage, smooth: torch.Tensor,
 def select_edges_cuda(img: RingImage, smooth: torch.Tensor,
                       cfg: LiodomConfig) -> EdgeCloud:
     """Launch K2 on CUDA tensors; same contract and slot layout as
-    :func:`select_edges_plain`.  The kernel derives the reach plane's gap
-    flags from the ring image itself, so the whole stage is one launch."""
+    :func:`select_edges_plain`, any number of slots a ring.  The kernel
+    derives the reach plane's gap flags from the ring image itself, so the
+    whole stage is one launch."""
     xyz, count = img.xyz, img.count
     if not (xyz.is_cuda and count.device == xyz.device
             and smooth.device == xyz.device):
@@ -146,13 +283,11 @@ def select_edges_cuda(img: RingImage, smooth: torch.Tensor,
         raise ValueError("select_edges_cuda needs contiguous tensors")
     n_regions, max_picks = cfg.scan_regions, cfg.max_edges_per_region
     s = n_regions * max_picks
-    if s > _SLOT_LIMIT:
-        raise NotImplementedError(
-            f"{s} edge slots per ring > {_SLOT_LIMIT}: the TPU package falls "
-            f"back to select_edges_xla here, which is not ported")
-    if w * 6 > 227 * 1024:
-        raise ValueError(f"ring width {w} does not fit the kernel's shared "
-                         f"memory (6 bytes a column, 227 KB)")
+    smem = select_smem_bytes(w, n_regions, max_picks)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"ring width {w} with {n_regions} x {max_picks} "
+                         f"slots needs {smem} bytes of the kernel's shared "
+                         f"memory, more than 227 KB")
     bidx = torch.empty((r, s), dtype=torch.int32, device=xyz.device)
     bval = torch.empty((r, s), dtype=torch.int32, device=xyz.device)
     pts = torch.empty((r, s, 3), dtype=torch.float32, device=xyz.device)
@@ -170,6 +305,20 @@ def select_edges_cuda(img: RingImage, smooth: torch.Tensor,
 
 
 select_edges_cuda.launches = 0
+
+
+def select_shape(width: int, n_regions: int, max_picks: int) -> dict:
+    """K2's launch as the built library has it for a ring width and slot
+    layout: blocks a ring's cluster, entries a region's list and a block's
+    dynamic shared memory.  Builds the library if needed; launches
+    nothing."""
+    lib = kernels.load("select", _SIG)
+    out = (ctypes.c_int * 3)()
+    kernels.check(lib.liodom_select_shape(width, n_regions, max_picks,
+                                          ctypes.addressof(out)),
+                  "liodom_select_shape")
+    return {"cluster_blocks": out[0], "list_entries": out[1],
+            "dynamic_smem_bytes": out[2]}
 
 
 def select_edges_kernel(img: RingImage, smooth: torch.Tensor,

@@ -1,32 +1,38 @@
 #!/usr/bin/env python3
-"""The kNN walk of K3, K4 and K6 on the card: splits of the cluster walk
+"""The kNN walk of K3, K4, K5 and K6 on the card: splits of the cluster walk
 against each other and against an earlier walk, on the same inputs, in one
 process.
 
     python3 scripts/knn_walk_experiment.py [--earlier DIR]
-        [--splits 8x4,16x4,...] [--out FILE]
+        [--splits 8x4,16x4,...] [--index-splits 8x4,16x2,...] [--out FILE]
 
-Builds ``csrc/knn_coords.cu`` and ``csrc/knn_lines.cu`` of this checkout
-as they are (the shipped split, labelled by what the library's
-``liodom_knn_walk_shape`` reports) and once for each other split ``SxG``
-of ``--splits`` (S blocks a cluster, G thread groups a block: a copy of
-the sources under ``kernels/build/experiment/`` whose ``knn_search.cuh``
-has ``kCluster = S`` and ``kGroups = G`` written in, its report checked)
-and, with ``--earlier`` (and ``--also LABEL=DIR``), those of other
-``csrc`` directories (for example an earlier commit's, unpacked by ``git
-archive``: the C entry points are the same), one ``nvcc`` a source, all
-started together, into ``kernels/build/experiment/``.
+Builds ``csrc/knn_coords.cu``, ``csrc/knn_lines.cu`` and
+``csrc/knn_index.cu`` of this checkout as they are (``shipped``; the
+splits the libraries' ``liodom_knn_walk_shape`` report are printed), once
+for each other split ``SxG`` of ``--splits`` (S blocks a cluster, G thread
+groups a block: a copy of the sources under ``kernels/build/experiment/``
+whose ``knn_search.cuh`` has ``kCluster = S`` and ``kGroups = G`` written
+in, K3/K4/K6 only, the report checked), once for each split of
+``--index-splits`` (the same with ``knn_index.cu``'s ``kIndexCluster`` and
+``kIndexGroups``, K5 only) and, with ``--earlier`` (and ``--also
+LABEL=DIR``), those of other ``csrc`` directories (for example an earlier
+commit's, unpacked by ``git archive``; an earlier K5 with its separate
+merge kernel and partial lists is called through its own entry point),
+one ``nvcc`` a source, all started together, into
+``kernels/build/experiment/``.
 
 Inputs: the bench drive's last frame as ``chip_smoke.py``'s kernels phase
 builds them (K3 and K6 on lane 0's edges against the window they met, K4
-on lanes 0-3 at B = 4) and its tie-heavy scenes (one pair; 4 as a batch).
-Every build's K3, K4 and K6 outputs on every input must be ``torch.equal``
-to the shipped build's, and the shipped build's to ``knn_launch_plain``.
-Then each build's K3, K4 and K6 time by CUDA events over 50 launches, the
-builds in turns (forward, then backward), beside K5 (this checkout's
-``csrc/knn_index.cu``, untouched) on K3's inputs without a radius as a
-same-process control of the card's speed.  Prints one JSON object (and
-writes it to ``--out``); exits 1 if any output differs.
+on lanes 0-3 at B = 4; K5 without a radius on that frame's 5,632 edge
+slots against the combined step's matching map, window and received map,
+the shape of the sharded flagship's call) and the tie-heavy scenes (one
+pair; 4 as a batch; K5 on them without a radius).  Every build's outputs
+on every input must be ``torch.equal`` to the shipped build's, the shipped
+K3/K4 to ``knn_launch_plain`` and the shipped K5 to
+``knn_index_launch_plain`` (every row) and ``knn_index_plain`` (every
+valid query).  Then each build's kernels time by CUDA events over 50
+launches, the builds in turns (forward, then backward).  Prints one JSON
+object (and writes it to ``--out``); exits 1 if any output differs.
 """
 
 from __future__ import annotations
@@ -51,30 +57,42 @@ from liodom_tpu_torch import kernels  # noqa: E402
 from liodom_tpu_torch.core import pose as se3  # noqa: E402
 from liodom_tpu_torch.core.config import LiodomConfig  # noqa: E402
 from liodom_tpu_torch.core.synth import tie_scene  # noqa: E402
+from liodom_tpu_torch.mapping import service as S  # noqa: E402
 from liodom_tpu_torch.odometry import local_map  # noqa: E402
 from liodom_tpu_torch.odometry import pipeline as P  # noqa: E402
 from liodom_tpu_torch.ops import features as F  # noqa: E402
 from liodom_tpu_torch.ops import knn_pallas as KNN  # noqa: E402
 from liodom_tpu_torch.parallel.sharded import init_batch_state  # noqa: E402
 
-SOURCES = ("knn_coords", "knn_lines")
+COORDS_SOURCES = ("knn_coords", "knn_lines")
+SOURCES = COORDS_SOURCES + ("knn_index",)
 REPS = 50
+# an earlier K5 (two kernels, partial lists in device memory): its entry
+# point and split count
+_OLD_INDEX_SIG = [("liodom_knn_index", [KNN._PTR] * 8 + [KNN._INT] * 9
+                   + [KNN._PTR])]
+_OLD_INDEX_SPLITS = 16
 
 
-def split_csrc(src: Path, out: Path, split: str) -> Path:
+def split_csrc(src: Path, out: Path, split: str, index: bool = False
+               ) -> Path:
     """A copy of the ``.cu`` and ``.cuh`` sources of ``src`` in ``out``,
     with the walk's split ``SxG`` written into ``knn_search.cuh``'s
-    ``kCluster`` and ``kGroups``."""
+    ``kCluster`` and ``kGroups`` (K3/K4/K6), or with ``index`` into
+    ``knn_index.cu``'s ``kIndexCluster`` and ``kIndexGroups`` (K5)."""
     out.mkdir(parents=True, exist_ok=True)
     for f in list(src.glob("*.cu")) + list(src.glob("*.cuh")):
         shutil.copy(f, out / f.name)
-    head = (out / "knn_search.cuh").read_text()
-    for name, value in zip(("kCluster", "kGroups"), split.split("x")):
-        head, n = re.subn(rf"constexpr int {name} = \d+;",
-                          f"constexpr int {name} = {int(value)};", head)
+    name_file = "knn_index.cu" if index else "knn_search.cuh"
+    names = (("kIndexCluster", "kIndexGroups") if index
+             else ("kCluster", "kGroups"))
+    text = (out / name_file).read_text()
+    for name, value in zip(names, split.split("x")):
+        text, n = re.subn(rf"constexpr int {name} = \d+;",
+                          f"constexpr int {name} = {int(value)};", text)
         if n != 1:
-            raise SystemExit(f"{src}/knn_search.cuh: no single {name}")
-    (out / "knn_search.cuh").write_text(head)
+            raise SystemExit(f"{src}/{name_file}: no single {name}")
+    (out / name_file).write_text(text)
     return out
 
 
@@ -89,12 +107,14 @@ def walk_shape(lib) -> tuple:
 def build(variants: dict, sources=SOURCES,
           out_dir: Path = kernels.BUILD_DIR / "experiment") -> dict:
     """{label: {source: (CDLL, ptxas usage)}}; variants {label: csrc
-    directory}; the libraries land in ``out_dir``."""
+    directory, or (csrc directory, its sources)}, the sources ``sources``
+    where not given; the libraries land in ``out_dir``."""
     nvcc = kernels.nvcc_path()
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for label, csrc in variants.items():
-        for name in sources:
+    for label, v in variants.items():
+        csrc, names = v if isinstance(v, tuple) else (v, sources)
+        for name in names:
             so = out_dir / f"{name}-{label}.so"
             cmd = [nvcc, *kernels.NVCC_FLAGS, "-o", str(so),
                    str(Path(csrc) / f"{name}.cu")]
@@ -108,7 +128,10 @@ def build(variants: dict, sources=SOURCES,
             raise SystemExit(f"{label} {name}.cu: nvcc exit "
                              f"{proc.returncode}\n{log}")
         lib = ctypes.CDLL(str(so))
-        sigs = KNN._SIG if name == "knn_coords" else KNN._LINES_SIG
+        sigs = {"knn_coords": KNN._SIG, "knn_lines": KNN._LINES_SIG,
+                "knn_index": KNN._INDEX_SIG}[name]
+        if name == "knn_index" and not hasattr(lib, KNN._SHAPE_SIG[0]):
+            sigs = _OLD_INDEX_SIG            # the two-kernel K5
         for symbol, argtypes in sigs:
             if symbol == KNN._SHAPE_SIG[0] and not hasattr(lib, symbol):
                 continue                  # a walk that predates the query
@@ -156,10 +179,40 @@ def lines(lib, q4, r4, flags, qperm, gates):
     return lpa, lpb, ok
 
 
+def index(lib, q4, r4, flags, qperm, m):
+    """K5 of one build on a batch of prepared pairs, through the entry point
+    the build has (an earlier two-kernel K5 with its partial lists)."""
+    b, n_e, n_m = flags.shape
+    e = qperm.shape[-1]
+    out_d = torch.empty((b, e, KNN.K), device=q4.device)
+    out_i = torch.empty((b, e, KNN.K), dtype=torch.int32, device=q4.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (q4, r4, flags, qperm)]
+    if hasattr(lib, KNN._SHAPE_SIG[0]):
+        err = lib.liodom_knn_index(*ptrs, out_d.data_ptr(), out_i.data_ptr(),
+                                   b, e, n_e, n_m, m, KNN.TILE_E, KNN.TILE_M,
+                                   KNN.K, stream)
+    else:
+        splits = max(1, min(_OLD_INDEX_SPLITS, n_m))
+        part_d = torch.empty((b, splits, n_e * KNN.TILE_E, KNN.K),
+                             device=q4.device)
+        part_i = torch.empty(part_d.shape, dtype=torch.int32,
+                             device=q4.device)
+        err = lib.liodom_knn_index(*ptrs, part_d.data_ptr(),
+                                   part_i.data_ptr(), out_d.data_ptr(),
+                                   out_i.data_ptr(), b, e, n_e, n_m, m,
+                                   splits, KNN.TILE_E, KNN.TILE_M, KNN.K,
+                                   stream)
+    kernels.check(err, "knn_index")
+    return out_d, out_i
+
+
 def bench_inputs(cfg, dev, radius):
     """K3's (lane 0) and K4's (lanes 0-3) prepared inputs at the bench
     drive's last frame, as chip_smoke.py's kernels phase builds them, and
-    K5's on K3's edges without a radius."""
+    K5's without a radius: that frame's edge slots (uncompacted) at its
+    pose against the matching map the combined step's frame before left
+    (window and received map), with the query points and the ref count."""
     lanes = CS.render_lanes(cfg, dev, range(CS.LANES), noise=0.01)
     imgs = lanes[0][0]
     states, poses, _ = CS.run_course(P.init_state(cfg), imgs, cfg)
@@ -171,8 +224,13 @@ def bench_inputs(cfg, dev, radius):
     query = se3.transform(poses[-1], qxyz)
     prep = KNN.knn_prepare(query, qvalid, map_xyz, map_valid, radius,
                            ref_presorted=True)
-    prep5 = KNN.knn_prepare_batched(query[None], qvalid[None],
-                                    map_xyz[None], map_valid[None], None)
+    ccfg = cfg.replace(mapping=True)
+    cstates, cposes, _ = CS.run_combined(*S.init_combined(ccfg, CS.MCFG),
+                                         imgs, ccfg)
+    m5_xyz, m5_valid = P._matching_map(cstates[-2][0], ccfg)
+    q5 = se3.transform(cposes[-1], ec.xyz)
+    pts5 = (q5[None], ec.valid[None], m5_xyz[None], m5_valid[None])
+    prep5 = KNN.knn_prepare_batched(*pts5, None)
 
     bimgs = CS.stack_lanes([lanes[s][0] for s in range(CS.LANES)])
     bstates, bposes, _ = CS.run_course(init_batch_state(cfg, CS.LANES),
@@ -185,15 +243,30 @@ def bench_inputs(cfg, dev, radius):
         *local_map.flatten(bstates[-2].window))
     prep_b = KNN.knn_prepare_batched(query_b, qvalid_b, map_b, mvalid_b,
                                      radius, ref_presorted=True)
-    return prep, prep_b, (prep5, map_xyz.shape[0])
+    return prep, prep_b, (prep5, m5_xyz.shape[0], pts5)
 
 
 def tie_inputs(dev, radius):
+    """The tie scenes (one pair; 4 as a batch) prepared with ``radius``:
+    the tensors of each and its points."""
     scenes = [tie_scene(s, 3000, 20000) for s in range(CS.LANES)]
     q, qm, r, rm = (torch.from_numpy(np.stack([sc[i] for sc in scenes]))
                     .to(dev) for i in range(4))
-    return (KNN.knn_prepare(q[0], qm[0], r[0], rm[0], radius),
-            KNN.knn_prepare_batched(q, qm, r, rm, radius))
+    pts1 = (q[:1], qm[:1], r[:1], rm[:1])
+    return ((KNN.knn_prepare_batched(*pts1, radius), pts1),
+            (KNN.knn_prepare_batched(q, qm, r, rm, radius),
+             (q, qm, r, rm)))
+
+
+def index_vs_plain(prep, m, pts, d_k, i_k) -> bool:
+    """A K5 build's answer against the keyed selection on every row and
+    against the brute force on every valid query."""
+    d_o, i_o = KNN.knn_index_launch_plain(*prep, m)
+    ok = torch.equal(d_k, d_o) and torch.equal(i_k, i_o)
+    d_p, i_p = KNN.knn_index_plain(*pts)
+    valid = pts[1]
+    return ok and torch.equal(d_k[valid], d_p[valid]) and torch.equal(
+        i_k[valid], i_p[valid])
 
 
 def main() -> int:
@@ -204,8 +277,10 @@ def main() -> int:
                     metavar="LABEL=DIR",
                     help="more csrc directories to build, compare and time")
     ap.add_argument("--splits", default="8x4,4x2,16x2,8x1",
-                    help="other splits to build, cluster blocks x thread "
-                         "groups a block (empty: none)")
+                    help="other splits of K3/K4/K6 to build, cluster blocks "
+                         "x thread groups a block (empty: none)")
+    ap.add_argument("--index-splits", default="8x4,16x2,4x2,8x1",
+                    help="other splits of K5 to build (empty: none)")
     ap.add_argument("--out", type=Path,
                     help="also write the JSON object to this file")
     args = ap.parse_args()
@@ -215,81 +290,112 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = CS.nvidia_smi_line()
     splits = [sg for sg in args.splits.split(",") if sg]
+    index_splits = [sg for sg in args.index_splits.split(",") if sg]
     out_dir = kernels.BUILD_DIR / "experiment"
     variants = {"shipped": kernels.CSRC}
     for sg in splits:
-        variants[sg] = split_csrc(kernels.CSRC, out_dir / f"csrc-{sg}", sg)
+        variants[sg] = (split_csrc(kernels.CSRC, out_dir / f"csrc-{sg}", sg),
+                        COORDS_SOURCES)
+    for sg in index_splits:
+        variants[f"k5 {sg}"] = (split_csrc(
+            kernels.CSRC, out_dir / f"csrc-k5-{sg}", sg, index=True),
+            ("knn_index",))
     if args.earlier is not None:
         variants["earlier"] = args.earlier
     for spec in args.also:
         label, _, path = spec.partition("=")
         variants[label] = Path(path)
     libs = build(variants)
-    for sg in splits:
-        for name, (lib, _) in libs[sg].items():
-            got = "x".join(map(str, walk_shape(lib)))
-            if got != sg:
-                raise SystemExit(f"{sg} {name}: the build reports {got}")
-    shipped = "x".join(map(str, walk_shape(libs["shipped"]["knn_coords"][0])))
-    if shipped in libs:
-        raise SystemExit(f"--splits holds the shipped split {shipped}")
-    libs = {shipped: libs.pop("shipped"), **libs}
+    shipped = {n: "x".join(map(str, walk_shape(libs["shipped"][n][0])))
+               for n in SOURCES}
+    for label, v in libs.items():
+        for name, (lib, _) in v.items():
+            want = label.split()[-1] if label in splits or label.startswith(
+                "k5 ") else None
+            if want is not None and "x".join(map(str, walk_shape(lib))) \
+                    != want:
+                raise SystemExit(f"{label} {name}: the build reports "
+                                 f"{walk_shape(lib)}")
+    if shipped["knn_coords"] in splits or f"k5 {shipped['knn_index']}" in libs:
+        raise SystemExit(f"a split asked for is the shipped one {shipped}")
 
     cfg = LiodomConfig(local_map_size=5)
     radius = cfg.knn_max_sq_dist ** 0.5
     gates = (cfg.knn_max_sq_dist, cfg.eig_ratio, cfg.min_line_sep)
-    prep, prep_b, (prep5, m5) = bench_inputs(cfg, dev, radius)
-    tie, tie_b = tie_inputs(dev, radius)
+    prep, prep_b, (prep5, m5, pts5) = bench_inputs(cfg, dev, radius)
+    (tie, _), (tie_b, _) = tie_inputs(dev, radius)
+    (tie5, tpts5), (tie5_b, tpts5_b) = tie_inputs(dev, None)
     inputs = {"bench_k3": prep, f"bench_b{CS.LANES}": prep_b,
-              "tie_scene": tie, f"tie_scene_b{CS.LANES}": tie_b}
+              "tie_scene": tuple(t[0] for t in tie),
+              f"tie_scene_b{CS.LANES}": tie_b}
+    m_tie = tpts5[2].shape[1]
+    inputs5 = {"bench_k5": (prep5, m5, pts5),
+               "tie_scene": (tie5, m_tie, tpts5),
+               f"tie_scene_b{CS.LANES}": (tie5_b, m_tie, tpts5_b)}
 
     def run_all(label):
-        co = libs[label]["knn_coords"][0]
-        li = libs[label]["knn_lines"][0]
         out = {}
-        for name, p in inputs.items():
-            pl = p if p[2].ndim == 3 else tuple(x[None] for x in p)
-            out[name] = coords(co, *p) + lines(li, *pl, gates)
+        if "knn_coords" in libs[label]:
+            co = libs[label]["knn_coords"][0]
+            li = libs[label]["knn_lines"][0]
+            for name, p in inputs.items():
+                pl = p if p[2].ndim == 3 else tuple(x[None] for x in p)
+                out[name] = coords(co, *p) + lines(li, *pl, gates)
+        if "knn_index" in libs[label]:
+            ix = libs[label]["knn_index"][0]
+            for name, (p, m, _) in inputs5.items():
+                out[f"k5 {name}"] = index(ix, *p, m)
         return out
 
-    ref = run_all(shipped)
+    ref = run_all("shipped")
     equal, failed = {}, []
     for name, p in inputs.items():
         ok = all(torch.equal(a, b) for a, b in
                  zip(ref[name][:2], KNN.knn_launch_plain(*p)))
-        equal[f"{shipped} vs knn_launch_plain, {name}"] = ok
+        equal[f"shipped vs knn_launch_plain, {name}"] = ok
         failed += [] if ok else [name]
+    for name, (p, m, pts) in inputs5.items():
+        ok = index_vs_plain(p, m, pts, *ref[f"k5 {name}"])
+        equal[f"shipped k5 vs knn_index_launch_plain and knn_index_plain, "
+              f"{name}"] = ok
+        failed += [] if ok else [f"k5 {name}"]
     for label in libs:
-        if label == shipped:
+        if label == "shipped":
             continue
         got = run_all(label)
-        for name in inputs:
+        for name in got:
             ok = all(torch.equal(a, b) for a, b in zip(got[name], ref[name]))
-            equal[f"{label} vs {shipped}, {name}"] = ok
+            equal[f"{label} vs shipped, {name}"] = ok
             failed += [] if ok else [f"{label} {name}"]
     torch.cuda.synchronize()
 
     prep_l = tuple(x[None] for x in prep)
-    times = {label: {"k3": [], "k4": [], "k6": []} for label in libs}
-    k5 = []
+    times = {label: {} for label in libs}
     order = list(libs) + list(libs)[::-1]
     for label in order:
-        co = libs[label]["knn_coords"][0]
-        li = libs[label]["knn_lines"][0]
-        times[label]["k3"].append(CS.cuda_ms(lambda: coords(co, *prep), REPS))
-        times[label]["k4"].append(CS.cuda_ms(lambda: coords(co, *prep_b),
-                                             REPS))
-        times[label]["k6"].append(CS.cuda_ms(
-            lambda: lines(li, *prep_l, gates), REPS))
-        k5.append(CS.cuda_ms(lambda: KNN.knn_index_launch(*prep5, m5), REPS))
+        t = times[label]
+        if "knn_coords" in libs[label]:
+            co = libs[label]["knn_coords"][0]
+            li = libs[label]["knn_lines"][0]
+            t.setdefault("k3", []).append(
+                CS.cuda_ms(lambda: coords(co, *prep), REPS))
+            t.setdefault("k4", []).append(
+                CS.cuda_ms(lambda: coords(co, *prep_b), REPS))
+            t.setdefault("k6", []).append(CS.cuda_ms(
+                lambda: lines(li, *prep_l, gates), REPS))
+        if "knn_index" in libs[label]:
+            ix = libs[label]["knn_index"][0]
+            t.setdefault("k5", []).append(
+                CS.cuda_ms(lambda: index(ix, *prep5, m5), REPS))
     per_tile = {name: p[2].sum(-1).float() for name, p in inputs.items()}
+    per_tile["bench_k5"] = prep5[2].sum(-1).float()
     res = {"nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
            "torch": torch.__version__, "cuda": torch.version.cuda,
-           "shipped": shipped, "reps": REPS, "turns": order,
-           "ms": times, "k5_control_ms": k5,
+           "shipped_splits": shipped, "reps": REPS, "turns": order,
+           "ms": times,
            "ms_mean": {label: {k: float(np.mean(v)) for k, v in t.items()}
                        for label, t in times.items()},
-           "flagged_pairs": {n: int(p[2].sum()) for n, p in inputs.items()},
+           "flagged_pairs": {n: int(t.sum()) for n, t in per_tile.items()},
            "flagged_tiles_per_query_tile_max":
                {n: int(t.max()) for n, t in per_tile.items()},
            "flagged_tiles_per_query_tile_mean":

@@ -55,21 +55,23 @@ __device__ __forceinline__ unsigned long long trace_now() {
   return t;
 }
 """),
-    ("  extern __shared__ __align__(16) float4 smem[];\n",
-     "  const unsigned long long t_start = trace_now();\n"),
-    ('  asm volatile("cp.async.wait_all;\\n" ::: "memory");\n',
-     "  const unsigned long long t_walked = trace_now();\n"),
-    ("  if (!owner) return false;\n", """  if (threadIdx.x == 0) {
-    const size_t blk = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
-    unsigned sm;
-    asm volatile("mov.u32 %0, %smid;" : "=r"(sm));
-    if (blk < (1 << 16)) {
-      g_trace[blk * 4 + 0] = t_start;
-      g_trace[blk * 4 + 1] = t_walked;
-      g_trace[blk * 4 + 2] = trace_now();
-      g_trace[blk * 4 + 3] = sm | (static_cast<unsigned long long>(tiles) << 16);
+    ("    extern __shared__ __align__(16) float4 smem[];\n",
+     "    const unsigned long long t_start = trace_now();\n"),
+    ('    asm volatile("cp.async.wait_all;\\n" ::: "memory");\n',
+     "    const unsigned long long t_walked = trace_now();\n"),
+    ("    return owner;\n", """    if (threadIdx.x == 0) {
+      const size_t blk =
+          static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+      unsigned sm;
+      asm volatile("mov.u32 %0, %smid;" : "=r"(sm));
+      if (blk < (1 << 16)) {
+        g_trace[blk * 4 + 0] = t_start;
+        g_trace[blk * 4 + 1] = t_walked;
+        g_trace[blk * 4 + 2] = trace_now();
+        g_trace[blk * 4 + 3] =
+            sm | (static_cast<unsigned long long>(tiles) << 16);
+      }
     }
-  }
 """),
 )
 _READ = """

@@ -78,6 +78,80 @@ def test_select_kernel_bit_exact(dev):
     assert int(got.valid.sum()) > 1000
 
 
+def test_select_kernel_at_168_slots_bit_exact(dev):
+    """K2 above the JAX kernel's 128 slots a ring (8 x 21 = 168): the
+    slots sized at launch, bit for bit against select_plain and the walk
+    model, one launch."""
+    cfg, imgs = _images(1)
+    cfg = cfg.replace(edges_per_region=20)
+    img = RingImage(imgs[0].xyz.to(dev), imgs[0].count.to(dev))
+    sm = SM.smoothness_cuda(img.xyz, img.count)
+    before = SEL.select_edges_cuda.launches
+    got = SEL.select_edges_cuda(img, sm, cfg)
+    assert SEL.select_edges_cuda.launches == before + 1
+    want = SEL.select_edges_plain(img, sm, cfg)
+    assert got.valid.shape == (64 * 168,)
+    assert torch.equal(got.valid, want.valid)
+    assert torch.equal(got.xyz, want.xyz)
+    reach = SEL._reach_plane(img.xyz, cfg.neighbor_gap_sq)
+    _, bval, stats = SEL.select_walk(sm.cpu(), reach.cpu(), img.count.cpu(),
+                                     cfg)
+    assert torch.equal(bval.reshape(-1), want.valid.cpu())
+    assert stats["overflow"] == 0
+    assert int(got.valid.sum()) > 1000
+
+
+def _tie_prep(dev, radius):
+    lanes = [tie_scene(s, 3000, 20000) for s in range(2)]
+    q, qm, r, rm = (torch.from_numpy(np.stack([ln[i] for ln in lanes]))
+                    .to(dev) for i in range(4))
+    return KNN.knn_prepare_batched(q, qm, r, rm, radius), r.shape[1]
+
+
+@pytest.mark.parametrize("k", [3, 8])
+def test_knn_kernels_at_k_bit_exact(dev, k):
+    """K3, K4, K5 and K6 at k = 3 and 8 on a tie-heavy lattice (two pairs):
+    d2, coordinates, indices and endpoints bit for bit against the keyed
+    (d2, index) selection; K6's gate flips only at the ratio boundary."""
+    prep, m = _tie_prep(dev, 1.0)
+    d_b, c_b = KNN.knn_launch_batched(*prep, k=k)
+    d_o, c_o = KNN.knn_launch_plain(*prep, k=k)
+    assert d_b.shape == (2, 3000, k)
+    assert torch.equal(d_b, d_o) and torch.equal(c_b, c_o)
+    solo = tuple(t[0] for t in prep)
+    d_s, c_s = KNN.knn_launch(*solo, k=k)
+    assert torch.equal(d_s, d_o[0]) and torch.equal(c_s, c_o[0])
+    got = KNN.knn_lines_launch(*prep, 1.0, 3.0, 0.01, k=k)
+    want = KNN.knn_lines_launch_plain(*prep, 1.0, 3.0, 0.01, k=k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    zm = c_o - c_o.mean(dim=-2, keepdim=True)
+    eigs = NB.sym3_eigenvalues(torch.einsum("...ki,...kj->...ij", zm, zm))
+    at_ratio = ((eigs[..., 2] - 3.0 * eigs[..., 1]).abs()
+                <= 1e-4 * eigs[..., 2].abs())
+    flips = got[2] != want[2]
+    assert int(flips.sum()) <= 2 and not bool((flips & ~at_ratio).any())
+    assert int(want[2].sum()) > 100
+    prep5, m = _tie_prep(dev, None)
+    d5, i5 = KNN.knn_index_launch(*prep5, m, k=k)
+    d5_o, i5_o = KNN.knn_index_launch_plain(*prep5, m, k=k)
+    assert d5.shape == (2, 3000, k)
+    assert torch.equal(d5, d5_o) and torch.equal(i5, i5_o)
+
+
+def test_knn_index_is_one_kernel_launch(dev):
+    """K5 is one kernel a call: no merge kernel, no partial lists."""
+    from torch.profiler import ProfilerActivity, profile
+    prep5, m = _tie_prep(dev, None)
+    KNN.knn_index_launch(*prep5, m)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        KNN.knn_index_launch(*prep5, m)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "knn_index" in names[0], names
+
+
 def test_knn_kernel_matches_plain(dev):
     rng = np.random.default_rng(0)
     centers = rng.uniform(-30, 30, (40, 3))

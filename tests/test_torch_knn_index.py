@@ -19,6 +19,12 @@ wrapper ``knn_pallas`` :144), and ``neighbors.knn`` / ``knn_auto``.
   ``csrc/knn_index.cu``: without a radius nothing is sorted and the indices
   address the caller's ref; with one, they come back through the ref
   permutation.  Either gives the plain version's answer.
+* Other k: the plain K3, K6 and K5 at k = 3 and 8 against
+  ``knn_coords_pallas`` / ``knn_lines_pallas`` / ``knn_pallas`` in
+  interpret mode, at the bars above; the CUDA wrappers refuse k > 16
+  (``MAX_K``) with a ``ValueError`` naming the limit; and a 3-frame
+  ``image_step`` course at ``knn_k=3``, the port on the CPU against JAX
+  within 1 cm and 1e-3 rad with equal edge counts.
 """
 
 import jax.numpy as jnp
@@ -26,13 +32,22 @@ import numpy as np
 import pytest
 import torch
 
+from liodom_tpu.core.config import LiodomConfig as JConfig
+from liodom_tpu.core.frame import RawScan as JRawScan
+from liodom_tpu.core.synth import BoxWorld, drive_trajectory_6dof
+from liodom_tpu.odometry import pipeline as JP
+from liodom_tpu.ops import features as JF
 from liodom_tpu.ops import knn_pallas as JK
 from liodom_tpu.ops import neighbors as JN
 
+from liodom_tpu_torch.core.config import LiodomConfig
+from liodom_tpu_torch.odometry import pipeline as P
 from liodom_tpu_torch.ops import knn_pallas as K
 from liodom_tpu_torch.ops import neighbors as N
 
-from test_torch_knn import _scene
+from test_torch_knn import _check_knn, _scene
+from test_torch_knn_lines import BOUNDARY_REL, _line_map
+from test_torch_pipeline import _quat_angle
 
 torch.set_num_threads(1)
 
@@ -110,17 +125,17 @@ def test_knn_matches_jax_xla_knn(seed):
     assert diff.any(axis=1).sum() <= 0.05 * fin.all(axis=1).sum()
 
 
-def _emulated_index_launch(q4, r4, flags, qperm, m):
+def _emulated_index_launch(q4, r4, flags, qperm, m, k=5):
     """What csrc/knn_index.cu computes, in plain PyTorch: per query tile,
-    the best 5 (d2, r4 row) over the rows of its flagged ref tiles
+    the best k (d2, r4 row) over the rows of its flagged ref tiles
     (FAR-encoded refs included), read back with the FAR, query-mask and
     clamp rules and written at each query's original index."""
     b, e = qperm.shape
-    out_d = torch.empty((b, e, 5))
-    out_i = torch.empty((b, e, 5), dtype=torch.int32)
+    out_d = torch.empty((b, e, k))
+    out_i = torch.empty((b, e, k), dtype=torch.int32)
     for bb in range(b):
-        d = torch.full((q4.shape[1], 5), K._BIG)
-        idx = torch.zeros((q4.shape[1], 5), dtype=torch.int64)
+        d = torch.full((q4.shape[1], k), K._BIG)
+        idx = torch.zeros((q4.shape[1], k), dtype=torch.int64)
         for et in range(flags.shape[1]):
             rows = slice(et * K.TILE_E, (et + 1) * K.TILE_E)
             cols = [torch.arange(mt * K.TILE_M, (mt + 1) * K.TILE_M)
@@ -131,7 +146,7 @@ def _emulated_index_launch(q4, r4, flags, qperm, m):
             ones = torch.ones(len(cols), dtype=torch.bool)
             dd, ii = K.knn_index_plain(q4[bb, rows, :3],
                                        torch.ones(K.TILE_E, dtype=torch.bool),
-                                       r4[bb, cols, :3], ones)
+                                       r4[bb, cols, :3], ones, k)
             d[rows], idx[rows] = dd, cols[ii.long()]
         d = torch.where(d > K._FAR_PICK_D2, torch.full_like(d, K._BIG), d)
         d = torch.where(q4[bb, :, 3:4] > 0, d, torch.full_like(d, K._BIG))
@@ -176,3 +191,87 @@ def test_knn_auto_takes_the_plain_version_on_the_cpu():
     assert K.knn_index_launch.launches == before
     with pytest.raises(ValueError, match="no kernel"):
         N.knn_auto(q.to("meta"), qm.to("meta"), r.to("meta"), rm.to("meta"))
+
+
+@pytest.mark.parametrize("k", [3, 8])
+def test_index_plain_at_k_matches_pallas_interpret(k):
+    q, qm, r, rm = _scene(7, e=300, m=3000)
+    dj, ij = (np.asarray(a) for a in JK.knn_pallas(
+        *map(jnp.asarray, (q, qm, r, rm)), k=k, interpret=True))
+    dt, it = (a.numpy() for a in K.knn_index_plain(
+        *map(torch.from_numpy, (q, qm, r, rm)), k))
+    assert dt.shape == (300, k) and it.shape == (300, k)
+    fin = dt < 1e29
+    assert fin.sum() > 100 * k and _near_ties(dt) == 0
+    np.testing.assert_allclose(dj[fin], dt[fin], rtol=1e-5, atol=1e-7)
+    np.testing.assert_array_equal(ij[fin], it[fin])
+    assert (dt[~qm] >= 1e29).all() and (dj[~qm] >= 1e29).all()
+
+
+@pytest.mark.parametrize("k", [3, 8])
+def test_coords_plain_at_k_matches_pallas_interpret(k):
+    q, qm, r, rm = _scene(8)
+    d_j, c_j = JK.knn_coords_pallas(*map(jnp.asarray, (q, qm, r, rm)), k=k,
+                                    interpret=True, max_radius=1.0)
+    d_t, c_t = K.knn_coords_plain(*map(torch.from_numpy, (q, qm, r, rm)), k)
+    assert d_t.shape == (q.shape[0], k)
+    _check_knn(np.asarray(d_j), np.asarray(c_j), d_t.numpy(), c_t.numpy(),
+               qm)
+
+
+@pytest.mark.parametrize("k", [3, 8])
+def test_lines_plain_at_k_matches_pallas_interpret(k):
+    q, qm, r, rm = _line_map()
+    want = JK.knn_lines_pallas(*map(jnp.asarray, (q, qm, r, rm)), k=k,
+                               tile_e=64, tile_m=512, interpret=True)
+    got = K.knn_lines_plain(*map(torch.from_numpy, (q, qm, r, rm)), k)
+    # valid equal except where the plain eigenvalues of the k neighbours
+    # sit at the ratio gate
+    _, near = K.knn_coords_plain(*map(torch.from_numpy, (q, qm, r, rm)), k)
+    zm = near - near.mean(dim=1, keepdim=True)
+    eigs = N.sym3_eigenvalues(torch.einsum("eki,ekj->eij", zm, zm)).numpy()
+    gap = np.abs(eigs[:, 2] - 3.0 * eigs[:, 1]) / np.maximum(
+        np.abs(eigs[:, 2]), 1e-30)
+    gv, wv = got[2].numpy(), np.asarray(want[2])
+    assert (gap[gv != wv] <= BOUNDARY_REL).all()
+    both = gv & wv
+    assert both.sum() > 10
+    for a, b in ((got[0], want[0]), (got[1], want[1])):
+        np.testing.assert_allclose(a.numpy()[both], np.asarray(b)[both],
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("entry", ["coords", "coords_batched", "lines",
+                                   "index"])
+def test_cuda_wrappers_refuse_k_above_the_limit(entry):
+    q, qm, r, rm = (torch.from_numpy(a) for a in _scene(9, e=64, m=512))
+    fn = {"coords": K.knn_coords_cuda, "lines": K.knn_lines_cuda,
+          "index": K.knn_index_cuda,
+          "coords_batched": K.knn_coords_batched_cuda}[entry]
+    args = ((q[None], qm[None], r[None], rm[None])
+            if entry == "coords_batched" else (q, qm, r, rm))
+    with pytest.raises(ValueError, match=f"1..{K.MAX_K}"):
+        fn(*args, k=K.MAX_K + 1)
+
+
+def test_image_step_at_knn_k_3_tracks_jax():
+    jcfg = JConfig(local_map_size=5, ring_width=2048, knn_k=3)
+    cfg = LiodomConfig(local_map_size=5, ring_width=2048, knn_k=3)
+    world = BoxWorld(seed=5)
+    pos, rots, _ = drive_trajectory_6dof(3, speed=1.0, yaw_rate=0.03)
+    jstate = JP.init_state(jcfg)
+    state = P.init_state(cfg, device="cpu")
+    for i in range(3):
+        scan = world.render(pos[i], rots[i], width=560, noise=0.01,
+                            seed=500 + i)
+        img = JF.split_scan(JRawScan.from_points(jnp.asarray(scan),
+                                                 jcfg.max_points), jcfg)
+        jstate, jpose, jn = JP.image_step(jstate, img.xyz, img.count, jcfg)
+        state, pose, n = P.image_step(
+            state, torch.from_numpy(np.array(img.xyz)),
+            torch.from_numpy(np.array(img.count)), cfg)
+        assert int(n) == int(jn) and int(n) > 100
+        assert float(np.linalg.norm(pose.t.numpy()
+                                    - np.asarray(jpose.t))) < 0.01
+        assert _quat_angle(pose.q.numpy(), np.asarray(jpose.q)) < 1e-3
+    assert float(np.linalg.norm(pose.t.numpy())) > 0.3      # it moved

@@ -1,4 +1,4 @@
-"""The merge rule of the kNN walk that K3, K4 and K6 share
+"""The merge rule of the kNN walk that K3, K4, K5 and K6 share
 (``csrc/knn_search.cuh``), pinned on the CPU where ties are many.
 
 A query tile's flagged ref tiles are dealt over the S blocks of a cluster
@@ -22,6 +22,15 @@ port keeps.  On the decimal 5 cm lattice it is not: XLA's CPU backend
 fuses ``dx*dx + dy*dy`` into a multiply-add, which moves d2 by an ulp and,
 at a near-tie, picks the other neighbour, while the port rounds each
 operation (``-fmad=false`` on the card).
+
+K5 (``csrc/knn_index.cu``) is the same walk with an index epilogue, called
+without a radius (every non-empty tile pair flagged).  :func:`_index_model`
+is the walk at k neighbours with that epilogue (FAR picks and invalid
+queries read ``_BIG``, indices clamped to ``m - 1``, an empty slot at 0);
+at S x G = 1, 2, 7 and 32 and k = 3, 5 and 8 it must give
+``knn_index_launch_plain`` bit for bit on every row, ``knn_index_plain`` on
+every valid query, and, on the dyadic lattice, ``knn_pallas(k=k,
+interpret=True)``.
 """
 
 import functools
@@ -55,11 +64,12 @@ def tie_scene(seed, lattice):
 
 
 def _insert(bd, bi, d, i):
-    """Strict-``<`` insertion of one candidate into ascending lists (..., 5):
+    """Strict-``<`` insertion of one candidate into ascending lists (..., k):
     the kernel's bubble ends after every entry <= d."""
+    k = bd.shape[-1]
     enter = d < bd[..., -1]
-    p = torch.where(enter, (bd <= d[..., None]).sum(-1), 5)[..., None]
-    slot = torch.arange(5)
+    p = torch.where(enter, (bd <= d[..., None]).sum(-1), k)[..., None]
+    slot = torch.arange(k)
     shd = torch.cat([bd[..., :1], bd[..., :-1]], dim=-1)
     shi = torch.cat([bi[..., :1], bi[..., :-1]], dim=-1)
     bd = torch.where(slot < p, bd, torch.where(slot == p, d[..., None], shd))
@@ -72,16 +82,17 @@ def _before(da, ia, db, ib):
 
 
 def _merge(bd, bi, ld, li):
-    """Merge ascending lists (ld, li) into (bd, bi), both (..., 5), in
+    """Merge ascending lists (ld, li) into (bd, bi), both (..., k), in
     (d2, index) order, stopping at a list's first entry that is not before
     the running last, as the kernel does."""
+    k = bd.shape[-1]
     going = torch.ones(bd.shape[:-1], dtype=torch.bool)
-    for c in range(5):
+    for c in range(k):
         d, i = ld[..., c], li[..., c]
         going &= _before(d, i, bd[..., -1], bi[..., -1])
         p = _before(bd, bi, d[..., None], i[..., None]).sum(-1)
-        p = torch.where(going, p, 5)[..., None]
-        slot = torch.arange(5)
+        p = torch.where(going, p, k)[..., None]
+        slot = torch.arange(k)
         shd = torch.cat([bd[..., :1], bd[..., :-1]], dim=-1)
         shi = torch.cat([bi[..., :1], bi[..., :-1]], dim=-1)
         bd = torch.where(slot < p, bd, torch.where(slot == p, d[..., None],
@@ -91,9 +102,10 @@ def _merge(bd, bi, ld, li):
     return bd, bi
 
 
-def _walk_model(q4, r4, flags, qperm, clusters, groups):
-    """K3's result by the redesigned walk: (d2 (E, 5), coords (E, 5, 3)) in
-    the caller's query order."""
+def _walk_lists(q4, r4, flags, clusters, groups, k):
+    """The walk's merged lists in cluster rank 0: (d2 (Ep, k), index (Ep,
+    k)) at every query position, ``_BIG`` and ``_NONE`` in an empty
+    slot."""
     n_e, n_m = flags.shape
     tm, te = K.TILE_M, K.TILE_E
     run = tm // groups
@@ -119,31 +131,53 @@ def _walk_model(q4, r4, flags, qperm, clusters, groups):
     dz = q[:, :, None, 2] - r[:, None, :, 2]
     d2 = (dx * dx + dy * dy) + dz * dz                      # (N, te, steps)
     d2 = torch.where(idx[:, None, :] >= 0, d2, torch.inf)   # no candidate
-    bd = torch.full((len(streams), te, 5), K._BIG)
-    bi = torch.full((len(streams), te, 5), K._NONE, dtype=torch.int64)
+    bd = torch.full((len(streams), te, k), K._BIG)
+    bi = torch.full((len(streams), te, k), K._NONE, dtype=torch.int64)
     for s in range(steps):
         bd, bi = _insert(bd, bi, d2[:, :, s],
                          idx[:, s, None].expand(-1, te))
     # merge the groups of each block, then the blocks into rank 0
-    bd = bd.view(n_e, clusters, groups, te, 5)
-    bi = bi.view(n_e, clusters, groups, te, 5)
+    bd = bd.view(n_e, clusters, groups, te, k)
+    bi = bi.view(n_e, clusters, groups, te, k)
     blk_d, blk_i = bd[:, :, 0], bi[:, :, 0]
     for g in range(1, groups):
         blk_d, blk_i = _merge(blk_d, blk_i, bd[:, :, g], bi[:, :, g])
     md, mi = blk_d[:, 0], blk_i[:, 0]
     for rank in range(1, clusters):
         md, mi = _merge(md, mi, blk_d[:, rank], blk_i[:, rank])
-    md, mi = md.reshape(-1, 5), mi.reshape(-1, 5)
+    return md.reshape(-1, k), mi.reshape(-1, k)
+
+
+def _read_back(md, q4):
+    md = torch.where(md > K._FAR_PICK_D2, K._BIG, md)
+    return torch.where(q4[:, 3:4] != 0, torch.clamp(md, min=0.0), K._BIG)
+
+
+def _walk_model(q4, r4, flags, qperm, clusters, groups):
+    """K3's result by the redesigned walk: (d2 (E, 5), coords (E, 5, 3)) in
+    the caller's query order."""
+    md, mi = _walk_lists(q4, r4, flags, clusters, groups, 5)
     empty = mi == K._NONE
     coords = torch.where(empty[..., None], 0.0,
                          r4[torch.where(empty, 0, mi), :3])
-    md = torch.where(md > K._FAR_PICK_D2, K._BIG, md)
-    md = torch.where(q4[:, 3:4] != 0, torch.clamp(md, min=0.0), K._BIG)
     e = qperm.shape[0]
     out_d, out_c = torch.empty((e, 5)), torch.empty((e, 5, 3))
-    out_d[qperm.long()] = md[:e]
+    out_d[qperm.long()] = _read_back(md, q4)[:e]
     out_c[qperm.long()] = coords[:e]
     return out_d, out_c
+
+
+def _index_model(q4, r4, flags, qperm, m, clusters, groups, k):
+    """K5's result by the walk at k neighbours: (d2 (E, k), idx (E, k)
+    int32 into the r4 rows) in the caller's query order."""
+    md, mi = _walk_lists(q4, r4, flags, clusters, groups, k)
+    mi = torch.where(mi == K._NONE, 0, torch.clamp(mi, max=m - 1))
+    e = qperm.shape[0]
+    out_d = torch.empty((e, k))
+    out_i = torch.empty((e, k), dtype=torch.int32)
+    out_d[qperm.long()] = _read_back(md, q4)[:e]
+    out_i[qperm.long()] = mi[:e].to(torch.int32)
+    return out_d, out_i
 
 
 @functools.lru_cache(maxsize=None)
@@ -203,3 +237,40 @@ def test_launch_plain_is_the_tpu_kernel_on_ties():
     assert torch.equal(ok[0], want.valid)
     assert int(ok.sum()) > 0
 
+
+
+@functools.lru_cache(maxsize=None)
+def _index_case(k):
+    """K5's inputs on the dyadic tie scene, as the sharded step calls it
+    (no radius: nothing sorted, every non-empty tile pair flagged), the
+    keyed selection's and the plain version's answers at k, and the TPU
+    kernel's (``knn_pallas(k=k, interpret=True)`` at the port's tiles)."""
+    q, qm, r, rm = tie_scene(0, DYADIC)
+    pts = tuple(torch.from_numpy(a)[None] for a in (q, qm, r, rm))
+    prep = K.knn_prepare_batched(*pts, None)
+    m = r.shape[0]
+    d_j, i_j = JK.knn_pallas(jnp.asarray(q), jnp.asarray(qm), jnp.asarray(r),
+                             jnp.asarray(rm), k=k, tile_e=K.TILE_E,
+                             tile_m=K.TILE_M, interpret=True)
+    return (prep, m, K.knn_index_launch_plain(*prep, m, k),
+            K.knn_index_plain(*(t[0] for t in pts), k),
+            (np.asarray(d_j), np.asarray(i_j)))
+
+
+@pytest.mark.parametrize("k", [3, 5, 8])
+@pytest.mark.parametrize("clusters,groups", [(1, 1), (1, 2), (7, 1),
+                                             (16, 2)])
+def test_index_walk_is_the_keyed_selection(clusters, groups, k):
+    prep, m, (d_o, i_o), (d_p, i_p), (d_j, i_j) = _index_case(k)
+    q4, r4, flags, qperm = (t[0] for t in prep)
+    assert bool((flags != 0).all())              # dense: no radius
+    d_m, i_m = _index_model(q4, r4, flags, qperm, m, clusters, groups, k)
+    assert d_m.shape == (qperm.shape[0], k)
+    assert torch.equal(d_m, d_o[0]) and torch.equal(i_m, i_o[0])
+    valid = torch.from_numpy(tie_scene(0, DYADIC)[1])
+    assert torch.equal(d_m[valid], d_p[valid])
+    assert torch.equal(i_m[valid], i_p[valid])
+    np.testing.assert_array_equal(d_m.numpy(), d_j)
+    np.testing.assert_array_equal(i_m.numpy(), i_j)
+    # equal distances within a row: the order rests on the indices
+    assert float((d_m[valid].diff(dim=1) == 0).any(1).float().mean()) > 0.5
