@@ -104,12 +104,17 @@ Phases, each printing one JSON line:
    blocks and thread groups in the K3, K4 and K6 rows beside their ptxas
    usage; K7
    bit-exact rows, validity and hit count (at the bench capacity and at
-   one that truncates), the probe kernel bit-exact table, slots and flags,
-   K5 on the sharded flagship's last frame and matching map, without a
-   radius (the path's call) and with 1 m: indices identical wherever the
-   plain d2 is finite (within the radius), d2 within 1e-5 relative where
-   d2 < 1; the path's call and the tie scenes without a radius bit for bit
-   on every row against ``knn_index_launch_plain``, one kernel a call
+   one that truncates, at 174 targets, on 100,003 rows, with no hit and at
+   capacity 0: ``map_kernel_cases``, with its tiles and rows a thread),
+   the probe kernel bit-exact table, slots, flags and rounds run (the
+   bench frame, one row, no active row, 70,000 rows and a 256-slot table
+   they exhaust), its rounds and a latency bound of two L2 trips a round
+   beside the byte bound of its table copy, K5 on the sharded flagship's
+   last frame and matching map, without a radius (the path's call) and
+   with 1 m: indices identical wherever the plain d2 is finite (within the
+   radius), d2 within 1e-5 relative where d2 < 1; the path's call and
+   the tie scenes without a radius bit for bit on every row against
+   ``knn_index_launch_plain``, one kernel a call
    under the profiler, its cluster blocks and thread groups beside its
    ptxas usage; K3, K4, K5 and K6 at k = 3 and 8 (the walk built for
    every 1 <= k <= 16) bit for bit against ``knn_launch_plain`` /
@@ -194,6 +199,11 @@ OTHER_K = (3, 8)            # the kNN kernels at k other than 5
 # one dependent step of K2's walk: a shared-memory load and a warp vote,
 # ~30 cycles at the H100's 1.98 GHz boost clock (published latency)
 WALK_STEP_S = 30 / 1.98e9
+# one dependent trip to L2 (a 64-bit ld.global.cg that hits; an atomic
+# taken as the same), 141-148 ns in scripts/map_kernels_experiment.py's
+# pointer chase over a 4 MB ring on the H100 80GB HBM3 at 700 W (PERF.md,
+# Findings)
+L2_TRIP_S = 145e-9
 # bench.py's combined configuration (bench.py:91)
 MCFG = MapConfig(map_capacity=524288, local_map_capacity=16384)
 
@@ -365,6 +375,51 @@ def walk_row(tie: dict, source: str, n_m: int) -> dict:
             "flagged_tiles_per_query_tile_mean":
                 tie["flagged_tiles_per_query_tile_mean"],
             **KNN.knn_walk_shape(source, n_m)}
+
+
+def map_kernel_cases(kmap, kbase, pmap, pcode, pvalid, pxyz):
+    """The inputs K7 and the probe kernel are held to, beside the path's
+    own calls: ``({name: K7 args}, {name: probe args})``.
+
+    K7 on the bench map ``kmap`` around ``kbase``: the bench neighbourhood
+    (27 targets) at the bench capacity and at 1,024 (a truncating cut),
+    ``cells_xy=6, cells_z=3`` (174 targets, past the 128 an earlier kernel
+    took) at both, the map's first 100,003 rows (not a multiple of a
+    tile), a base with no hit, and capacity 0.  The probe on the table
+    ``pmap`` met by the bench frame's codes ``pcode``: the frame, one row,
+    no active row, 70,000 rows around the frame's points ``pxyz`` (past
+    the 16,384 the kernel keeps on chip, 2,048 a block of its cluster of
+    8) and 20,000 of them into a 256-slot table, which they exhaust."""
+    offs = G.local_map_offsets(MCFG)
+    wide = G.local_map_offsets(MCFG, cells_xy=6, cells_z=3)
+    cap = MCFG.local_map_capacity
+    rows = 100_003
+    m = (kmap.xyz, kmap.key, kmap.valid)
+    head = tuple(t[:rows] for t in m)
+    far = kbase + torch.tensor([4096, 0, 0], dtype=torch.int32,
+                               device=kbase.device)
+    k7 = {"bench": (*m, kbase, offs, cap),
+          "bench_cap1024": (*m, kbase, offs, 1024),
+          "targets174": (*m, kbase, wide, cap),
+          "targets174_cap1024": (*m, kbase, wide, 1024),
+          "rows100003": (*head, kbase, offs, cap),
+          "no_hits": (*m, far, offs, 1024),
+          "cap0": (*m, kbase, offs, 0)}
+    g = torch.Generator().manual_seed(7)
+    n_many = 70_000
+    pick = torch.randint(0, pxyz.shape[0], (n_many,), generator=g)
+    jitter = torch.randn((n_many, 3), generator=g) * 4.0
+    many_xyz = pxyz[pick.to(pxyz.device)] + jitter.to(pxyz.device)
+    many_valid = (torch.rand(n_many, generator=g) > 0.1).to(pxyz.device)
+    many = G._packed_codes(many_xyz, many_valid, MCFG)
+    small = torch.full((256,), G.EMPTY, dtype=torch.int64,
+                       device=pmap.code.device)
+    probe = {"bench": (pmap.code, pcode, pvalid),
+             "one_row": (pmap.code, pcode[:1], torch.ones_like(pvalid[:1])),
+             "inactive": (pmap.code, pcode, torch.zeros_like(pvalid)),
+             "rows70000": (pmap.code, many, many_valid),
+             "table256": (small, many[:20_000], many_valid[:20_000])}
+    return k7, probe
 
 
 def quat_angle(qa: np.ndarray, qb: np.ndarray) -> float:
@@ -1257,39 +1312,60 @@ def main() -> int:
     n_tied = ties["tie_scene"]["rows_with_a_tie_within_1m"]
     check(n_tied > 1000, f"the tie scene has {n_tied} rows with a tie")
     # K7 on the bench map after the last frame (every-frame cadence), at
-    # the last pose: at the bench capacity and at one that truncates
+    # the last pose, and the probe kernel on the table the last frame met
+    # with that frame's codes at its pose (its table must also be the one
+    # the drive produced), each with the cases of map_kernel_cases
     kmap = bc_states[-1][1]
     kbase = G.cell_keys(torch.trunc(bc_poses[-1].t), MCFG)
     koffs = G.local_map_offsets(MCFG)
     cap = MCFG.local_map_capacity
-    k7 = {}
-    for kcap in (cap, 1024):
-        got = K7.compact_hits_cuda(kmap.xyz, kmap.key, kmap.valid, kbase,
-                                   koffs, kcap)
-        want = K7.compact_hits_plain(kmap.xyz, kmap.key, kmap.valid, kbase,
-                                     koffs, kcap)
-        same = (int(got[2]) == int(want[2]) and torch.equal(got[0], want[0])
-                and torch.equal(got[1], want[1]))
-        k7[kcap] = {"capacity": kcap, "n_hits": int(got[2]),
-                    "bit_exact": same,
-                    "max_abs_err": float((got[0] - want[0]).abs().max())}
-        check(same, f"K7 not bit-exact at capacity {kcap}")
-    k7_hits = k7[cap]["n_hits"]
-    check(k7_hits > 1024, f"K7: capacity 1024 did not truncate ({k7_hits})")
-
-    # the probe kernel on the table the last frame met and that frame's
-    # codes at its pose; its table must also be the one the drive produced
     pmap = bc_states[-2][1]
     pvalid = ec_k.valid
-    pcode = G._packed_codes(se3.transform(bc_poses[-1], ec_k.xyz), pvalid,
-                            MCFG)
-    got = PI.probe_insert_cuda(pmap.code, pcode, pvalid)
-    want = PI.probe_insert_plain(pmap.code, pcode, pvalid)
-    probe_same = all(torch.equal(x, y) for x, y in zip(got, want))
-    probe_drive = torch.equal(got[0], kmap.code)
-    check(probe_same, "probe kernel: table, slots or flags differ from the "
-          "plain rounds")
+    pxyz = se3.transform(bc_poses[-1], ec_k.xyz)
+    pcode = G._packed_codes(pxyz, pvalid, MCFG)
+    k7_cases, probe_cases = map_kernel_cases(kmap, kbase, pmap, pcode,
+                                             pvalid, pxyz)
+    k7 = {}
+    for name, args in k7_cases.items():
+        got = K7.compact_hits_cuda(*args)
+        want = K7.compact_hits_plain(*args)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        k7[name] = {"rows": args[0].shape[0], "targets": len(args[4]),
+                    "capacity": args[5], "n_hits": int(got[2]),
+                    "bit_exact": same,
+                    "max_abs_err": float((got[0] - want[0]).abs().max())
+                    if args[5] else 0.0}
+        check(same, f"K7 not bit-exact ({name})")
+    k7_hits = k7["bench"]["n_hits"]
+    for name in ("bench_cap1024", "targets174_cap1024"):
+        check(k7[name]["n_hits"] > 1024,
+              f"K7: capacity 1024 did not truncate ({name})")
+    check(k7["no_hits"]["n_hits"] == 0, "K7: the far base has hits")
+    check(k7["targets174"]["targets"] == 174, "K7: not 174 targets")
+    k7_shape = K7.compact_shape(kmap.xyz.shape[0], len(koffs))
+
+    probe = {}
+    for name, args in probe_cases.items():
+        got = PI.probe_insert_cuda(*args, with_rounds=True)
+        want = PI.probe_insert_plain(*args, with_rounds=True)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        probe[name] = {"rows": args[1].shape[0],
+                       "active": int(args[2].sum()),
+                       "table_slots": args[0].shape[0],
+                       "rounds": int(got[4]), "plain_rounds": int(want[4]),
+                       "claimed": int(got[2].sum()),
+                       "failed": int(got[3].sum()), "bit_exact": same}
+        check(same, f"probe kernel ({name}): table, slots, flags or rounds "
+              f"differ from the plain rounds")
+    probe_drive = torch.equal(PI.probe_insert_cuda(*probe_cases["bench"])[0],
+                              kmap.code)
     check(probe_drive, "probe kernel: table differs from the drive's map")
+    check(probe["inactive"]["rounds"] == 0, "probe kernel: rounds without "
+          "an active row")
+    check(probe["table256"]["rounds"] == PI.MAX_PROBES
+          and probe["table256"]["failed"] > 0,
+          "probe kernel: the 256-slot table was not exhausted")
+    probe_same = all(v["bit_exact"] for v in probe.values())
 
     # K5 on the matching map the sharded flagship's last frame met (its
     # window slots and received map after the frame before) and on that
@@ -1420,8 +1496,8 @@ def main() -> int:
                         "gate_flips_off_ratio_boundary": k6_off},
           "local_map_compact": {"rows": kmap.xyz.shape[0],
                                 "occupied": int(kmap.valid.sum()),
-                                "targets": len(koffs),
-                                "checks": list(k7.values())},
+                                "targets": len(koffs), **k7_shape,
+                                "checks": k7},
           "knn_index": {"queries": int(ec_k.valid.sum()),
                         "refs": int(s_valid.sum()), "E": s_query.shape[0],
                         "M": m5, "tile_pairs": prep5[2].numel(),
@@ -1431,11 +1507,8 @@ def main() -> int:
           "knn_other_k": other_k,
           "probe_insert": {"bit_exact": probe_same,
                            "table_equals_drive": probe_drive,
-                           "table_slots": pmap.code.shape[0],
                            "occupied_before": int(pmap.valid.sum()),
-                           "codes": int(pvalid.sum()),
-                           "claimed": int(got[2].sum()),
-                           "failed": int(got[3].sum())}})
+                           **PI.probe_shape(), "checks": probe}})
 
     r, w = img.xyz.shape[:2]
     k1_ms = cuda_ms(lambda: SM.smoothness_cuda(img.xyz, img.count), 100)
@@ -1525,14 +1598,19 @@ def main() -> int:
     k7_bound = bound(c_rows + occupied * 12 + min(k7_hits, cap) * 12
                      + cap * (12 + 1) + 4, occupied * len(koffs) * 3)
 
-    pargs = (pmap.code, pcode, pvalid)
+    pargs = probe_cases["bench"]
     probe_ms = cuda_ms(lambda: PI.probe_insert_cuda(*pargs), 100)
     clone_ms = cuda_ms(lambda: pmap.code.clone(), 100)
     probe_plain = cuda_ms(lambda: PI.probe_insert_plain(*pargs), 5, 1)
     n_tab, e_p = pmap.code.shape[0], pcode.shape[0]
-    # the function returns a new table: it reads and writes the table once,
-    # reads the codes and the mask, writes slots and two flags
+    # the function returns a new table: it reads and writes the table once
+    # (the copy), reads the codes and the mask, writes slots and two flags;
+    # the rounds are bound by latency: the first reads, then two dependent
+    # L2 trips a round (the claims, the reads)
     probe_bound = bound(2 * n_tab * 8 + e_p * (8 + 1) + e_p * (4 + 1 + 1), 0)
+    copy_bound = bound(2 * n_tab * 8, 0)[0]
+    rounds = probe["bench"]["rounds"]
+    rounds_bound_ms = (2 * rounds + 1) * L2_TRIP_S * 1e3
 
     rows = [
         {"name": "smoothness", "route": "cuda",
@@ -1612,7 +1690,10 @@ def main() -> int:
          "launches": ccounts["local_map_compact"],
          "max_abs_err": max(v["max_abs_err"] for v in k7.values()),
          "ms": k7_ms, "plain_ms": k7_plain, "bound_ms": k7_bound[0],
-         "bound_by": k7_bound[1], "library_ms": None, "n_hits": k7_hits},
+         "bound_by": k7_bound[1], "library_ms": None, "n_hits": k7_hits,
+         "latency_bound_ms": 4 * L2_TRIP_S * 1e3,
+         "tiles": k7_shape["tiles"],
+         "ptxas": usage.get("local_map_compact")},
         {"name": "probe_insert", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/probe_insert.cu",
          "replaces": "none: liodom_tpu/mapping/grid.py:200 is a "
@@ -1621,7 +1702,10 @@ def main() -> int:
          "max_abs_err": 0.0 if probe_same else float("nan"),
          "ms": probe_ms, "plain_ms": probe_plain,
          "bound_ms": probe_bound[0], "bound_by": probe_bound[1],
-         "library_ms": None, "table_copy_ms": clone_ms},
+         "library_ms": None, "table_copy_ms": clone_ms,
+         "kernel_ms": probe_ms - clone_ms, "copy_bound_ms": copy_bound,
+         "rounds": rounds, "rounds_latency_bound_ms": rounds_bound_ms,
+         "ptxas": usage.get("probe_insert")},
     ]
 
     # ---- 13. where a frame's device time goes ----------------------------

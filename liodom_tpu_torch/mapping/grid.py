@@ -18,7 +18,7 @@ lexicographic-min claim of the two words becomes one ``amin`` of the code,
 and the slot layout is the JAX package's, slot for slot.
 
 The probe loop and the slot hash live in ``ops/probe_insert.py``: on CUDA
-one kernel (``csrc/probe_insert.cu``) runs every round inside one block, so
+one kernel (``csrc/probe_insert.cu``) runs every round in one launch, so
 the update never waits on the host; on the CPU the rounds are torch ops.
 Local-map extraction (:func:`get_local_map`) runs K7
 (``ops/compact_pallas.py``).

@@ -10,28 +10,38 @@ neighbourhood's target keys (``base + offsets``) and that are valid are
 hit.  The cut at capacity is exact, as in ``get_local_map``.
 
 :func:`compact_hits` dispatches on the tensors' device: a CUDA tensor
-launches ``csrc/local_map_compact.cu`` (membership fused into a counting
-pass, then a placing pass), a CPU tensor takes :func:`compact_hits_plain`
-(membership as a broadcast compare, ranks by ``cumsum``, a scatter).  Both
-move values and compare integers, so they are bit-exact with each other.
+launches ``csrc/local_map_compact.cu`` (a block a tile counts its hits,
+finds its offset by a look-back over the tiles before and places them;
+:func:`compact_hits_tiled` models its schedule), a CPU tensor takes
+:func:`compact_hits_plain` (membership as a broadcast compare, ranks by
+``cumsum``, a scatter).  Both move values and compare integers, so they are
+bit-exact with each other.
 Neither synchronises with the host: no ``nonzero``, no data-dependent shape.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from liodom_tpu_torch import kernels
 
-TILE_ROWS = 4096      # rows per block in csrc/local_map_compact.cu
-MAX_TARGETS = 128     # target keys the kernel takes by value
+THREADS = 256           # threads a block in csrc/local_map_compact.cu
+ROWS_PER_THREAD = 8     # contiguous rows a thread (one 8-byte mask load)
+TILE_ROWS = THREADS * ROWS_PER_THREAD   # rows a block
+SMEM_LIMIT = 232448     # a block's shared memory on Hopper (227 KB)
+# targets the kernel holds in shared memory, 12 bytes each beside 256
+MAX_TARGETS = (SMEM_LIMIT - 256) // 12
 
 _SIG = [("liodom_local_map_compact", [ctypes.c_void_p] * 5
-         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)]
+         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5),
+        ("liodom_local_map_compact_shape", [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p])]
+_STATE: Dict[torch.device, torch.Tensor] = {}
 
 
 def compact_rows_plain(xyz: torch.Tensor, hit: torch.Tensor, capacity: int
@@ -48,17 +58,97 @@ def compact_rows_plain(xyz: torch.Tensor, hit: torch.Tensor, capacity: int
     return out, out_valid, n_hits
 
 
+def _membership(key: torch.Tensor, valid: torch.Tensor, base: torch.Tensor,
+                offsets: np.ndarray) -> torch.Tensor:
+    """(C,) bool: the row is valid and its key is one of ``base + offsets``."""
+    offs = torch.as_tensor(np.asarray(offsets, np.int32), device=key.device)
+    targets = base[None, :] + offs.reshape(-1, 3)            # (K, 3)
+    eq = torch.all(key[:, None, :] == targets[None, :, :], dim=-1)
+    return torch.any(eq, dim=-1) & valid
+
+
 def compact_hits_plain(xyz: torch.Tensor, key: torch.Tensor,
                        valid: torch.Tensor, base: torch.Tensor,
                        offsets: np.ndarray, capacity: int
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K7's function in plain PyTorch: membership of each row's ``key``
     against ``base (3,) + offsets (K, 3)``, then :func:`compact_rows_plain`."""
-    offs = torch.as_tensor(np.asarray(offsets, np.int32), device=key.device)
-    targets = base[None, :] + offs                           # (K, 3)
-    eq = torch.all(key[:, None, :] == targets[None, :, :], dim=-1)
-    hit = torch.any(eq, dim=-1) & valid
-    return compact_rows_plain(xyz, hit, capacity)
+    return compact_rows_plain(xyz, _membership(key, valid, base, offsets),
+                              capacity)
+
+
+def compact_hits_tiled(xyz: torch.Tensor, key: torch.Tensor,
+                       valid: torch.Tensor, base: torch.Tensor,
+                       offsets: np.ndarray, capacity: int,
+                       threads: int = THREADS,
+                       rows_per_thread: int = ROWS_PER_THREAD
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7's schedule as torch ops, a model of ``csrc/local_map_compact.cu``
+    with ``threads`` threads a block and ``rows_per_thread`` contiguous
+    rows a thread: each thread counts the hits of its rows, a scan over the
+    block's threads gives its offset in the tile, the look-back over the
+    tiles before gives the tile's offset (their counts summed: the
+    exclusive prefix), and a hit goes to the sum plus its rank among the
+    thread's hits, dropped at or past ``capacity``.  Same contract as
+    :func:`compact_hits_plain`."""
+    c = xyz.shape[0]
+    tile = threads * rows_per_thread
+    tiles = max(1, -(-c // tile))
+    hit = _membership(key, valid, base, offsets)
+    padded = torch.zeros(tiles * tile, dtype=torch.int64, device=xyz.device)
+    padded[:c] = hit.to(torch.int64)
+    h = padded.reshape(tiles, threads, rows_per_thread)
+    mine = h.sum(-1)                                   # a thread's count
+    in_tile = torch.cumsum(mine, -1) - mine            # the block scan
+    count = mine.sum(-1)                               # published, a tile
+    before = torch.cumsum(count, 0) - count            # the look-back
+    rank = torch.cumsum(h, -1) - h                     # among the thread's
+    dst = (before[:, None, None] + in_tile[..., None] + rank).reshape(-1)[:c]
+    dst = torch.where(hit & (dst < capacity), dst, capacity)
+    out = torch.zeros((capacity + 1, 3), dtype=xyz.dtype, device=xyz.device)
+    out = out.index_copy_(0, dst, xyz)[:capacity]
+    n_hits = count.sum().to(torch.int32)
+    out_valid = torch.arange(capacity, device=xyz.device) < n_hits
+    return out, out_valid, n_hits
+
+
+@functools.lru_cache(maxsize=32)
+def _device_offsets(data: bytes, device: torch.device) -> torch.Tensor:
+    """The (K, 3) int32 offsets of ``data`` sorted by (x, y, z), the
+    order the kernel's binary search takes (adding the base keeps it), on
+    ``device``: copied once per neighbourhood and device and kept, from
+    pinned memory without waiting, so no step synchronises with the host
+    for them."""
+    offs = np.frombuffer(data, np.int32).reshape(-1, 3)
+    offs = offs[np.lexsort((offs[:, 2], offs[:, 1], offs[:, 0]))]
+    host = torch.from_numpy(np.ascontiguousarray(offs))
+    if not len(offs):
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def _lookback_state(device: torch.device, tiles: int) -> torch.Tensor:
+    """K7's look-back status words on ``device``: an epoch word and one word
+    a tile, zeroed when first needed (or outgrown) and then left to the
+    kernel, which tags each launch's words with the next epoch, so no call
+    clears them.  Launches on one device must therefore be ordered (one
+    stream)."""
+    state = _STATE.get(device)
+    if state is None or state.numel() < 1 + tiles:
+        state = torch.zeros(1 + max(tiles, 256), dtype=torch.int64,
+                            device=device)
+        _STATE[device] = state
+    return state
+
+
+def compact_shape(rows: int, n_targets: int) -> dict:
+    """K7's launch as the built library sets it for ``rows`` rows and
+    ``n_targets`` targets (CUDA only)."""
+    out = (ctypes.c_int * 5)()
+    kernels.load("local_map_compact", _SIG).liodom_local_map_compact_shape(
+        rows, n_targets, out)
+    return {"tiles": out[0], "threads": out[1], "rows_per_thread": out[2],
+            "smem_bytes": out[3], "max_targets": out[4]}
 
 
 def compact_hits_cuda(xyz: torch.Tensor, key: torch.Tensor,
@@ -66,10 +156,20 @@ def compact_hits_cuda(xyz: torch.Tensor, key: torch.Tensor,
                       offsets: np.ndarray, capacity: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K7 on CUDA tensors; same contract as
-    :func:`compact_hits_plain`.  ``offsets`` stays on the host: the kernel
-    takes the target offsets by value, so no copy to the card is made."""
+    :func:`compact_hits_plain`.  ``offsets`` (host numpy) go to the card
+    once per neighbourhood and device (:func:`_device_offsets`); the
+    kernel holds the targets in shared memory, at most
+    :data:`MAX_TARGETS` of them."""
+    offs = np.ascontiguousarray(offsets, dtype=np.int32)
+    if offs.ndim != 2 or offs.shape[1] != 3:
+        raise ValueError(f"compact_hits_cuda takes (K, 3) offsets, got "
+                         f"{offs.shape}")
+    if len(offs) > MAX_TARGETS:
+        raise ValueError(f"compact_hits_cuda takes at most {MAX_TARGETS} "
+                         f"target keys (a block's 227 KB of shared memory "
+                         f"at 12 bytes a target), got {len(offs)}")
     if not all(t.is_cuda and t.device == xyz.device
-               for t in (key, valid, base)):
+               for t in (xyz, key, valid, base)):
         raise ValueError("compact_hits_cuda needs all tensors on one CUDA "
                          "device")
     if (xyz.dtype != torch.float32 or key.dtype != torch.int32
@@ -82,17 +182,14 @@ def compact_hits_cuda(xyz: torch.Tensor, key: torch.Tensor,
         raise ValueError(f"compact_hits_cuda shapes: xyz {tuple(xyz.shape)}, "
                          f"key {tuple(key.shape)}, valid "
                          f"{tuple(valid.shape)}, base {tuple(base.shape)}")
-    offs = np.ascontiguousarray(offsets, dtype=np.int32)
-    if offs.ndim != 2 or offs.shape[1] != 3 or len(offs) > MAX_TARGETS:
-        raise ValueError(f"compact_hits_cuda takes at most {MAX_TARGETS} "
-                         f"(dx, dy, dz) offsets, got {offs.shape}")
     if capacity < 0 or c >= 2**31 or capacity >= 2**31:
         raise ValueError(f"compact_hits_cuda: {c} rows, capacity {capacity}")
     xyz, key, valid, base = (t.contiguous() for t in (xyz, key, valid, base))
+    if valid.data_ptr() % 16:            # the kernel reads 16 rows a load
+        valid = valid.clone()
     dev = xyz.device
-    n_blocks = max(1, -(-c // TILE_ROWS))
-    hit = torch.empty(c, dtype=torch.uint8, device=dev)
-    block_count = torch.empty(n_blocks, dtype=torch.int32, device=dev)
+    d_offs = _device_offsets(offs.tobytes(), dev)
+    state = _lookback_state(dev, max(1, -(-c // TILE_ROWS)))
     out = torch.empty((capacity, 3), dtype=torch.float32, device=dev)
     out_valid = torch.empty(capacity, dtype=torch.bool, device=dev)
     n_hits = torch.empty((), dtype=torch.int32, device=dev)
@@ -101,9 +198,8 @@ def compact_hits_cuda(xyz: torch.Tensor, key: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.liodom_local_map_compact(
             xyz.data_ptr(), key.data_ptr(), valid.data_ptr(), base.data_ptr(),
-            offs.ctypes.data, len(offs), c, capacity, hit.data_ptr(),
-            block_count.data_ptr(), out.data_ptr(), out_valid.data_ptr(),
-            n_hits.data_ptr(), stream)
+            d_offs.data_ptr(), len(offs), c, capacity, state.data_ptr(),
+            out.data_ptr(), out_valid.data_ptr(), n_hits.data_ptr(), stream)
     kernels.check(err, "liodom_local_map_compact")
     compact_hits_cuda.launches += 1
     return out, out_valid, n_hits

@@ -4,7 +4,8 @@ Find-or-insert of packed (cell, leaf) codes into the map's slot table, the
 rounds of ``liodom_tpu/mapping/grid.py:_probe_insert``.  That function is a
 ``lax.while_loop`` whose exit test depends on the data, not a TPU kernel; in
 PyTorch the test would be one host synchronisation a round, so on CUDA the
-rounds run inside one launch of ``csrc/probe_insert.cu``.
+rounds run inside one launch of ``csrc/probe_insert.cu``, two phases a round
+(:func:`probe_insert_two_phase` models its schedule).
 
 A table slot holds one int64 code (``code1 << 26 | code2`` of the JAX
 package's two uint32 words) or :data:`EMPTY`, which lies above every valid
@@ -32,7 +33,8 @@ _U32 = 0xFFFFFFFF
 _SIG = [("liodom_probe_insert", [ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_void_p, ctypes.c_void_p,
                                  ctypes.c_int, ctypes.c_int]
-         + [ctypes.c_void_p] * 5)]
+         + [ctypes.c_void_p] * 6),
+        ("liodom_probe_insert_shape", [ctypes.c_void_p])]
 
 
 def mul32(a: torch.Tensor, m: int) -> torch.Tensor:
@@ -62,9 +64,8 @@ def hash_code(code: torch.Tensor, table_size: int) -> torch.Tensor:
 
 
 def probe_insert_plain(tab: torch.Tensor, code: torch.Tensor,
-                       active: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                  torch.Tensor]:
+                       active: torch.Tensor, with_rounds: bool = False
+                       ) -> Tuple[torch.Tensor, ...]:
     """Find-or-insert of ``code`` (E,) into the table ``tab`` (C,), the
     rounds of the JAX package's ``_probe_insert`` as torch ops.
 
@@ -73,8 +74,10 @@ def probe_insert_plain(tab: torch.Tensor, code: torch.Tensor,
     by ``amin`` (the smallest code wins, so duplicates converge on one slot
     whatever the order), and steps the rows that neither matched nor won.
     At most :data:`MAX_PROBES` rounds.  Returns ``(tab, slot (E,) int32,
-    claimed (E,), failed (E,))``; ``slot`` is undefined where ``failed``.
-    One host synchronisation a round (the loop test): the CPU's path."""
+    claimed (E,), failed (E,))``, and the rounds run (() int32) after them
+    with ``with_rounds``; a failed row's ``slot`` is the one it would have
+    probed next.  One host synchronisation a round (the loop test): the
+    CPU's path."""
     n = tab.shape[0]
     ext = torch.cat([tab, tab.new_full((1,), EMPTY)])   # spare row n: dropped
     slot = hash_code(code, n)
@@ -93,16 +96,70 @@ def probe_insert_plain(tab: torch.Tensor, code: torch.Tensor,
         done = done | match | won
         slot = torch.where(done, slot, (slot + probe + 1) % n)
         probe += 1
-    return ext[:n], slot, claimed, active & ~done
+    out = (ext[:n], slot, claimed, active & ~done)
+    return out + (_rounds(probe, tab),) if with_rounds else out
+
+
+def _rounds(r: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), r, dtype=torch.int32, device=like.device)
+
+
+def probe_insert_two_phase(tab: torch.Tensor, code: torch.Tensor,
+                           active: torch.Tensor, with_rounds: bool = False
+                           ) -> Tuple[torch.Tensor, ...]:
+    """The schedule of ``csrc/probe_insert.cu`` as torch ops, a model held
+    against :func:`probe_insert_plain`: two phases a round.  Each row's
+    table read is taken one phase early, at the end of the round before
+    (the home slots' before round 0): phase 1 settles the rows whose read
+    found their code and claims the empty slots (``amin``); phase 2, with
+    every claim of the round landed and none of the next begun, reads the
+    pending rows' claims back and every unfinished row's next slot
+    (``slot + r + 1``) in one go, and a row that did not win steps there
+    with that read in hand.  Same contract as :func:`probe_insert_plain`."""
+    n = tab.shape[0]
+    ext = torch.cat([tab, tab.new_full((1,), EMPTY)])   # spare row n
+    slot = hash_code(code, n)
+    live = active.clone()
+    won = torch.zeros_like(active)
+    g = ext[torch.where(live, slot, n).long()]
+    match, empty = live & (g == code), live & (g == EMPTY)
+    r = 0
+    while r < MAX_PROBES and bool(live.any()):
+        # 1: match or claim
+        live = live & ~match
+        pend = live & empty
+        ext.scatter_reduce_(0, torch.where(pend, slot, n).long(), code,
+                            "amin")
+        # 2: the claims read back and the next slots read, together
+        nxt = (slot + r + 1) % n
+        back = ext[torch.where(pend, slot, n).long()]
+        g = ext[torch.where(live, nxt, n).long()]
+        w = pend & (back == code)
+        won, live = won | w, live & ~w
+        slot = torch.where(live, nxt, slot)
+        match, empty = live & (g == code), live & (g == EMPTY)
+        r += 1
+    out = (ext[:n], slot, won, live)
+    return out + (_rounds(r, tab),) if with_rounds else out
+
+
+def probe_shape() -> dict:
+    """The probe kernel's launch as the built library reports it (CUDA
+    only): blocks of its one cluster, threads a block, rows a thread keeps
+    on chip, rows on chip in all."""
+    out = (ctypes.c_int * 4)()
+    kernels.load("probe_insert", _SIG).liodom_probe_insert_shape(out)
+    return {"cluster_blocks": out[0], "threads": out[1],
+            "rows_per_thread": out[2], "rows_on_chip": out[3]}
 
 
 def probe_insert_cuda(tab: torch.Tensor, code: torch.Tensor,
-                      active: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                 torch.Tensor]:
+                      active: torch.Tensor, with_rounds: bool = False
+                      ) -> Tuple[torch.Tensor, ...]:
     """The probe rounds as one launch of ``csrc/probe_insert.cu`` on CUDA
-    tensors; same contract as :func:`probe_insert_plain`.  The input table
-    is left untouched (the kernel updates a copy)."""
+    tensors; same contract as :func:`probe_insert_plain` (the rounds are
+    the kernel's own count).  The input table is left untouched (the kernel
+    updates a copy)."""
     if not (tab.is_cuda and code.device == tab.device
             and active.device == tab.device):
         raise ValueError("probe_insert_cuda needs all tensors on one CUDA "
@@ -121,20 +178,24 @@ def probe_insert_cuda(tab: torch.Tensor, code: torch.Tensor,
     code, active = code.contiguous(), active.contiguous()
     out = tab.clone(memory_format=torch.contiguous_format)
     slot = torch.empty(e, dtype=torch.int32, device=tab.device)
-    flags = torch.empty(e, dtype=torch.uint8, device=tab.device)
+    spill = torch.empty(e, dtype=torch.uint8, device=tab.device)
     claimed = torch.empty(e, dtype=torch.bool, device=tab.device)
     failed = torch.empty(e, dtype=torch.bool, device=tab.device)
+    # the kernel writes the rounds; with no code it is not launched
+    rounds = (torch.empty if e > 0 else torch.zeros)(
+        (), dtype=torch.int32, device=tab.device)
     lib = kernels.load("probe_insert", _SIG)
     with torch.cuda.device(tab.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.liodom_probe_insert(
             out.data_ptr(), n, code.data_ptr(), active.data_ptr(), e,
-            MAX_PROBES, slot.data_ptr(), flags.data_ptr(),
-            claimed.data_ptr(), failed.data_ptr(), stream)
+            MAX_PROBES, slot.data_ptr(), spill.data_ptr(),
+            claimed.data_ptr(), failed.data_ptr(), rounds.data_ptr(), stream)
     kernels.check(err, "liodom_probe_insert")
     if e > 0:                       # no codes: the library launches nothing
         probe_insert_cuda.launches += 1
-    return out, slot, claimed, failed
+    res = (out, slot, claimed, failed)
+    return res + (rounds,) if with_rounds else res
 
 
 probe_insert_cuda.launches = 0

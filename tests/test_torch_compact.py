@@ -128,7 +128,8 @@ def test_membership_matches_jax_with_other_neighbourhoods():
     tm = convert.map_state_from_numpy([np.asarray(a) for a in jm],
                                       device="cpu")
     pos = np.asarray([5.0, -5.0, 0.0], np.float32)
-    for kw in ({"cells_xy": 1, "cells_z": 2}, {"cells_xy": 0, "cells_z": 0}):
+    for kw in ({"cells_xy": 1, "cells_z": 2}, {"cells_xy": 0, "cells_z": 0},
+               {"cells_xy": 6, "cells_z": 3}):
         jx, jv, jn = JG.get_local_map(jm, jnp.asarray(pos), jcfg,
                                       capacity=4096, **kw)
         tx, tv, tn = G.get_local_map(tm, torch.from_numpy(pos), cfg,
@@ -136,3 +137,58 @@ def test_membership_matches_jax_with_other_neighbourhoods():
         assert int(tn) == int(jn)
         np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
         np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        if kw["cells_xy"] == 6:     # above the 128 targets K7 once took
+            assert len(G.local_map_offsets(cfg, **kw)) == 174
+            assert int(tn) > 0
+
+
+@pytest.mark.parametrize("threads,rows_per_thread", [(256, 8), (32, 16),
+                                                     (8, 4)])
+def test_tiled_schedule_matches_plain_and_jax(threads, rows_per_thread):
+    """K7's count-then-place with its thread and tile offsets
+    (``compact_hits_tiled``, the kernel's schedule: the tile's offset is
+    what the look-back sums) against the plain version and JAX
+    ``get_local_map``, bit for bit, at the kernel's split (256 threads of
+    8 rows: 4 tiles of the 8,192-row map) and at smaller ones (16 and 256
+    tiles); also on a map of 10,007 rows (not a multiple of a tile), with
+    0 hits and at capacity 0."""
+    jcfg, jm = _jax_map()
+    cfg = MapConfig(voxel_xysize=20.0, voxel_zsize=25.0, map_capacity=8192)
+    tm = convert.map_state_from_numpy([np.asarray(a) for a in jm],
+                                      device="cpu")
+    pos = np.asarray([-19.9, 25.3, -3.1], np.float32)
+    base = G.cell_keys(torch.trunc(torch.from_numpy(pos)), cfg)
+    for kw in ({}, {"cells_xy": 6, "cells_z": 3}):
+        offs = G.local_map_offsets(cfg, **kw)
+        for cap in (100, 8192, 10000):
+            got = K7.compact_hits_tiled(tm.xyz, tm.key, tm.valid, base, offs,
+                                        cap, threads, rows_per_thread)
+            want = K7.compact_hits_plain(tm.xyz, tm.key, tm.valid, base,
+                                         offs, cap)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            jx, jv, jn = JG.get_local_map(jm, jnp.asarray(pos), jcfg,
+                                          capacity=cap, **kw)
+            assert int(got[2]) == int(jn) > 100
+            np.testing.assert_array_equal(got[0].numpy(), np.asarray(jx))
+            np.testing.assert_array_equal(got[1].numpy(), np.asarray(jv))
+    rng = np.random.default_rng(threads * rows_per_thread)
+    rows = 10007
+    xyz = torch.from_numpy(rng.normal(size=(rows, 3)).astype(np.float32))
+    offs = G.local_map_offsets(cfg)
+    key = np.where(rng.random((rows, 1)) < 0.6,
+                   offs[rng.integers(0, len(offs), rows)],
+                   rng.integers(-50, 50, (rows, 3)))
+    key = torch.from_numpy(key.astype(np.int32))
+    valid = torch.from_numpy(rng.random(rows) < 0.3)
+    base = torch.zeros(3, dtype=torch.int32)
+    for b, cap in ((base, 1024), (base, 0), (base + 100, 64)):
+        got = K7.compact_hits_tiled(xyz, key, valid, b, offs, cap, threads,
+                                    rows_per_thread)
+        want = K7.compact_hits_plain(xyz, key, valid, b, offs, cap)
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
+        if cap == 1024:
+            assert int(got[2]) > 1024       # a truncating cut
+        if cap == 64:
+            assert int(got[2]) == 0         # no target key in the map

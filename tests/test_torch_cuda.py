@@ -320,6 +320,15 @@ def _map_on(dev, capacity=65536, n_frames=4, seed=2):
     return mcfg, m
 
 
+def _k7_equal(m, base, offs, cap):
+    got = K7.compact_hits_cuda(m.xyz, m.key, m.valid, base, offs, cap)
+    want = K7.compact_hits_plain(m.xyz, m.key, m.valid, base, offs, cap)
+    assert int(got[2]) == int(want[2])
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    return int(got[2])
+
+
 def test_local_map_compact_kernel_bit_exact(dev):
     mcfg, m = _map_on(dev)
     offs = G.local_map_offsets(mcfg)
@@ -327,16 +336,53 @@ def test_local_map_compact_kernel_bit_exact(dev):
         base = G.cell_keys(torch.trunc(torch.tensor(position, device=dev)),
                            mcfg)
         for cap in (16, 4096, 16384, 70000):
-            got = K7.compact_hits_cuda(m.xyz, m.key, m.valid, base, offs, cap)
-            want = K7.compact_hits_plain(m.xyz, m.key, m.valid, base, offs,
-                                         cap)
-            assert int(got[2]) == int(want[2])
-            assert torch.equal(got[0], want[0])
-            assert torch.equal(got[1], want[1])
+            _k7_equal(m, base, offs, cap)
     n_hits = int(K7.compact_hits_cuda(m.xyz, m.key, m.valid,
                                       G.cell_keys(torch.zeros(3, device=dev),
                                                   mcfg), offs, 16)[2])
     assert n_hits > 1000
+
+
+def test_local_map_compact_kernel_any_neighbourhood(dev):
+    """K7 past the 128 targets it once took (cells_xy=6, cells_z=3: 174),
+    on a map whose rows are not a multiple of a chunk, with no hit, at
+    capacity 0 and at a truncating capacity; above its shared memory the
+    wrapper refuses."""
+    mcfg, m = _map_on(dev, capacity=131072)
+    base = G.cell_keys(torch.zeros(3, device=dev), mcfg)
+    offs = G.local_map_offsets(mcfg, cells_xy=6, cells_z=3)
+    assert len(offs) == 174
+    assert _k7_equal(m, base, offs, 16384) > 1024
+    assert _k7_equal(m, base, offs, 1024) > 1024
+    assert _k7_equal(m, base, offs, 0) > 0
+    far = G.cell_keys(torch.tensor([9000.0, 0.0, 0.0], device=dev), mcfg)
+    assert _k7_equal(m, far, offs, 1024) == 0
+    rows = 100_003                  # not a multiple of 16 or of a chunk
+    pick = torch.from_numpy(np.sort(np.random.default_rng(9).choice(
+        m.xyz.shape[0], rows, replace=False))).to(dev)
+    sub = G.MapState(m.xyz[pick], m.key[pick], m.valid[pick], m.overflow,
+                     m.code[pick])
+    empty = G.init_map(rows, device=dev)
+    for kw in ({}, {"cells_xy": 6, "cells_z": 3}):
+        o = G.local_map_offsets(mcfg, **kw)
+        assert _k7_equal(sub, base, o, 16384) > 0
+        assert _k7_equal(sub, base, o, 1024) > 1024
+        assert _k7_equal(empty, base, o, 1024) == 0
+    with pytest.raises(ValueError, match=f"at most {K7.MAX_TARGETS}"):
+        K7.compact_hits_cuda(m.xyz, m.key, m.valid, base,
+                             np.zeros((K7.MAX_TARGETS + 1, 3), np.int32), 16)
+    wide = np.zeros((K7.MAX_TARGETS, 3), np.int32)   # the most it takes
+    wide[:len(offs)] = offs
+    head = G.MapState(*(t[:4096] if t.ndim else t for t in m))
+    assert _k7_equal(head, base, wide, 16384) > 0
+
+
+def _probe_equal(tab, code, active):
+    got = PI.probe_insert_cuda(tab, code, active, with_rounds=True)
+    want = PI.probe_insert_plain(tab, code, active, with_rounds=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    return got
 
 
 def test_probe_insert_kernel_bit_exact(dev):
@@ -350,12 +396,36 @@ def test_probe_insert_kernel_bit_exact(dev):
         pts[: e // 4] = pts[e // 4: e // 2]         # duplicate codes
         active = torch.from_numpy(rng.random(e) > 0.1).to(dev)
         code = G._packed_codes(pts, active, mcfg)
-        got = PI.probe_insert_cuda(tab, code, active)
-        want = PI.probe_insert_plain(tab, code, active)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
+        got = _probe_equal(tab, code, active)
         if n_tab == 256:
             assert bool(got[3].any())          # exhausted _MAX_PROBES
+            assert int(got[4]) == PI.MAX_PROBES
+
+
+def test_probe_insert_kernel_edge_cases(dev):
+    """One row; no active row (no round runs); rows past what the cluster
+    keeps on chip (70,000), and 20,000 of them into a 256-slot table they
+    exhaust."""
+    mcfg, m = _map_on(dev)
+    rng = np.random.default_rng(6)
+    n = 70_000
+    assert n > PI.probe_shape()["rows_on_chip"]
+    pts = torch.from_numpy((rng.normal(size=(n, 3)) * 60)
+                           .astype(np.float32)).to(dev)
+    pts[:20000] = pts[20000:40000]                   # duplicate codes
+    active = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    code = G._packed_codes(pts, active, mcfg)
+    got = _probe_equal(m.code, code[:1],
+                       torch.ones(1, dtype=torch.bool, device=dev))
+    assert int(got[4]) >= 1
+    got = _probe_equal(m.code, code[:3000],
+                       torch.zeros(3000, dtype=torch.bool, device=dev))
+    assert int(got[4]) == 0 and torch.equal(got[0], m.code)
+    got = _probe_equal(m.code, code, active)
+    assert int(got[2].sum()) > 1000 and int(got[4]) > 1
+    small = torch.full((256,), G.EMPTY, dtype=torch.int64, device=dev)
+    got = _probe_equal(small, code[:20000], active[:20000])
+    assert bool(got[3].any()) and int(got[4]) == PI.MAX_PROBES
 
 
 def test_combined_step_on_the_card_matches_the_cpu_path(dev):

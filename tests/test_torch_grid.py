@@ -133,6 +133,37 @@ def test_probe_insert_slot_for_slot(case):
         assert int(failed.sum()) > 0 and int((tab == G.EMPTY).sum()) == 0
 
 
+@pytest.mark.parametrize("case", [
+    (0, 4096, 3000, 1500, 500),     # duplicates and collisions, no failures
+    (1, 128, 600, 400, 40),         # more codes than slots: forced failures
+    (2, 256, 800, 300, 256),        # a full table: a row matches or fails
+])
+def test_probe_two_phase_model_slot_for_slot(case):
+    """The kernel's schedule (reads one phase early, read-back and next
+    slot together) against the plain rounds and JAX: table, every row's
+    slot, claimed, failed and the rounds run, bit for bit."""
+    tab1, tab2, k1, k2, active = _probe_case(*case)
+    args = (torch.from_numpy(jax_code(tab1, tab2)),
+            torch.from_numpy(jax_code(k1, k2)), torch.from_numpy(active))
+    got = PI.probe_insert_two_phase(*args, with_rounds=True)
+    want = PI.probe_insert_plain(*args, with_rounds=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    jt1, jt2, jslot, jclaimed, jfailed = JG._probe_insert(
+        jnp.asarray(tab1), jnp.asarray(tab2), jnp.asarray(k1),
+        jnp.asarray(k2), jnp.asarray(active))
+    tab, slot, claimed, failed, rounds = got
+    np.testing.assert_array_equal(tab.numpy(), jax_code(jt1, jt2))
+    np.testing.assert_array_equal(claimed.numpy(), np.asarray(jclaimed))
+    np.testing.assert_array_equal(failed.numpy(), np.asarray(jfailed))
+    home = active & ~np.asarray(jfailed)
+    np.testing.assert_array_equal(slot.numpy()[home], np.asarray(jslot)[home])
+    assert 1 < int(rounds) <= PI.MAX_PROBES
+    if case[4] == case[1]:          # full: nothing claimed, the rest fails
+        assert not bool(claimed.any()) and bool(failed.any())
+        assert int(rounds) == PI.MAX_PROBES
+
+
 def _frames(seed, n_frames=5, e=1500):
     """Edge-like frames: clustered points (many sharing a leaf) with some
     padding rows, and a moving pose."""

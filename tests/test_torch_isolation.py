@@ -256,6 +256,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         K7.compact_hits_cuda(m.xyz, m.key, m.valid,
                              torch.zeros(3, dtype=torch.int32),
                              np.zeros((27, 3), np.int32), 16)
+    with pytest.raises(ValueError, match=f"at most {K7.MAX_TARGETS} target"):
+        K7.compact_hits_cuda(m.xyz, m.key, m.valid,
+                             torch.zeros(3, dtype=torch.int32),
+                             np.zeros((K7.MAX_TARGETS + 1, 3), np.int32), 16)
     with pytest.raises(ValueError):
         PI.probe_insert_cuda(m.code, m.code[:8],
                             torch.ones(8, dtype=torch.bool))
