@@ -34,7 +34,32 @@ Phases, each printing one JSON line:
    0.1 % (the float pose transform may round a point that lies exactly on
    a leaf boundary of the noise-free world into a different leaf on each
    device).
-6. batch_path — 36 frames of ``batch_image_step`` at B = 4 over 4 distinct
+6. raw_path — the raw-scan front end on phase 2's raw scans, which
+   ``RawScan.from_points`` put on the card, counters set to 0 just before
+   and read just after each drive, no host synchronisation in any:
+   ``full_step`` (``lidar_type`` 0, 36 frames): K1 and K2 once a frame, K3
+   twice, poses ``torch.equal`` to phase 2's ``image_step`` (fed the card's
+   own ``split_scan`` of the same scans), equal edge counts, ATE over 20
+   frames below 0.1 m; ``combined_step`` (36 frames, the local map
+   refreshed every frame): K1, K2, K7 and the probe once a frame, K3
+   twice, overflow 0, no local map truncated, ATE below 0.1 m, and each
+   frame's pose ``torch.equal`` to phase 4's when started from phase 4's
+   state before that frame (the map's centroid sums land in a varying
+   order on the card, so the free-running drive is held to phase 4 at 1 cm
+   and 1e-3 rad over the first 20 frames, as the sharded and lines drives
+   are, and its equal frames are counted); the Ouster path
+   (``liodom_tpu/core/presets.py:ouster_preset(128)``: 128 rings, a
+   15-frame window, ring width 4,096), ``full_step`` fed 128 x 2,048
+   organised clouds that the port's ``organized_from_unorganized`` makes
+   from the same spins: launches 36/36/72, every pose finite, ATE over 20
+   frames below 0.1 m, its first 6 frames within 1 cm and 1e-3 rad of the
+   port's CPU path with equal edge counts.
+7. filtered_path — ``image_step`` with ``filter_local_map=True`` (the
+   window voxel-filtered at 0.4 m once full, chosen on the device) over
+   phase 2's images: launches 36/36/72, ATE over 20 frames below 0.1 m, no
+   host synchronisation, its first 6 frames within 1 cm and 1e-3 rad of
+   the CPU path with equal edge counts.
+8. batch_path — 36 frames of ``batch_image_step`` at B = 4 over 4 distinct
    noise-free drives (lane s: ``BoxWorld(seed=s)``, 0.01 (s + 1)
    rad/frame; lane 0 is the drive above), counters set to 0 just before and
    read just after: K1 and K2 once a frame on the folded rings, K4 twice,
@@ -49,16 +74,16 @@ Phases, each printing one JSON line:
    then
    ``batch_cpu_parity``: lanes 0-1, 3 frames through the CPU path, within
    1 cm and 1e-3 rad with equal edge counts.
-7. chained_path — the drive of phase 2 through ``chained_image_step`` in
+9. chained_path — the drive of phase 2 through ``chained_image_step`` in
    chunks of 12 frames (``bench.py:147``), and again with ``use_imu=True``
    and the drive's per-frame orientation as IMU quaternions: poses within
    1e-6 m of the per-frame loop's (phase 2's poses, and a ``set_imu`` then
    ``image_step`` loop), launches 36/36/72, no host synchronisation.
-8. lines_path — phases 2 and 4 again under ``LIODOM_KNN_IMPL=pallas_lines``:
+10. lines_path — phases 2 and 4 again under ``LIODOM_KNN_IMPL=pallas_lines``:
    K6 twice a frame and K3 never, ATE over 20 frames below 0.1 m, poses
    within 1 cm and 1e-3 rad of the ``pallas_coords`` runs over those 20
    frames (every frame's gap printed), no host synchronisation.
-9. sharded_path — the parallel layer on a one-rank NCCL mesh (data 1 x
+11. sharded_path — the parallel layer on a one-rank NCCL mesh (data 1 x
    map 1; a process group on a free local port, its communicators created
    before any drive): 36 frames of ``make_sharded_combined_image_step`` at
    the combined configuration, counters set to 0 just before and read just
@@ -66,27 +91,34 @@ Phases, each printing one JSON line:
    and K6 never; ATE over 20 frames below 0.1 m, within 1 cm and 1e-3 rad
    of phase 4's ``combined_image_step`` over those 20 frames (every
    frame's gap printed), equal edge counts, overflow 0, no host
-   synchronisation.  Then ``make_sharded_step`` on phase 6's 4 lanes as one
+   synchronisation.  Then ``make_sharded_step`` on phase 8's 4 lanes as one
    local batch, fed ``select_edges``' edges (taken before the counters
    are reset): K5 twice a frame and nothing else, each lane within 1 cm and
    1e-3 rad of its solo ``image_step`` over 20 frames; then
    ``make_sharded_combined_step`` on lane 0's edges for 20 frames against
    ``combined_image_step`` on the same bar; then ``launch.smoke`` and
    ``launch.combined_smoke`` on the same mesh.
-10. sharded_cpu_parity — the flagship's first 6 frames on the CPU in a
+12. sharded_cpu_parity — the flagship's first 6 frames on the CPU in a
    one-rank gloo group (a subprocess: ``--sharded-cpu``): within 1 cm and
    1e-3 rad of the card, equal edge counts.
-11. timing — the bench drive of ``bench.py`` (the same course with 1 cm
+13. timing — the bench drive of ``bench.py`` (the same course with 1 cm
    sensor noise): steady-state ms/frame and scans/s by CUDA events after 6
    warm-up frames, for ``image_step``, for ``combined_image_step`` at the
    bench's two cadences (every frame, and every 4th frame), for
    ``batch_image_step`` at B = 4 and 8 (``bench.py:401``; lanes as in phase
-   6, with noise: ms a batched frame and aggregate scans/s), for
-   ``chained_image_step`` (chunks of 12) and for the sharded flagship at
-   mesh 1 x 1, each drive twice in turns; every run at most 125 ms a frame
-   for each lane (0.8 x the 10 Hz sensor rate).
-12. kernels — each kernel against its plain PyTorch version on the card, on
-   the bench drive's last frame, window, map and pose: K1 bit-exact, K2
+   8, with noise: ms a batched frame and aggregate scans/s), for
+   ``chained_image_step`` (chunks of 12), for the sharded flagship at
+   mesh 1 x 1, for ``full_step`` on the raw scans and for the filtered
+   ``image_step``, each drive twice in turns; every run at most 125 ms a
+   frame for each lane (0.8 x the 10 Hz sensor rate).
+14. kernels — each kernel against its plain PyTorch version on the card, on
+   the bench drive's last frame, window, map and pose: K1 bit-exact there
+   and at every shape the port launches it with (``smoothness_cases``: the
+   folded B = 4 and 8 rings, the Ouster path's 128 rings, a width of
+   1,801, counts 0, <= 10 and the full width, one full ring, an unaligned
+   tensor), timed at each beside two byte bounds (the whole image, and
+   only the columns below each ring's count); the voxel filter's device
+   time on a full 5- and 15-frame window; K2
    bit-exact edges for the same smoothness plane (also at 8 x 21 = 168
    slots a ring, above the JAX kernel's 128, with the kernel's cluster,
    list length and shared memory and the walk's dependent steps, a
@@ -122,7 +154,7 @@ Phases, each printing one JSON line:
    inputs (K6's gate as above), with ptxas registers and spills at k = 5
    and 8; then each kernel's time beside its plain version's and its
    bound.
-13. profile — torch.profiler over 5 frames of the bench drive, for
+15. profile — torch.profiler over 5 frames of the bench drive, for
    ``image_step``, ``combined_image_step``, ``batch_image_step`` at B = 4
    and 8 and the sharded flagship: device busy time and share, device
    kernels a frame, the largest kernels by time, and the host's operators
@@ -162,6 +194,7 @@ from liodom_tpu_torch import kernels
 from liodom_tpu_torch.core import pose as se3
 from liodom_tpu_torch.core.config import LiodomConfig, MapConfig
 from liodom_tpu_torch.core.frame import RawScan, RingImage
+from liodom_tpu_torch.core.organize import organized_from_unorganized
 from liodom_tpu_torch.core.synth import (BoxWorld, drive_trajectory,
                                          tie_scene, yaw_matrix)
 from liodom_tpu_torch.mapping import grid as G
@@ -175,6 +208,7 @@ from liodom_tpu_torch.ops import neighbors as NB
 from liodom_tpu_torch.ops import probe_insert as PI
 from liodom_tpu_torch.ops import select_pallas as SEL
 from liodom_tpu_torch.ops import smoothness_pallas as SM
+from liodom_tpu_torch.ops import voxel as V
 from liodom_tpu_torch.parallel import combined as CB
 from liodom_tpu_torch.parallel import launch as LA
 from liodom_tpu_torch.parallel.mesh import make_mesh
@@ -206,6 +240,11 @@ WALK_STEP_S = 30 / 1.98e9
 L2_TRIP_S = 145e-9
 # bench.py's combined configuration (bench.py:91)
 MCFG = MapConfig(map_capacity=524288, local_map_capacity=16384)
+# the Ouster launch configuration, liodom_tpu/core/presets.py:ouster_preset
+# at 128 rings (launch/liodom_ouster.launch:19-33), and its organised width
+OUSTER_CFG = LiodomConfig(lidar_type=1, scan_lines=128, scan_regions=8,
+                          edges_per_region=10, local_map_size=15)
+OUSTER_COLS = 2048
 
 
 def emit(obj) -> None:
@@ -433,13 +472,16 @@ def quat_angle(qa: np.ndarray, qb: np.ndarray) -> float:
     return 2.0 * math.atan2(float(np.linalg.norm(v)), abs(w))
 
 
-def render_lanes(cfg: LiodomConfig, dev: torch.device, lanes, noise: float):
+def render_lanes(cfg: LiodomConfig, dev: torch.device, lanes, noise: float,
+                 keep_raw=()):
     """Ring images of the lanes' drives: lane s is ``BoxWorld(seed=s)``
     driven at 1.2 m/frame and 0.01 (s + 1) rad/frame yaw (lane 0 is the
     drive of ``apps/run_synthetic.py`` and ``bench.py``), an 1800-column
-    HDL-64 spin rendered in threads (noise seed 1000 s + frame) and split on
-    the card by the port's loader stage; no point may be dropped by the
-    ring width.  Returns {lane: (images, positions, yaws)}."""
+    HDL-64 spin rendered in threads (noise seed 1000 s + frame), put on the
+    card by ``RawScan.from_points`` and split there by the port's loader
+    stage; no point may be dropped by the ring width.  Returns {lane:
+    (images, positions, yaws, raw scans, spins)}, the raw scans (on the
+    card) and the spins (numpy) for the lanes in ``keep_raw`` only."""
     drives = {s: drive_trajectory(N_FRAMES, speed=1.2,
                                   yaw_rate=0.01 * (s + 1)) for s in lanes}
     worlds = {s: BoxWorld(seed=s) for s in lanes}
@@ -454,6 +496,8 @@ def render_lanes(cfg: LiodomConfig, dev: torch.device, lanes, noise: float):
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
         scans = list(ex.map(render, jobs))
     imgs = {s: [] for s in lanes}
+    raws = {s: [] for s in lanes}
+    spins = {s: [] for s in lanes}
     for (s, i), scan in zip(jobs, scans):
         raw = RawScan.from_points(torch.from_numpy(scan), cfg.max_points,
                                   device=dev)
@@ -462,7 +506,10 @@ def render_lanes(cfg: LiodomConfig, dev: torch.device, lanes, noise: float):
             raise SystemExit(f"lane {s} frame {i}: ring width "
                              f"{cfg.ring_width} dropped {dropped} points")
         imgs[s].append(F.split_scan(raw, cfg))
-    return {s: (imgs[s],) + drives[s] for s in lanes}
+        if s in keep_raw:
+            raws[s].append(raw)
+            spins[s].append(scan)
+    return {s: (imgs[s],) + drives[s] + (raws[s], spins[s]) for s in lanes}
 
 
 def stack_lanes(per_lane):
@@ -507,6 +554,91 @@ def run_combined(odom, m, imgs, cfg, every_frame: bool = True,
         poses.append(pose)
         n_edges.append(ne)
     return states, poses, n_edges
+
+
+def run_full(state, scans, cfg, keep: bool = True):
+    """Drive ``full_step`` over raw scans (``RawScan``s, or organised
+    clouds with ``cfg.lidar_type`` 1); as :func:`run_course`."""
+    states, poses, n_edges = [], [], []
+    for sc in scans:
+        if isinstance(sc, RawScan):
+            xyz, valid = sc
+        else:
+            xyz, valid = sc, torch.zeros(1, dtype=torch.bool,
+                                         device=sc.device)
+        state, pose, ne = P.full_step(state, xyz, valid, cfg)
+        states = (states if keep else []) + [state]
+        poses.append(pose)
+        n_edges.append(ne)
+    return states, poses, n_edges
+
+
+def run_combined_raw(odom, m, raws, cfg, keep: bool = True):
+    """Drive ``combined_step`` over raw scans, the local map refreshed
+    every frame; as :func:`run_combined`."""
+    states, poses, n_edges = [], [], []
+    for raw in raws:
+        odom, m, pose, ne = S.combined_step(odom, m, raw.xyz, raw.valid, cfg,
+                                            MCFG, step=0, local_map_every=4)
+        states = (states if keep else []) + [(odom, m)]
+        poses.append(pose)
+        n_edges.append(ne)
+    return states, poses, n_edges
+
+
+def same_poses(a, b) -> list:
+    """Per frame, whether two pose sequences are bit for bit equal."""
+    return [torch.equal(x.q, y.q) and torch.equal(x.t, y.t)
+            for x, y in zip(a, b)]
+
+
+def smoothness_cases(bench_img, folded4, folded8, ouster_img, dev):
+    """K1's inputs at every shape the port launches it with, beside the
+    bench frame: the folded batches (B = 4 and 8: 256 and 512 rings), the
+    Ouster path's 128 rings, a width of 1,801 (not a multiple of 4: the
+    kernel's scalar path), counts of 0, <= 10 and the full width, one full
+    ring with the rest empty, and the bench frame 4 bytes off 16-byte
+    alignment.  Returns {name: (xyz, count)}, all on the card."""
+    g = torch.Generator().manual_seed(11)
+    w = bench_img.xyz.shape[1]
+
+    def rand(r, width, counts):
+        xyz = torch.randn((r, width, 3), generator=g) * 5.0
+        return (xyz.to(dev), torch.tensor(counts, dtype=torch.int32,
+                                          device=dev))
+
+    def fold(img):
+        b, r = img.count.shape
+        return img.xyz.reshape(b * r, w, 3), img.count.reshape(b * r)
+
+    edge = [0, 3, 10, 11, w] + torch.randint(0, w + 1, (59,),
+                                             generator=g).tolist()
+    odd = [1801, 0, 10, 11] + torch.randint(0, 1802, (60,),
+                                            generator=g).tolist()
+    spare = torch.empty(bench_img.xyz.numel() + 1, device=dev)
+    shifted = spare[1:].view(bench_img.xyz.shape)
+    shifted.copy_(bench_img.xyz)
+    return {"bench_64x4096": (bench_img.xyz, bench_img.count),
+            "folded_256x4096": fold(folded4),
+            "folded_512x4096": fold(folded8),
+            "ouster_128x4096": (ouster_img.xyz, ouster_img.count),
+            "width_1801": rand(64, 1801, odd),
+            "edge_counts": rand(64, w, edge),
+            "one_full_ring": rand(64, w, [w] + [0] * 63),
+            "unaligned": (shifted, bench_img.count)}
+
+
+def smoothness_bounds(xyz, count):
+    """K1's two byte bounds in ms: the whole image, the counts and the
+    output plane (every input byte once), and only what the output needs:
+    the columns below each ring's count, the counts and the plane."""
+    r, w = xyz.shape[:2]
+    interior = int(torch.clamp(count - 10, min=0).sum())
+    whole = bound(xyz.numel() * 4 + r * 4 + r * w * 4,
+                  interior * (3 * 12 + 5))
+    needed = bound(int(torch.clamp(count, max=w).sum()) * 12 + r * 4
+                   + r * w * 4, interior * (3 * 12 + 5))
+    return whole, needed
 
 
 def run_chained(state, imgs, cfg, keep: bool = True, quats=None):
@@ -697,10 +829,11 @@ def main() -> int:
     # ---- 2. main path: the accuracy drive -------------------------------
     cfg = LiodomConfig(local_map_size=5)
     t0 = time.perf_counter()
-    acc = render_lanes(cfg, dev, range(LANES), noise=0.0)
-    bench = render_lanes(cfg, dev, range(max(TIMED_BATCHES)), noise=0.01)
+    acc = render_lanes(cfg, dev, range(LANES), noise=0.0, keep_raw=(0,))
+    bench = render_lanes(cfg, dev, range(max(TIMED_BATCHES)), noise=0.01,
+                         keep_raw=(0,))
     render_s = time.perf_counter() - t0
-    imgs, gt_pos, gt_yaw = acc[0]
+    imgs, gt_pos, gt_yaw, raws, spins = acc[0]
 
     state = P.init_state(cfg)
     torch.cuda.synchronize()
@@ -812,7 +945,164 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     del c_states
 
-    # ---- 6. batch_image_step over distinct drives -------------------------
+    # ---- 6. the raw-scan front end: full_step, combined_step, Ouster ------
+    t0 = time.perf_counter()
+    raw_path = {}
+    torch.cuda.synchronize()
+    reset_counters()
+    (_, fposes, fedges), fsyncs = sync_free(
+        lambda: run_full(P.init_state(cfg), raws, cfg, keep=False))
+    fcounts = read_counters()
+    ft, fq, ferr, fate = drive_error(fposes, gt_pos)
+    f_same = same_poses(fposes, poses)
+    f_same_edges = torch.equal(torch.stack(fedges), torch.stack(n_edges))
+    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
+                    knn_coords=2 * N_FRAMES)
+    check(fcounts == want, f"full_step launch counts {fcounts} != {want}")
+    check(all(f_same), f"full_step vs image_step: poses differ at frames "
+          f"{[i for i, ok in enumerate(f_same) if not ok]}")
+    check(f_same_edges, "full_step vs image_step: different edge counts")
+    check(fate < 0.1, f"full_step ATE over {N_ATE} frames {fate:.4f} m")
+    check(not fsyncs, f"{len(fsyncs)} host synchronisations in full_step: "
+          f"{fsyncs[:1]}")
+    raw_path["full_step"] = {
+        "launches": fcounts, f"ate_m_first_{N_ATE}": fate,
+        "poses_equal_to_image_step": sum(f_same),
+        "same_n_edges": f_same_edges, "host_syncs": len(fsyncs)}
+
+    torch.cuda.synchronize()
+    reset_counters()
+    (rc_states, rc_poses, rc_edges), rcsyncs = sync_free(
+        lambda: run_combined_raw(*S.init_combined(ccfg, MCFG), raws, ccfg))
+    rccounts = read_counters()
+    rct, rcq, rcerr, rcate = drive_error(rc_poses, gt_pos)
+    rc_overflow = int(rc_states[-1][1].overflow)
+    rc_hits = [int(G.get_local_map(m, p.t, MCFG,
+                                   capacity=MCFG.local_map_capacity)[2])
+               for (_, m), p in zip(rc_states, rc_poses)]
+    del rc_states
+    rc_dt, rc_dr = pose_gaps(rct, rcq, ct, cq)
+    rc_gap = (float(rc_dt[:N_ATE].max()), float(rc_dr[:N_ATE].max()))
+    rc_free_same = same_poses(rc_poses, cposes_k)
+    # each frame from phase 4's state before it: the same pose, bit for bit
+    rc_step_same = []
+    prev = S.init_combined(ccfg, MCFG)
+    for i, raw in enumerate(raws):
+        _, _, p_i, ne_i = S.combined_step(*prev, raw.xyz, raw.valid, ccfg,
+                                          MCFG, step=0, local_map_every=4)
+        rc_step_same.append(same_poses([p_i], [cposes_k[i]])[0]
+                            and int(ne_i) == int(cne[i]))
+        prev = cstates[i]
+    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
+                    knn_coords=2 * N_FRAMES, local_map_compact=N_FRAMES,
+                    probe_insert=N_FRAMES)
+    check(rccounts == want, f"combined_step launch counts {rccounts} != "
+          f"{want}")
+    check(all(rc_step_same), f"combined_step vs combined_image_step from "
+          f"the same state: poses differ at frames "
+          f"{[i for i, ok in enumerate(rc_step_same) if not ok]}")
+    check(rc_gap[0] < 0.01 and rc_gap[1] < 1e-3, f"combined_step vs "
+          f"combined_image_step, free-running, over {N_ATE} frames: "
+          f"{rc_gap}")
+    check(rcate < 0.1, f"combined_step ATE over {N_ATE} frames "
+          f"{rcate:.4f} m")
+    check(rc_overflow == 0, f"combined_step: {rc_overflow} points dropped")
+    check(max(rc_hits) <= MCFG.local_map_capacity,
+          f"combined_step: local map truncated ({max(rc_hits)} hits)")
+    check(not rcsyncs, f"{len(rcsyncs)} host synchronisations in "
+          f"combined_step: {rcsyncs[:1]}")
+    raw_path["combined_step"] = {
+        "launches": rccounts, f"ate_m_first_{N_ATE}": rcate,
+        "poses_equal_from_phase_4_states": sum(rc_step_same),
+        "free_running_poses_equal": sum(rc_free_same),
+        f"free_running_max_dt_m_drot_rad_first_{N_ATE}": rc_gap,
+        "free_running_dt_m_per_frame": rc_dt.tolist(),
+        "free_running_drot_rad_per_frame": rc_dr.tolist(),
+        "overflow": rc_overflow, "n_hits_max": max(rc_hits),
+        "host_syncs": len(rcsyncs)}
+
+    clouds = [torch.from_numpy(organized_from_unorganized(
+        sp, OUSTER_CFG.scan_lines, OUSTER_COLS)).to(dev) for sp in spins]
+    torch.cuda.synchronize()
+    reset_counters()
+    (_, oposes, oedges), osyncs = sync_free(
+        lambda: run_full(P.init_state(OUSTER_CFG), clouds, OUSTER_CFG,
+                         keep=False))
+    ocounts = read_counters()
+    ot, oq, oerr, oate = drive_error(oposes, gt_pos)
+    one = torch.stack(oedges).cpu().numpy()
+    _, ocposes, ocedges = run_full(
+        P.init_state(OUSTER_CFG, device="cpu"),
+        [c.cpu() for c in clouds[:N_CPU_FRAMES]], OUSTER_CFG)
+    o_gap = pose_gap(torch.stack([p.t for p in ocposes]).numpy(),
+                     torch.stack([p.q for p in ocposes]).numpy(),
+                     ot[:N_CPU_FRAMES], oq[:N_CPU_FRAMES])
+    o_same_edges = [int(c) for c in ocedges] == one[:N_CPU_FRAMES].tolist()
+    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
+                    knn_coords=2 * N_FRAMES)
+    check(ocounts == want, f"Ouster full_step launch counts {ocounts} != "
+          f"{want}")
+    check(bool(np.isfinite(oq).all() and np.isfinite(ot).all()),
+          "Ouster: non-finite pose")
+    check(oate < 0.1, f"Ouster ATE over {N_ATE} frames {oate:.4f} m >= 0.1")
+    check(o_gap[0] < 0.01 and o_gap[1] < 1e-3,
+          f"Ouster card vs CPU path: {o_gap}")
+    check(o_same_edges, "Ouster: card and CPU path picked different edge "
+          "counts")
+    check(not osyncs, f"{len(osyncs)} host synchronisations in the Ouster "
+          f"path: {osyncs[:1]}")
+    raw_path["ouster"] = {
+        "rings": OUSTER_CFG.scan_lines, "organised_cols": OUSTER_COLS,
+        "ring_width": OUSTER_CFG.ring_width,
+        "window_frames": OUSTER_CFG.local_map_size, "launches": ocounts,
+        f"ate_m_first_{N_ATE}": oate,
+        "ate_m_all": float(np.sqrt(np.mean(oerr ** 2))),
+        "err_m_per_frame": oerr.tolist(),
+        "n_edges_min": int(one.min()), "n_edges_max": int(one.max()),
+        f"cpu_parity_max_dt_m_drot_rad_first_{N_CPU_FRAMES}": o_gap,
+        "cpu_parity_same_n_edges": o_same_edges, "host_syncs": len(osyncs)}
+    emit({"phase": "raw_path", "frames": N_FRAMES, "noise_m": 0.0,
+          **raw_path, "seconds": time.perf_counter() - t0})
+
+    # ---- 7. the voxel-filtered matching map -------------------------------
+    t0 = time.perf_counter()
+    vcfg = cfg.replace(filter_local_map=True)
+    torch.cuda.synchronize()
+    reset_counters()
+    (_, vposes, vedges), vsyncs = sync_free(
+        lambda: run_course(P.init_state(vcfg), imgs, vcfg, keep=False))
+    vcounts = read_counters()
+    vt, vq, verr, vate = drive_error(vposes, gt_pos)
+    vne = torch.stack(vedges).cpu().numpy()
+    _, vcposes, vcedges = run_course(P.init_state(vcfg, device="cpu"),
+                                     cpu_imgs, vcfg)
+    v_gap = pose_gap(torch.stack([p.t for p in vcposes]).numpy(),
+                     torch.stack([p.q for p in vcposes]).numpy(),
+                     vt[:N_CPU_FRAMES], vq[:N_CPU_FRAMES])
+    v_same_edges = [int(c) for c in vcedges] == vne[:N_CPU_FRAMES].tolist()
+    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
+                    knn_coords=2 * N_FRAMES)
+    check(vcounts == want, f"filtered launch counts {vcounts} != {want}")
+    check(bool(np.isfinite(vq).all() and np.isfinite(vt).all()),
+          "filtered: non-finite pose")
+    check(vate < 0.1, f"filtered ATE over {N_ATE} frames {vate:.4f} m")
+    check(v_gap[0] < 0.01 and v_gap[1] < 1e-3,
+          f"filtered card vs CPU path: {v_gap}")
+    check(v_same_edges, "filtered: card and CPU path picked different edge "
+          "counts")
+    check(not vsyncs, f"{len(vsyncs)} host synchronisations in the filtered "
+          f"path: {vsyncs[:1]}")
+    emit({"phase": "filtered_path", "frames": N_FRAMES, "noise_m": 0.0,
+          "leaf_m": vcfg.local_map_voxel, "launches": vcounts,
+          f"ate_m_first_{N_ATE}": vate,
+          "ate_m_all": float(np.sqrt(np.mean(verr ** 2))),
+          "err_m_per_frame": verr.tolist(),
+          f"cpu_parity_max_dt_m_drot_rad_first_{N_CPU_FRAMES}": v_gap,
+          "cpu_parity_same_n_edges": v_same_edges,
+          "n_edges_min": int(vne.min()), "host_syncs": len(vsyncs),
+          "seconds": time.perf_counter() - t0})
+
+    # ---- 8. batch_image_step over distinct drives -------------------------
     lane_imgs = stack_lanes([acc[s][0] for s in range(LANES)])
     lane_gt = np.stack([acc[s][1] for s in range(LANES)], axis=1)  # (F, B, 3)
     bst0 = init_batch_state(cfg, LANES)
@@ -889,7 +1179,7 @@ def main() -> int:
           "batch": n_cpu_lanes, "max_dt_m": bgap[0], "max_drot_rad": bgap[1],
           "same_n_edges": b_same, "seconds": time.perf_counter() - t0})
 
-    # ---- 7. chained_image_step, with and without the IMU ------------------
+    # ---- 9. chained_image_step, with and without the IMU ------------------
     chained = {}
     cfg_imu = cfg.replace(use_imu=True)
     half = torch.tensor(gt_yaw / 2.0, dtype=torch.float32, device=dev)
@@ -923,7 +1213,7 @@ def main() -> int:
     emit({"phase": "chained_path", "frames": N_FRAMES, "chunk": CHUNK,
           **chained})
 
-    # ---- 8. the lines-kNN configuration (K6) ------------------------------
+    # ---- 10. the lines-kNN configuration (K6) ------------------------------
     os.environ["LIODOM_KNN_IMPL"] = "pallas_lines"
     lines = {}
     for name, run, ref_t, ref_q in (
@@ -962,7 +1252,7 @@ def main() -> int:
     os.environ["LIODOM_KNN_IMPL"] = "pallas_coords"
     emit({"phase": "lines_path", "frames": N_FRAMES, **lines})
 
-    # ---- 9. the parallel layer on a one-rank NCCL mesh ---------------------
+    # ---- 11. the parallel layer on a one-rank NCCL mesh ---------------------
     LA.initialize(f"127.0.0.1:{free_port()}", 1, 0)
     mesh = make_mesh(1, 1)
     # the first collective of each group creates its communicator, which
@@ -1076,7 +1366,7 @@ def main() -> int:
     emit({"phase": "sharded_path", "frames": N_FRAMES, "mesh": [1, 1],
           "backend": dist.get_backend(), **sharded})
 
-    # ---- 10. the flagship's CPU route, a one-rank gloo group -------------
+    # ---- 12. the flagship's CPU route, a one-rank gloo group -------------
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         np.savez(Path(tmp) / "imgs.npz",
@@ -1096,7 +1386,7 @@ def main() -> int:
           "backend": "gloo", "max_dt_m": sc_gap[0], "max_drot_rad": sc_gap[1],
           "same_n_edges": sc_same, "seconds": time.perf_counter() - t0})
 
-    # ---- 11. the bench drive: steady-state time a frame -------------------
+    # ---- 13. the bench drive: steady-state time a frame -------------------
     bimgs = bench[0][0]
     bench_b = {b: stack_lanes([bench[s][0] for s in range(b)])
                for b in TIMED_BATCHES}
@@ -1117,6 +1407,12 @@ def main() -> int:
         "chained": (
             lambda st, ims, _first: run_chained(st, ims, cfg, keep=False),
             lambda: P.init_state(cfg), bimgs),
+        "full_step": (
+            lambda st, raws_, _first: run_full(st, raws_, cfg, keep=False),
+            lambda: P.init_state(cfg), bench[0][3]),
+        "filtered": (
+            lambda st, ims, _first: run_course(st, ims, vcfg, keep=False),
+            lambda: P.init_state(vcfg), bimgs),
         "sharded": (
             lambda st, ims, _first: run_sharded(*st, ims, sstep, keep=False),
             lambda: CB.init_combined_image_sharded(ccfg, MCFG, mesh), bimgs),
@@ -1153,6 +1449,12 @@ def main() -> int:
                       "scans_per_s": 1e3 / mean["sharded"][0],
                       "minus_combined_every_frame_ms":
                           mean["sharded"][0] - mean["every_frame"][0]}
+    raw_timing = {name: {"ms_per_frame": mean[name][0],
+                         "host_ms_per_frame": mean[name][1],
+                         "scans_per_s": 1e3 / mean[name][0],
+                         "minus_image_step_ms":
+                             mean[name][0] - mean["image_step"][0]}
+                  for name in ("full_step", "filtered")}
     batch_timing = {}
     for b in TIMED_BATCHES:
         b_ms, b_host = mean[f"batch_{b}"]
@@ -1175,6 +1477,8 @@ def main() -> int:
           "n_edges_min": int(bne.min()), "n_edges_max": int(bne.max()),
           "combined": combined_timing, "chained": chained_timing,
           "batch": batch_timing, "sharded_combined_image_step": sharded_timing,
+          "full_step": raw_timing["full_step"],
+          "filtered_image_step": raw_timing["filtered"],
           "runs_ms_and_host_ms_in_turns": runs})
     # the states every frame of the bench drive left, for the kernel checks
     # and the profile (untimed)
@@ -1190,12 +1494,42 @@ def main() -> int:
                           bench_b[max(TIMED_BATCHES)][:N_FRAMES - 5], cfg,
                           keep=False, step=P.batch_image_step)[0][-1]
 
-    # ---- 12. each kernel against its plain version, bench shapes ---------
+    # ---- 14. each kernel against its plain version, bench shapes ---------
     img = bimgs[N_FRAMES - 1]
     sm_k = SM.smoothness_cuda(img.xyz, img.count)
     sm_p = SM.smoothness_plain(img.xyz, img.count)
     k1_err = float((sm_k - sm_p).abs().max())
     check(torch.equal(sm_k, sm_p), f"K1 not bit-exact (max err {k1_err})")
+    # K1 at every shape the port launches it with, timed beside both bounds
+    o_img = F.split_scan_ouster(torch.from_numpy(organized_from_unorganized(
+        bench[0][4][-1], OUSTER_CFG.scan_lines, OUSTER_COLS)).to(dev),
+        OUSTER_CFG)
+    k1_cases = smoothness_cases(img, bench_b[LANES][N_FRAMES - 1],
+                                bench_b[max(TIMED_BATCHES)][N_FRAMES - 1],
+                                o_img, dev)
+    k1 = {}
+    for name, (x, c) in k1_cases.items():
+        got, want = SM.smoothness_cuda(x, c), SM.smoothness_plain(x, c)
+        whole, needed = smoothness_bounds(x, c)
+        k1[name] = {"rings": x.shape[0], "width": x.shape[1],
+                    "bit_exact": torch.equal(got, want),
+                    "max_abs_err": float((got - want).abs().max()),
+                    "ms": cuda_ms(lambda: SM.smoothness_cuda(x, c), 100),
+                    "bound_ms": needed[0], "whole_image_bound_ms": whole[0],
+                    "points": int(torch.clamp(c, max=x.shape[1]).sum())}
+        check(k1[name]["bit_exact"], f"K1 not bit-exact ({name})")
+    k1_err = max(v["max_abs_err"] for v in k1.values())
+    # the voxel filter's device time on a full window: the bench's 5 frames
+    # and the presets' 15 (three bench windows end to end)
+    wins = [local_map.flatten(bstates[-2 - 5 * j].window) for j in range(3)]
+    vox = {}
+    for n_frames, (wx, wv) in ((5, wins[0]),
+                               (15, (torch.cat([w[0] for w in wins]),
+                                     torch.cat([w[1] for w in wins])))):
+        vox[f"window_{n_frames}"] = {
+            "rows": wx.shape[0], "valid": int(wv.sum()),
+            "leaves": int(V.voxel_downsample(wx, wv, 0.4)[1].sum()),
+            "ms": cuda_ms(lambda: V.voxel_downsample(wx, wv, 0.4), 50)}
 
     ec_k = SEL.select_edges_cuda(img, sm_k, cfg)
     ec_p = SEL.select_edges_plain(img, sm_k, cfg)
@@ -1462,8 +1796,11 @@ def main() -> int:
     flagged_b = int(prep_b[2].sum())
     flagged5 = int(prep5[2].sum())
     emit({"phase": "kernels",
-          "smoothness": {"bit_exact": torch.equal(sm_k, sm_p),
-                         "max_abs_err": k1_err},
+          "smoothness": {"bit_exact": all(v["bit_exact"]
+                                          for v in k1.values()),
+                         "max_abs_err": k1_err, "shapes": k1,
+                         **SM.smoothness_shape()},
+          "voxel_filter": vox,
           "select_edges": {"bit_exact": k2_same,
                            "n_edges": int(ec_k.valid.sum()),
                            "slots_168_bit_exact": k2_168,
@@ -1511,11 +1848,11 @@ def main() -> int:
                            **PI.probe_shape(), "checks": probe}})
 
     r, w = img.xyz.shape[:2]
-    k1_ms = cuda_ms(lambda: SM.smoothness_cuda(img.xyz, img.count), 100)
+    k1_ms = k1["bench_64x4096"]["ms"]
     k1_plain = cuda_ms(lambda: SM.smoothness_plain(img.xyz, img.count), 20)
-    interior = int(torch.clamp(img.count - 10, min=0).sum())
-    k1_bound = bound(img.xyz.numel() * 4 + r * 4 + r * w * 4,
-                     interior * (3 * 12 + 5))
+    # the bound counts what this frame's output needs: the columns below
+    # each ring's count (the whole image's beside it)
+    k1_whole, k1_bound = smoothness_bounds(img.xyz, img.count)
 
     k2_ms = cuda_ms(lambda: SEL.select_edges_cuda(img, sm_k, cfg), 50)
     k2_plain = cuda_ms(lambda: SEL.select_edges_plain(img, sm_k, cfg), 3, 1)
@@ -1618,7 +1955,13 @@ def main() -> int:
          "replaces": "liodom_tpu/ops/smoothness_pallas.py:22",
          "launches": counts["smoothness"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "bound_by": k1_bound[1], "library_ms": None,
+         "whole_image_bound_ms": k1_whole[0],
+         "ms_512x4096": k1["folded_512x4096"]["ms"],
+         "bound_ms_512x4096": k1["folded_512x4096"]["bound_ms"],
+         "whole_image_bound_ms_512x4096":
+             k1["folded_512x4096"]["whole_image_bound_ms"],
+         **SM.smoothness_shape(), "ptxas": usage.get("smoothness")},
         {"name": "select_edges", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/select.cu",
          "replaces": "liodom_tpu/ops/select_pallas.py:70",
@@ -1708,7 +2051,7 @@ def main() -> int:
          "ptxas": usage.get("probe_insert")},
     ]
 
-    # ---- 13. where a frame's device time goes ----------------------------
+    # ---- 15. where a frame's device time goes ----------------------------
     # the bench drive's last frames again, from the states they met
     n_prof = 5
     last = bimgs[N_FRAMES - n_prof:]

@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from liodom_tpu_torch.core.device import resolve_device
+
 
 class RawScan(NamedTuple):
     xyz: torch.Tensor    # (N, 3) padded point coordinates
@@ -19,14 +21,17 @@ class RawScan(NamedTuple):
 
     @staticmethod
     def from_points(xyz, capacity: int, device=None) -> "RawScan":
-        xyz = torch.as_tensor(xyz, device=device)
+        """(n, 3) points padded to ``capacity`` rows, on ``device``: CUDA
+        unless the caller names another (``device="cpu"``), as every entry
+        point of the port."""
+        xyz = torch.as_tensor(xyz, device=resolve_device(device))
         n = xyz.shape[0]
         if n > capacity:
             raise ValueError(f"scan has {n} points > capacity {capacity}")
         out = xyz.new_zeros((capacity, 3))
         out[:n] = xyz
         valid = torch.zeros(capacity, dtype=torch.bool, device=xyz.device)
-        valid[:n] = True
+        valid[:n].fill_(True)
         return RawScan(out, valid)
 
 

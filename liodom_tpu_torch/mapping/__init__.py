@@ -8,9 +8,10 @@ from liodom_tpu_torch.mapping.grid import (MapState, cell_keys, count_cells,
 from liodom_tpu_torch.mapping.service import (MappingService,
                                               chained_combined_image_step,
                                               combined_image_step,
-                                              init_combined)
+                                              combined_step, init_combined)
 
 __all__ = ["MapState", "init_map", "update_map", "update_map_full",
            "get_map", "get_local_map", "local_map_offsets", "map_entropy",
            "cell_keys", "count_cells", "MappingService", "init_combined",
-           "combined_image_step", "chained_combined_image_step"]
+           "combined_step", "combined_image_step",
+           "chained_combined_image_step"]

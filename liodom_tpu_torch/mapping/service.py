@@ -7,15 +7,13 @@ them into the hash-grid map and publishes back a local map, which the
 odometer merges into its matching map when ``mapping:=true``
 (laser_odometry.cc:310-314), "adaptive local mapping".  Two deployments:
 
-* :func:`combined_image_step`: odometry, map update and local-map extraction
-  in one step on the card, enqueued without a host synchronisation; the
-  extracted local map feeds the next frame's matching map (the reference's
-  one-message latency).
+* :func:`combined_step` (from a raw scan: the ring split, K1 and K2 on the
+  device) and :func:`combined_image_step` (from a loader-split ring image):
+  odometry, map update and local-map extraction in one step on the card,
+  enqueued without a host synchronisation; the extracted local map feeds
+  the next frame's matching map (the reference's one-message latency).
 * :class:`MappingService`: a host-side service object with the two-process
   architecture's latched re-publish semantics.
-
-``combined_step`` (from a raw scan) waits for ``extract_features``, which
-is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,13 +27,14 @@ import torch
 
 from liodom_tpu_torch.core.config import LiodomConfig, MapConfig
 from liodom_tpu_torch.core.device import resolve_device
-from liodom_tpu_torch.core.frame import RingImage
+from liodom_tpu_torch.core.frame import EdgeCloud, RawScan, RingImage
 from liodom_tpu_torch.core.pose import Pose
 from liodom_tpu_torch.mapping.grid import (MapState, get_local_map, get_map,
                                            init_map, map_entropy, update_map)
 from liodom_tpu_torch.odometry.pipeline import (OdomState, init_state,
                                                 odometry_step)
-from liodom_tpu_torch.ops.features import select_edges, smoothness
+from liodom_tpu_torch.ops.features import (extract_features, select_edges,
+                                           smoothness)
 
 
 def init_combined(cfg: LiodomConfig, mcfg: MapConfig, device=None
@@ -65,6 +64,52 @@ def _refresh_local_map(odom_state: OdomState, map_state: MapState,
                                received_valid=loc_valid)
 
 
+def _check_devices(odom_state: OdomState, map_state: MapState,
+                   *inputs: torch.Tensor) -> None:
+    dev = odom_state.odom.t.device
+    if any(t.device != dev for t in inputs) or map_state.xyz.device != dev:
+        raise ValueError(f"input on {[str(t.device) for t in inputs]}, map "
+                         f"on {map_state.xyz.device}, odometry on {dev}")
+
+
+def _odom_only(state: OdomState, edges: EdgeCloud, cfg: LiodomConfig,
+               t_laser_base: Optional[Pose] = None) -> Tuple[OdomState, Pose]:
+    """The odometry half of a combined frame (``service.py:164``)."""
+    return odometry_step(state, edges, cfg, t_laser_base)
+
+
+def _combined(odom_state: OdomState, map_state: MapState, edges: EdgeCloud,
+              cfg: LiodomConfig, mcfg: MapConfig, step: Optional[int],
+              every: int, t_laser_base: Optional[Pose]
+              ) -> Tuple[OdomState, MapState, Pose, torch.Tensor]:
+    """A combined frame from its edges: odometry against the map received
+    last frame, the edges inserted at the solved pose, the refreshed local
+    map handed to the next frame."""
+    new_odom, pose = _odom_only(odom_state, edges, cfg, t_laser_base)
+    map_state = update_map(map_state, edges.xyz, edges.valid, pose, mcfg)
+    new_odom = _refresh_local_map(new_odom, map_state, pose, mcfg, step,
+                                  every)
+    return new_odom, map_state, pose, edges.num_valid()
+
+
+def combined_step(odom_state: OdomState, map_state: MapState,
+                  raw_xyz: torch.Tensor, raw_valid: torch.Tensor,
+                  cfg: LiodomConfig, mcfg: MapConfig,
+                  step: Optional[int] = None, local_map_every: int = 1,
+                  t_laser_base: Optional[Pose] = None
+                  ) -> Tuple[OdomState, MapState, Pose, torch.Tensor]:
+    """One frame of odometry + mapping from a raw scan (``service.py:74``):
+    ``raw_xyz`` (N, 3) padded points and their mask ``raw_valid`` (N,)
+    (``RawScan.from_points``), split by elevation on the device, then as
+    :func:`combined_image_step`.  ``step`` (a host int) with
+    ``local_map_every`` throttles the local-map extraction.  Returns (odom
+    state, map state, pose, n_edges as a 0-d tensor)."""
+    _check_devices(odom_state, map_state, raw_xyz, raw_valid)
+    edges = extract_features(RawScan(raw_xyz, raw_valid), cfg)
+    return _combined(odom_state, map_state, edges, cfg, mcfg, step,
+                     local_map_every, t_laser_base)
+
+
 def combined_image_step(odom_state: OdomState, map_state: MapState,
                         img_xyz: torch.Tensor, img_count: torch.Tensor,
                         cfg: LiodomConfig, mcfg: MapConfig,
@@ -79,18 +124,11 @@ def combined_image_step(odom_state: OdomState, map_state: MapState,
     next frame.  ``step`` (a host int) with ``local_map_every`` throttles
     the extraction to the async mapper's cadence.  Returns (odom state, map
     state, pose, n_edges as a 0-d tensor); the input states are untouched."""
-    dev = odom_state.odom.t.device
-    if (img_xyz.device != dev or img_count.device != dev
-            or map_state.xyz.device != dev):
-        raise ValueError(f"image on {img_xyz.device}, map on "
-                         f"{map_state.xyz.device}, odometry on {dev}")
+    _check_devices(odom_state, map_state, img_xyz, img_count)
     img = RingImage(img_xyz, img_count)
     edges = select_edges(img, smoothness(img, cfg), cfg)
-    new_odom, pose = odometry_step(odom_state, edges, cfg, t_laser_base)
-    map_state = update_map(map_state, edges.xyz, edges.valid, pose, mcfg)
-    new_odom = _refresh_local_map(new_odom, map_state, pose, mcfg, step,
-                                  local_map_every)
-    return new_odom, map_state, pose, edges.num_valid()
+    return _combined(odom_state, map_state, edges, cfg, mcfg, step,
+                     local_map_every, t_laser_base)
 
 
 def chained_combined_image_step(odom_state: OdomState, map_state: MapState,

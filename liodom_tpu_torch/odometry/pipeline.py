@@ -1,7 +1,9 @@
 """The odometry engine: the per-frame step on torch tensors.
 
 Port of ``liodom_tpu/odometry/pipeline.py``: ``image_step``, its batched
-form ``batch_image_step`` and the chunked ``chained_image_step``.
+form ``batch_image_step``, the chunked ``chained_image_step`` and
+``full_step``, which starts from the raw scan (the ring split on the
+device).
 Re-design of ``LaserOdometer::operator()`` (laser_odometry.cc:100-272):
 local-map assembly, constant-velocity prediction, optional IMU roll/pitch
 override, 2x (re-associate -> LM solve), window update, over fixed-shape
@@ -26,13 +28,15 @@ import torch
 from liodom_tpu_torch.core import pose as se3
 from liodom_tpu_torch.core.config import LiodomConfig
 from liodom_tpu_torch.core.device import resolve_device
-from liodom_tpu_torch.core.frame import EdgeCloud, RingImage
+from liodom_tpu_torch.core.frame import EdgeCloud, RawScan, RingImage
 from liodom_tpu_torch.core.pose import Pose
 from liodom_tpu_torch.odometry import local_map
-from liodom_tpu_torch.ops.features import select_edges, smoothness
+from liodom_tpu_torch.ops.features import (extract_features, select_edges,
+                                           smoothness, split_scan_ouster)
 from liodom_tpu_torch.ops.knn_pallas import spatial_sort_points
 from liodom_tpu_torch.ops.neighbors import line_correspondences
 from liodom_tpu_torch.ops.solver import lm_solve
+from liodom_tpu_torch.ops.voxel import voxel_downsample
 
 
 class OdomState(NamedTuple):
@@ -83,12 +87,20 @@ def set_received_map(state: OdomState, xyz, valid) -> OdomState:
 def _matching_map(state: OdomState, cfg: LiodomConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """computeLocalMap + map merge (laser_odometry.cc:274-298, 310-314): the
-    window cloud plus, when mapping, the received map cells."""
-    if cfg.filter_local_map and not cfg.mapping:
-        raise NotImplementedError(
-            "filter_local_map needs voxel_downsample, which is not ported yet "
-            "(ROADMAP.md, modules to port, item 7)")
+    window cloud (with ``filter_local_map``, 0.4 m voxel-filtered once the
+    window is full) plus, when mapping, the received map cells.
+
+    JAX chooses the filtered cloud with ``lax.cond`` on the window's frame
+    count; here the count stays on the device, so the filter runs every
+    frame and ``torch.where`` picks its result when the window is full (no
+    host synchronisation)."""
     gen_xyz, gen_valid = local_map.flatten(state.window)
+    if cfg.filter_local_map and not cfg.mapping:
+        full = state.window.nframes == cfg.local_map_size
+        f_xyz, f_valid = voxel_downsample(gen_xyz, gen_valid,
+                                          cfg.local_map_voxel)
+        gen_xyz = torch.where(full[..., None, None], f_xyz, gen_xyz)
+        gen_valid = torch.where(full[..., None], f_valid, gen_valid)
     if cfg.mapping and state.received_xyz.shape[-2] > 0:
         gen_xyz = torch.cat([gen_xyz, state.received_xyz], dim=-2)
         gen_valid = torch.cat([gen_valid, state.received_valid], dim=-1)
@@ -175,6 +187,30 @@ def image_step(state: OdomState, img_xyz: torch.Tensor,
         raise ValueError(f"image on {img_xyz.device}, state on {dev}")
     img = RingImage(img_xyz, img_count)
     edges = select_edges(img, smoothness(img, cfg), cfg)
+    new_state, pose = odometry_step(state, edges, cfg, t_laser_base)
+    return new_state, pose, edges.num_valid()
+
+
+def full_step(state: OdomState, raw_xyz: torch.Tensor,
+              raw_valid: torch.Tensor, cfg: LiodomConfig,
+              t_laser_base: Optional[Pose] = None
+              ) -> Tuple[OdomState, Pose, torch.Tensor]:
+    """Scan in, pose out (``pipeline.py:179``): the ring split, K1, K2 and
+    :func:`odometry_step` in one call, without a host synchronisation on
+    CUDA.  ``cfg.lidar_type`` 0 takes a padded raw scan ``raw_xyz`` (N, 3)
+    with its mask ``raw_valid`` (N,) (``RawScan.from_points``) and splits it
+    by elevation; 1 takes a row-organised cloud ``raw_xyz`` (H, W0, 3)
+    whose row is the ring (``raw_valid`` unused, as in JAX).  Returns
+    (state, pose, n_edges as a 0-d tensor); the same as :func:`image_step`
+    on the image :func:`~liodom_tpu_torch.ops.features.split_scan` makes."""
+    dev = state.odom.t.device
+    if raw_xyz.device != dev or raw_valid.device != dev:
+        raise ValueError(f"scan on {raw_xyz.device}, state on {dev}")
+    if cfg.lidar_type == 0:
+        edges = extract_features(RawScan(raw_xyz, raw_valid), cfg)
+    else:
+        img = split_scan_ouster(raw_xyz, cfg)
+        edges = select_edges(img, smoothness(img, cfg), cfg)
     new_state, pose = odometry_step(state, edges, cfg, t_laser_base)
     return new_state, pose, edges.num_valid()
 

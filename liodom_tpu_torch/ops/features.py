@@ -3,14 +3,19 @@
 Port of ``liodom_tpu/ops/features.py`` (reference feature_extractor.cc):
 
 * ``splitPointCloud`` (:104-179) — each point is classified into its ring
-  and one stable sort packs the rings into a dense padded ``(rings, width)``
-  image, input order kept within a ring.  This is the loader stage; the
-  per-frame path (:func:`liodom_tpu_torch.odometry.pipeline.image_step`)
-  starts from the ring image.
+  (Velodyne: :func:`split_scan`, the ring from the elevation angle; Ouster:
+  :func:`split_scan_ouster`, the row of an organised cloud) and one stable
+  sort packs the rings into a dense padded ``(rings, width)`` image, input
+  order kept within a ring.  No step synchronises with the host: the ring
+  counts are a scatter-add into a fixed ``(rings + 1,)`` tensor.
+  :func:`~liodom_tpu_torch.odometry.pipeline.image_step` starts from the
+  ring image; ``full_step`` and ``combined_step`` split on the device.
 * :func:`smoothness` — the 11-tap stencil, kernel K1
   (ops/smoothness_pallas.py).
 * :func:`select_edges` — the greedy region-wise pick chain, kernel K2
   (ops/select_pallas.py).
+* :func:`extract_features` — split, smoothness, select: raw scan in, edges
+  out.
 """
 
 from __future__ import annotations
@@ -71,6 +76,18 @@ def ring_id_velodyne(xyz: torch.Tensor, cfg: LiodomConfig
     return rid, ok
 
 
+def _ring_counts(ring: torch.Tensor, ok: torch.Tensor,
+                 r: int) -> torch.Tensor:
+    """Points routed to each of the ``r`` rings, (r,) int64, unclamped.
+
+    A scatter-add into a fixed ``(r + 1,)`` tensor whose last slot takes the
+    unrouted points: ``torch.bincount`` reads its input's maximum back to the
+    host to size its output, which would synchronise the step."""
+    slot = torch.where(ok, ring, torch.full_like(ring, r))
+    counts = torch.zeros(r + 1, dtype=torch.int64, device=ring.device)
+    return counts.index_add_(0, slot, torch.ones_like(slot))[:r]
+
+
 def _pack_rings(xyz: torch.Tensor, ring: torch.Tensor, ok: torch.Tensor,
                 cfg: LiodomConfig) -> RingImage:
     """Stable-sort points by ring and scatter them into the (rings, width)
@@ -86,8 +103,7 @@ def _pack_rings(xyz: torch.Tensor, ring: torch.Tensor, ok: torch.Tensor,
     ring_s = torch.where(ok, ring, torch.full_like(ring, r))[order]
     ok_s = ok[order]
     xyz_s = xyz[order]
-    raw_counts = torch.bincount(torch.where(ok, ring, torch.full_like(ring, r)),
-                                minlength=r + 1)[:r]
+    raw_counts = _ring_counts(ring, ok, r)
     counts = torch.clamp(raw_counts, max=w).to(torch.int32)
     # offsets over the *unclamped* counts: a ring that overflows the padded
     # width must not shift the packing of the rings after it
@@ -116,11 +132,25 @@ def split_overflow(raw: RawScan, cfg: LiodomConfig) -> torch.Tensor:
     ok = raw.valid & valid_points(raw.xyz, cfg)
     rid, in_fov = ring_id_velodyne(raw.xyz, cfg)
     ok = ok & in_fov
-    r, w = cfg.scan_lines, cfg.ring_width
-    rid = rid.to(torch.int64)
-    raw_counts = torch.bincount(torch.where(ok, rid, torch.full_like(rid, r)),
-                                minlength=r + 1)[:r]
-    return torch.clamp(raw_counts - w, min=0).sum()
+    raw_counts = _ring_counts(rid.to(torch.int64), ok, cfg.scan_lines)
+    return torch.clamp(raw_counts - cfg.ring_width, min=0).sum()
+
+
+def split_scan_ouster(organized_xyz: torch.Tensor,
+                      cfg: LiodomConfig) -> RingImage:
+    """Ouster-mode splitPointCloud (feature_extractor.cc:158-175): the cloud
+    (H, W0, 3) is row-organised and the row index is the ring; invalid
+    points are dropped and rows are left-compacted."""
+    h, w0, _ = organized_xyz.shape
+    if h > cfg.scan_lines:
+        raise ValueError(f"organised cloud of {h} rows for "
+                         f"{cfg.scan_lines} scan lines")
+    flat = organized_xyz.reshape(h * w0, 3)
+    ok = valid_points(flat, cfg)
+    rid = torch.div(torch.arange(h * w0, dtype=torch.int64,
+                                 device=flat.device), w0,
+                    rounding_mode="floor")
+    return _pack_rings(flat, rid, ok, cfg)
 
 
 def smoothness(img: RingImage, cfg: LiodomConfig) -> torch.Tensor:
@@ -151,3 +181,10 @@ def select_edges(img: RingImage, smooth: torch.Tensor,
             smooth.reshape(b * r, w), cfg)
         return EdgeCloud(ec.xyz.reshape(b, -1, 3), ec.valid.reshape(b, -1))
     return select_edges_kernel(img, smooth, cfg)
+
+
+def extract_features(raw: RawScan, cfg: LiodomConfig) -> EdgeCloud:
+    """The Velodyne-mode extractor: :func:`split_scan`, then K1, then K2.
+    Raw scan in, edge slots out; on CUDA without a host synchronisation."""
+    img = split_scan(raw, cfg)
+    return select_edges(img, smoothness(img, cfg), cfg)

@@ -7,6 +7,9 @@ Port of ``liodom_tpu/ops/smoothness_pallas.py``.  Per point j of each ring,
 :func:`smoothness_kernel` dispatches on the tensor's device: a CUDA tensor
 launches ``csrc/smoothness.cu``; a CPU tensor takes :func:`smoothness_plain`.
 The two are bit-exact (same tap order, every operation rounded on its own).
+The kernel reads only the columns below each ring's count (a block a
+segment of 512 columns, 4 columns a thread); it takes any width, with
+16-byte loads and stores when the width is a multiple of 4.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 from liodom_tpu_torch import kernels
 
 _SIG = [("liodom_smoothness", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-         + [ctypes.c_void_p])]
+         + [ctypes.c_void_p]),
+        ("liodom_smoothness_shape", [ctypes.c_void_p])]
 
 
 def smoothness_plain(xyz: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
@@ -65,6 +69,17 @@ def smoothness_cuda(xyz: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
 
 
 smoothness_cuda.launches = 0
+
+
+def smoothness_shape() -> dict:
+    """The built kernel's launch shape: threads a block, columns a thread
+    and a block (a block owns one segment of a ring)."""
+    lib = kernels.load("smoothness", _SIG)
+    out = (ctypes.c_int * 3)()
+    kernels.check(lib.liodom_smoothness_shape(ctypes.addressof(out)),
+                  "liodom_smoothness_shape")
+    return {"threads": out[0], "cols_per_thread": out[1],
+            "cols_per_block": out[2]}
 
 
 def smoothness_kernel(xyz: torch.Tensor, count: torch.Tensor) -> torch.Tensor:

@@ -54,7 +54,7 @@ def _images(n, width=900, ring_width=2048, noise=0.01):
         scan = world.render(pos[i], yaw_matrix(yaws[i]), width=width,
                             noise=noise, seed=i)
         out.append(F.split_scan(RawScan.from_points(
-            torch.from_numpy(scan), cfg.max_points), cfg))
+            torch.from_numpy(scan), cfg.max_points, device="cpu"), cfg))
     return cfg, out
 
 
@@ -459,3 +459,140 @@ def test_batch_image_step_on_the_card_matches_the_cpu_path(dev):
         cpu, cp, cn = P.batch_image_step(cpu, xyz, cnt, cfg)
         assert torch.equal(gn.cpu(), cn)
         assert float((gp.t.cpu() - cp.t).norm(dim=-1).max()) < 0.01
+
+
+def _smoothness_cases(dev):
+    """K1's inputs at every shape the port launches it with: the bench
+    frame (64 x 4,096) split on the card, the folded batches (256 and 512
+    rings), the Ouster path (128 rings), a width that is not a multiple of
+    4 (1,801) and the edge counts (0, <= 10, the full width, one full ring
+    with the rest empty), plus a tensor 4 bytes off 16-byte alignment."""
+    from liodom_tpu_torch.core.organize import organized_from_unorganized
+    rng = np.random.default_rng(0)
+    world = BoxWorld(seed=0)
+    pos, yaws = drive_trajectory(8, speed=1.2, yaw_rate=0.01)
+    cfg = LiodomConfig()
+    scans = [world.render(pos[i], yaw_matrix(yaws[i]), width=1800,
+                          noise=0.01, seed=i) for i in range(8)]
+    bench = [F.split_scan(RawScan.from_points(s, cfg.max_points), cfg)
+             for s in scans]
+    ocfg = LiodomConfig(lidar_type=1, scan_lines=128)
+    ouster = F.split_scan_ouster(torch.from_numpy(
+        organized_from_unorganized(scans[0], 128, 2048)).to(dev), ocfg)
+
+    def rand(r, w, counts):
+        xyz = torch.from_numpy((rng.normal(size=(r, w, 3)) * 5)
+                               .astype(np.float32)).to(dev)
+        return xyz, torch.tensor(counts, dtype=torch.int32, device=dev)
+
+    edge = [0, 3, 10, 11, 4096] + [int(c) for c in
+                                   rng.integers(0, 4097, 59)]
+    one = [4096] + [0] * 63
+    odd = rand(64, 1801, [1801, 0, 10, 11] + [int(c) for c in
+                                                rng.integers(0, 1802, 60)])
+    big = torch.empty(64 * 4096 * 3 + 1, device=dev)
+    shifted = big[1:].view(64, 4096, 3)
+    shifted.copy_(bench[0].xyz)
+    return {"bench_64x4096": (bench[0].xyz, bench[0].count),
+            "folded_256x4096": (torch.cat([b.xyz for b in bench[:4]]),
+                                torch.cat([b.count for b in bench[:4]])),
+            "folded_512x4096": (torch.cat([b.xyz for b in bench]),
+                                torch.cat([b.count for b in bench])),
+            "ouster_128x4096": (ouster.xyz, ouster.count),
+            "width_1801": odd,
+            "edge_counts": rand(64, 4096, edge),
+            "one_full_ring": rand(64, 4096, one),
+            "unaligned": (shifted, bench[0].count)}
+
+
+def test_smoothness_kernel_at_every_launched_shape(dev):
+    cases = _smoothness_cases(dev)
+    before = SM.smoothness_cuda.launches
+    for name, (xyz, count) in cases.items():
+        got = SM.smoothness_cuda(xyz, count)
+        assert torch.equal(got, SM.smoothness_plain(xyz, count)), name
+    torch.cuda.synchronize()
+    assert SM.smoothness_cuda.launches == before + len(cases)
+    assert SM.smoothness_shape()["cols_per_thread"] == 4
+
+
+def test_split_makes_no_host_sync(dev):
+    """split_scan, split_overflow, split_scan_ouster and extract_features on
+    the card under torch's sync debug mode set to raise."""
+    from liodom_tpu_torch.core.organize import organized_from_unorganized
+    cfg = LiodomConfig()
+    world = BoxWorld(seed=0)
+    scan = world.render(np.zeros(3), np.eye(3), width=1800, noise=0.01,
+                        seed=0)
+    raw = RawScan.from_points(scan, cfg.max_points)
+    cloud = torch.from_numpy(organized_from_unorganized(scan, 128, 2048)
+                             ).to(dev)
+    ocfg = LiodomConfig(lidar_type=1, scan_lines=128)
+    F.extract_features(raw, cfg)               # build the kernels first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img = F.split_scan(raw, cfg)
+        dropped = F.split_overflow(raw, cfg)
+        oimg = F.split_scan_ouster(cloud, ocfg)
+        ec = F.extract_features(raw, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(dropped) == 0 and int(img.count.sum()) > 50000
+    assert int(oimg.count.sum()) > 50000 and int(ec.valid.sum()) > 1000
+    cpu = F.split_scan(RawScan(raw.xyz.cpu(), raw.valid.cpu()), cfg)
+    assert torch.equal(img.count.cpu(), cpu.count)
+    assert torch.equal(img.xyz.cpu(), cpu.xyz)
+
+
+def test_raw_scan_steps_are_the_image_steps_on_the_card(dev):
+    """full_step equals image_step on the card's split of the same scans,
+    pose for pose; combined_step equals combined_image_step from the same
+    states (the map's centroid sums land in a varying order on the card,
+    so two free-running drives may part in the last bits)."""
+    cfg = LiodomConfig(local_map_size=5, ring_width=2048)
+    ccfg = cfg.replace(mapping=True)
+    mcfg = MapConfig(map_capacity=131072, local_map_capacity=16384)
+    world = BoxWorld(seed=1)
+    pos, yaws = drive_trajectory(4, speed=1.0, yaw_rate=0.02)
+    raws = [RawScan.from_points(world.render(pos[i], yaw_matrix(yaws[i]),
+                                             width=900, noise=0.01, seed=i),
+                                cfg.max_points) for i in range(4)]
+    a = b = P.init_state(cfg)
+    co, cm = S.init_combined(ccfg, mcfg)
+    for i, raw in enumerate(raws):
+        img = F.split_scan(raw, cfg)
+        a, pa, na = P.full_step(a, raw.xyz, raw.valid, cfg)
+        b, pb, nb = P.image_step(b, img.xyz, img.count, cfg)
+        assert torch.equal(pa.q, pb.q) and torch.equal(pa.t, pb.t)
+        assert torch.equal(na, nb)
+        ro, rm, rp, rn = S.combined_step(co, cm, raw.xyz, raw.valid, ccfg,
+                                         mcfg, step=i)
+        co, cm, ip, in_ = S.combined_image_step(co, cm, img.xyz, img.count,
+                                                ccfg, mcfg, step=i)
+        assert torch.equal(rp.q, ip.q) and torch.equal(rp.t, ip.t)
+        assert torch.equal(rn, in_) and torch.equal(rm.code, cm.code)
+
+
+def test_voxel_downsample_on_the_card_is_the_cpu_result(dev):
+    from liodom_tpu_torch.ops import voxel as V
+    rng = np.random.default_rng(6)
+    t = rng.uniform(0, 30, (28160, 1))
+    d = rng.normal(size=(6, 3))
+    xyz = (rng.normal(size=(28160, 3)) * 0.05
+           + t * d[rng.integers(0, 6, 28160)]).astype(np.float32)
+    valid = rng.random(28160) > 0.3
+    cx, cv = V.voxel_downsample(torch.from_numpy(xyz),
+                                torch.from_numpy(valid), 0.4)
+    args = (torch.from_numpy(xyz).to(dev), torch.from_numpy(valid).to(dev))
+    V.voxel_downsample(*args, 0.4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gx, gv = V.voxel_downsample(*args, 0.4)
+        gx2, _ = V.voxel_downsample(*args, 0.4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # the leaves' sums run in sorted order on both devices: bit for bit
+    assert torch.equal(gv.cpu(), cv) and int(cv.sum()) > 1000
+    assert torch.equal(gx.cpu(), cx) and torch.equal(gx, gx2)

@@ -69,7 +69,7 @@ def test_split_scan_matches_jax(case):
     jcfg, jxyz, jcount = _jax_image(pts, ring_width)
     cfg = LiodomConfig(max_points=65536, ring_width=ring_width)
     raw = RawScan.from_points(torch.from_numpy(pts.astype(np.float32)),
-                              cfg.max_points)
+                              cfg.max_points, device="cpu")
     img = F.split_scan(raw, cfg)
     np.testing.assert_array_equal(img.count.numpy(), jcount)
     moved = int((img.xyz.numpy() != jxyz).any(axis=-1).sum())

@@ -17,17 +17,19 @@ import torch
 from liodom_tpu_torch import kernels
 from liodom_tpu_torch.core.config import LiodomConfig, MapConfig
 from liodom_tpu_torch.core.device import resolve_device
-from liodom_tpu_torch.core.frame import RingImage
+from liodom_tpu_torch.core.frame import RawScan, RingImage
 from liodom_tpu_torch.core.pose import Pose
 from liodom_tpu_torch.mapping import grid as G
 from liodom_tpu_torch.mapping import service as S
 from liodom_tpu_torch.odometry import pipeline as P
 from liodom_tpu_torch.ops import compact_pallas as K7
+from liodom_tpu_torch.ops import features as F
 from liodom_tpu_torch.ops import knn_pallas as KNN
 from liodom_tpu_torch.ops import neighbors as NB
 from liodom_tpu_torch.ops import probe_insert as PI
 from liodom_tpu_torch.ops import select_pallas as SEL
 from liodom_tpu_torch.ops import smoothness_pallas as SM
+from liodom_tpu_torch.ops import voxel as V
 from liodom_tpu_torch.parallel import combined as CB
 from liodom_tpu_torch.parallel import launch
 from liodom_tpu_torch.parallel.mesh import make_mesh
@@ -61,7 +63,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res["bad"] == []
     assert res["built"] == []          # importing builds and loads nothing
     for name in ("odometry.pipeline", "ops.knn_pallas", "ops.compact_pallas",
-                 "ops.probe_insert", "mapping.grid", "mapping.service",
+                 "ops.probe_insert", "ops.voxel", "core.organize",
+                 "mapping.grid", "mapping.service",
                  "parallel.mesh", "parallel.sharded", "parallel.sharded_map",
                  "parallel.combined", "parallel.launch", "convert"):
         assert f"liodom_tpu_torch.{name}" in res["modules"]
@@ -137,6 +140,38 @@ def test_entry_points_default_to_cuda():
             init_batch_state(cfg, 2)
     assert G.init_map(64, device="cpu").code.device.type == "cpu"
     assert init_batch_state(cfg, 2, device="cpu").odom.t.shape == (2, 3)
+
+
+def test_raw_scan_entry_points_default_to_cuda():
+    """The raw-scan path: ``RawScan.from_points`` puts the scan on CUDA
+    unless told otherwise (and raises without it), and ``full_step``,
+    ``combined_step`` and ``extract_features`` run where their inputs lie;
+    a scan on another device than the state is refused."""
+    cfg = LiodomConfig(ring_width=256, max_points=512)
+    pts = np.zeros((100, 3), np.float32)
+    if torch.cuda.is_available():
+        assert RawScan.from_points(pts, 512).xyz.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            RawScan.from_points(pts, 512)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            P.init_state(cfg.replace(filter_local_map=True))
+    raw = RawScan.from_points(pts, 512, device="cpu")
+    assert raw.xyz.device.type == "cpu" and int(raw.valid.sum()) == 100
+    assert F.extract_features(raw, cfg).xyz.device.type == "cpu"
+    state = P.init_state(cfg, device="cpu")
+    assert P.full_step(state, raw.xyz, raw.valid, cfg)[1].t.device.type == \
+        "cpu"
+    mcfg = MapConfig(map_capacity=64, local_map_capacity=16)
+    ccfg = cfg.replace(mapping=True)
+    odom, m = S.init_combined(ccfg, mcfg, device="cpu")
+    assert S.combined_step(odom, m, raw.xyz, raw.valid, ccfg,
+                           mcfg)[2].t.device.type == "cpu"
+    meta = raw.xyz.to("meta")
+    with pytest.raises(ValueError):
+        P.full_step(state, meta, raw.valid, cfg)
+    with pytest.raises(ValueError):
+        S.combined_step(odom, m, meta, raw.valid, ccfg, mcfg)
 
 
 def test_parallel_entry_points_default_to_cuda():
@@ -222,6 +257,20 @@ def test_cpu_tensors_take_the_plain_versions():
     want = K7.compact_hits_plain(m.xyz, m.key, m.valid, base,
                                  G.local_map_offsets(mcfg), 64)
     assert torch.equal(lx, want[0]) and int(n) == int(want[2]) > 0
+    # the raw-scan path and the voxel filter: plain versions only
+    pts = xyz.reshape(-1, 3)[:4000] * 4.0
+    raw = RawScan.from_points(pts, 4096, device="cpu")
+    assert F.extract_features(raw, cfg).xyz.device.type == "cpu"
+    fcfg = cfg.replace(filter_local_map=True, local_map_size=1,
+                       max_points=4096)
+    P.full_step(P.init_state(fcfg, device="cpu"), raw.xyz, raw.valid, fcfg)
+    ocfg = cfg.replace(lidar_type=1)
+    P.full_step(P.init_state(ocfg, device="cpu"), xyz * 4.0, raw.valid, ocfg)
+    ccfg = fcfg.replace(mapping=True, filter_local_map=False)
+    S.combined_step(*S.init_combined(ccfg, mcfg.replace(map_capacity=4096),
+                                     device="cpu"),
+                    raw.xyz, raw.valid, ccfg, mcfg.replace(map_capacity=4096))
+    V.voxel_downsample(pts, torch.ones(4000, dtype=torch.bool), 0.4)
     assert _counts() == before
 
 

@@ -168,14 +168,6 @@ def test_imu_override_matches_jax():
     np.testing.assert_array_equal(s.imu_ori.numpy(), imu)
 
 
-def test_filter_local_map_is_not_ported_yet():
-    cfg = LiodomConfig(ring_width=256, filter_local_map=True)
-    state = P.init_state(cfg, device="cpu")
-    img = torch.zeros((64, 256, 3)), torch.zeros(64, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.image_step(state, *img, cfg)
-
-
 def test_received_map_joins_the_matching_map():
     cfg = LiodomConfig(ring_width=256, mapping=True)
     state = P.init_state(cfg, 8, device="cpu")

@@ -50,7 +50,7 @@ def _bench_frame():
     scan = BoxWorld(seed=0).render(pos[5], yaw_matrix(yaws[5]), width=1800,
                                    noise=0.01, seed=5)
     img = F.split_scan(RawScan.from_points(torch.from_numpy(scan),
-                                           cfg.max_points), cfg)
+                                           cfg.max_points, device="cpu"), cfg)
     return img, F.smoothness(img, cfg)
 
 
