@@ -101,7 +101,39 @@ Phases, each printing one JSON line:
 12. sharded_cpu_parity — the flagship's first 6 frames on the CPU in a
    one-rank gloo group (a subprocess: ``--sharded-cpu``): within 1 cm and
    1e-3 rad of the card, equal edge counts.
-13. timing — the bench drive of ``bench.py`` (the same course with 1 cm
+13. apps — the port's apps as a user runs them (``liodom_tpu_torch/apps``),
+   on phase 2's 36 raw scans written as a KITTI tree (``.bin`` records, an
+   identity ``Tr``, ``times.txt`` at 0.1 s, the drive's poses), each run
+   with every launch counter set to 0 just before and read just after, one
+   JSON line a run (frames, the kernels' build and load before frame 0,
+   cold or warm, the first frame, scans/s after it, the host
+   synchronisations between due points, the launches, the nvidia-smi
+   line): ``run_kitti`` at its defaults (the launch file's 15-frame window,
+   the ring width auto-sized) with results, a checkpoint at frame 24 and
+   the PLY export: the five results files of 36 rows, poses within 1e-6 m
+   of an ``image_step`` loop over ``KittiSequence.iter_images``, ATE over
+   20 frames below 0.1 m, launches 36/36/72, the native loader built, no
+   host synchronisation between due points; ``--chunk 12`` within 1e-6 m
+   of it; ``--mapping`` (40/50 m cells, a 65,536-row local map): ATE below
+   0.1 m, overflow and truncation 0, K7 37 times (36 frames and the
+   end-of-run truncation check at the final pose, as the JAX app makes
+   it) and the probe 36; the mapping run resumed from frame 24 in a new
+   process started from a copy of the package without its build
+   directories (the cold build, the native loader's included), within
+   1 cm and 1e-3 rad of the uninterrupted run; the odometry run resumed
+   in a second new process (the warm build), within 1e-6 m;
+   ``run_synthetic`` at its defaults and with ``--mapping --raw-path``:
+   ATE below 0.1 m; ``run_ouster --dir`` on the first 20 of phase 6's
+   128 x 2,048 organised clouds written as ``.npy`` files (the 128-row
+   preset): ATE below 0.1 m, launches 20/20/40, and a resume whose
+   checkpoint covers every file returns 0 without a frame;
+   ``run_mapping`` on ``run_kitti``'s poses: occupied slots and
+   ``map.ply``.  Between the first two runs, ``image_step`` at
+   ``run_kitti``'s configuration over the tree's frames staged from pinned
+   buffers against frames copied from pageable memory, three drives each
+   in turns: ms a frame to the last pose, host syncs a frame.  Run before
+   the profiler, which leaves the host slower.
+14. timing — the bench drive of ``bench.py`` (the same course with 1 cm
    sensor noise): steady-state ms/frame and scans/s by CUDA events after 6
    warm-up frames, for ``image_step``, for ``combined_image_step`` at the
    bench's two cadences (every frame, and every 4th frame), for
@@ -111,7 +143,7 @@ Phases, each printing one JSON line:
    mesh 1 x 1, for ``full_step`` on the raw scans and for the filtered
    ``image_step``, each drive twice in turns; every run at most 125 ms a
    frame for each lane (0.8 x the 10 Hz sensor rate).
-14. kernels — each kernel against its plain PyTorch version on the card, on
+15. kernels — each kernel against its plain PyTorch version on the card, on
    the bench drive's last frame, window, map and pose: K1 bit-exact there
    and at every shape the port launches it with (``smoothness_cases``: the
    folded B = 4 and 8 rings, the Ouster path's 128 rings, a width of
@@ -154,12 +186,11 @@ Phases, each printing one JSON line:
    inputs (K6's gate as above), with ptxas registers and spills at k = 5
    and 8; then each kernel's time beside its plain version's and its
    bound.
-15. profile — torch.profiler over 5 frames of the bench drive, for
+16. profile — torch.profiler over 5 frames of the bench drive, for
    ``image_step``, ``combined_image_step``, ``batch_image_step`` at B = 4
    and 8 and the sharded flagship: device busy time and share, device
    kernels a frame, the largest kernels by time, and the host's operators
    by their own time.
-
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line and, as the last
 line, ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that last line; no exception is caught.  Exits non-zero at once when
@@ -174,6 +205,7 @@ import json
 import math
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -191,10 +223,14 @@ from torch.profiler import ProfilerActivity, profile
 
 import liodom_tpu_torch
 from liodom_tpu_torch import kernels
+from liodom_tpu_torch.apps import (run_kitti, run_mapping, run_ouster,
+                                   run_synthetic)
 from liodom_tpu_torch.core import pose as se3
 from liodom_tpu_torch.core.config import LiodomConfig, MapConfig
 from liodom_tpu_torch.core.frame import RawScan, RingImage
+from liodom_tpu_torch.core.io import KittiSequence
 from liodom_tpu_torch.core.organize import organized_from_unorganized
+from liodom_tpu_torch.core.presets import ouster_preset
 from liodom_tpu_torch.core.synth import (BoxWorld, drive_trajectory,
                                          tie_scene, yaw_matrix)
 from liodom_tpu_torch.mapping import grid as G
@@ -214,6 +250,9 @@ from liodom_tpu_torch.parallel import launch as LA
 from liodom_tpu_torch.parallel.mesh import make_mesh
 from liodom_tpu_torch.parallel.sharded import (all_gather, init_batch_state,
                                                make_sharded_step)
+from liodom_tpu_torch.runtime import checkpoint as CK
+from liodom_tpu_torch.runtime import native
+from liodom_tpu_torch.runtime.device_io import Stager
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
@@ -240,10 +279,9 @@ WALK_STEP_S = 30 / 1.98e9
 L2_TRIP_S = 145e-9
 # bench.py's combined configuration (bench.py:91)
 MCFG = MapConfig(map_capacity=524288, local_map_capacity=16384)
-# the Ouster launch configuration, liodom_tpu/core/presets.py:ouster_preset
-# at 128 rings (launch/liodom_ouster.launch:19-33), and its organised width
-OUSTER_CFG = LiodomConfig(lidar_type=1, scan_lines=128, scan_regions=8,
-                          edges_per_region=10, local_map_size=15)
+# the Ouster launch configuration at 128 rings (launch/liodom_ouster.launch:
+# 19-33), and its organised width
+OUSTER_CFG = ouster_preset(128)[0]
 OUSTER_COLS = 2048
 
 
@@ -785,6 +823,321 @@ def profile_frames(step, state, imgs, smi) -> dict:
             "top_kernels_us_per_frame": [
                 [name[:70], cnt / n, tot / n]
                 for name, (tot, cnt) in top]}
+
+
+APP_CK_EVERY = 24           # run_kitti's checkpoint in the apps phase
+N_OUSTER_APP = 20           # run_ouster's organised clouds
+MIN_SCANS_PER_S = 8         # the apps' real-time contract (PERF.md §2)
+
+
+def write_kitti_tree(root: Path, spins, gt_pos, gt_yaw) -> None:
+    """The drive's raw scans as a KITTI odometry tree: ``.bin`` records
+    (x, y, z, 0), ``calib.txt`` with an identity ``Tr`` (the velodyne frame
+    is the camera frame), ``times.txt`` at 0.1 s and the drive's poses."""
+    seq = root / "sequences" / "00"
+    (seq / "velodyne").mkdir(parents=True)
+    rows = []
+    for i, spin in enumerate(spins):
+        rec = np.zeros((len(spin), 4), np.float32)
+        rec[:, :3] = spin
+        rec.tofile(seq / "velodyne" / f"{i:06d}.bin")
+        m = np.zeros((3, 4))
+        m[:, :3] = yaw_matrix(gt_yaw[i])
+        m[:, 3] = gt_pos[i]
+        rows.append(m.reshape(-1))
+    np.savetxt(seq / "times.txt", np.arange(len(spins)) * 0.1)
+    (seq / "calib.txt").write_text(
+        "Tr: " + " ".join(str(v) for v in np.eye(4)[:3].reshape(-1)) + "\n")
+    (root / "poses").mkdir()
+    np.savetxt(root / "poses" / "00.txt", np.stack(rows))
+
+
+def read_poses(path: Path) -> np.ndarray:
+    """A results directory's poses.txt as (F, 3, 4)."""
+    return np.loadtxt(path).reshape(-1, 3, 4)
+
+
+def traj_gap(a: np.ndarray, b: np.ndarray):
+    """Largest translation (m) and rotation (rad) gap between two (F, 3, 4)
+    trajectories; the angle from both the sine and the cosine of the
+    relative rotation, accurate near 0."""
+    dt = np.linalg.norm(a[:, :, 3] - b[:, :, 3], axis=1)
+    rel = np.einsum("fji,fjk->fik", a[:, :, :3], b[:, :, :3])
+    sin = 0.5 * np.linalg.norm(np.stack(
+        [rel[:, 2, 1] - rel[:, 1, 2], rel[:, 0, 2] - rel[:, 2, 0],
+         rel[:, 1, 0] - rel[:, 0, 1]], axis=1), axis=1)
+    cos = 0.5 * (np.trace(rel, axis1=1, axis2=2) - 1.0)
+    return float(dt.max()), float(np.arctan2(sin, cos).max())
+
+
+def traj_ate(est: np.ndarray, gt_pos: np.ndarray) -> float:
+    """ATE of a trajectory over its first N_ATE frames."""
+    err = np.linalg.norm(est[:N_ATE, :, 3] - gt_pos[:N_ATE], axis=1)
+    return float(np.sqrt(np.mean(err ** 2)))
+
+
+def check_rate(rep: dict, check, label: str) -> None:
+    """The real-time contract on an app run that timed its frames (a run
+    with nothing to do reports no rate)."""
+    if "scans_per_s" in rep:
+        check(rep["scans_per_s"] >= MIN_SCANS_PER_S, f"{label}: "
+              f"{rep['scans_per_s']:.2f} scans/s < {MIN_SCANS_PER_S}")
+
+
+def run_app_process(pkg_root: Path, module: str, argv, check,
+                    label: str) -> dict:
+    """``python -m liodom_tpu_torch.apps.<module> argv`` in a fresh process
+    that imports the package under ``pkg_root``; its report (the last line
+    of its output).  Raises if the app fails."""
+    env = dict(os.environ, PYTHONPATH=str(pkg_root))
+    out = subprocess.run(
+        [sys.executable, "-m", f"liodom_tpu_torch.apps.{module}",
+         *(str(a) for a in argv)],
+        cwd=pkg_root, env=env, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise SystemExit(f"{module} {argv} exited {out.returncode}:\n"
+                         f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    check_rate(rep, check, label)
+    return rep
+
+
+def run_app(app, argv, check, label: str):
+    """``app.run(argv)`` in this process, every launch counter set to 0
+    just before and read just after; returns (report, counters)."""
+    torch.cuda.synchronize()
+    reset_counters()
+    rep = app.run([str(a) for a in argv])
+    counts = read_counters()
+    check(rep["rc"] == 0, f"{label}: exit code {rep['rc']}")
+    check_rate(rep, check, label)
+    return rep, counts
+
+
+def app_line(label: str, rep: dict, counts, smi: str, **extra) -> dict:
+    """One JSON line of the apps phase."""
+    keys = ("frames", "start_frame", "native_loader", "native_loader_s",
+            "kernel_build_s", "kernel_build", "compiled", "first_frame_s",
+            "first_dispatch_frames", "scans_per_s", "host_syncs",
+            "stager_waits", "ate_m", "map_overflow", "local_map_truncated",
+            "occupied_slots", "ring_width")
+    return {"phase": "apps", "run": label, "nvidia_smi": smi,
+            **{k: rep[k] for k in keys if k in rep},
+            "launches": counts, **extra}
+
+
+def apps_phase(tmp: Path, spins, gt_pos, gt_yaw, dev, smi, check) -> None:
+    """Phase 13: the port's apps, as a user runs them, on phase 2's drive
+    written as a KITTI tree (see the module docstring)."""
+    t_phase = time.perf_counter()
+    n = len(spins)
+    root = tmp / "kitti"
+    write_kitti_tree(root, spins, gt_pos, gt_yaw)
+    base = ["--root", root, "--seq", "00"]
+    # a fresh copy of the package without its build directories: the
+    # resumed runs below start in new processes from it, the first with
+    # nothing built (a user's cold start), the second warm
+    fresh = tmp / "fresh"
+    shutil.copytree(Path(liodom_tpu_torch.__file__).parent,
+                    fresh / "liodom_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+
+    # run_kitti at the launch file's defaults (15-frame window, the ring
+    # width auto-sized), results, a checkpoint at frame 24 and the PLYs
+    res, ck, viz = tmp / "res", tmp / "ck", tmp / "viz"
+    rep, counts = run_app(run_kitti, base + [
+        "--results-dir", res, "--checkpoint-dir", ck,
+        "--checkpoint-every", APP_CK_EVERY, "--export-viz", viz],
+        check, "run_kitti")
+    est = read_poses(res / "poses.txt")
+    rows = {name: len(np.loadtxt(res / name, ndmin=1))
+            for name in ("poses.txt", "feat_ext_times.txt",
+                         "laser_odom_times.txt", "nfeats.txt",
+                         "frame_times.txt")}
+    cfg = LiodomConfig(local_map_size=15, ring_width=rep["ring_width"])
+    state, direct = P.init_state(cfg, device=dev), []
+    for img, cnt, _ in KittiSequence(str(root), "00").iter_images(
+            cfg.scan_lines, cfg.ring_width, cfg.min_range, cfg.max_range):
+        state, pose, _ = P.image_step(state, torch.from_numpy(img).to(dev),
+                                      torch.from_numpy(cnt).to(dev), cfg)
+        direct.append(pose.matrix()[:3])
+    direct = torch.stack(direct).cpu().double().numpy()
+    direct_gap = traj_gap(est, direct)
+    ate = traj_ate(est, gt_pos)
+    want = launches(smoothness=n, select_edges=n, knn_coords=2 * n)
+    check(all(r == n for r in rows.values()), f"run_kitti results rows "
+          f"{rows} != {n}")
+    check(direct_gap[0] <= 1e-6, f"run_kitti vs an image_step loop over "
+          f"KittiSequence.iter_images: {direct_gap}")
+    check(ate < 0.1, f"run_kitti ATE over {N_ATE} frames {ate:.4f} m")
+    check(counts == want, f"run_kitti launch counts {counts} != {want}")
+    check(native.native_available(), "the native loader was not built")
+    check(rep["host_syncs"] == 0, f"run_kitti: {rep['host_syncs']} host "
+          "synchronisations between due points")
+    check(CK.latest_step(str(ck)) == APP_CK_EVERY,
+          f"run_kitti: checkpoint steps {CK.latest_step(str(ck))}")
+    emit(app_line("run_kitti", rep, counts, smi, results_rows=rows,
+                  vs_direct_loop_max_dt_m_drot_rad=direct_gap,
+                  native_loader=native.native_available(),
+                  ate_m_first_20=ate))
+
+    # the copy to the card: the apps' pinned staging against a copy from
+    # pageable memory (``.to(device)``, which ends in a stream
+    # synchronisation), image_step at run_kitti's configuration over the
+    # tree's frames, host clock to the last pose, in turns (A B B A A B)
+    frames = list(KittiSequence(str(root), "00").iter_images(
+        cfg.scan_lines, cfg.ring_width, cfg.min_range, cfg.max_range))
+    stager = Stager((cfg.scan_lines, cfg.ring_width, 3), dev)
+    puts = {"staged": stager.put,
+            "pageable": lambda img, cnt: (torch.from_numpy(img).to(dev),
+                                          torch.from_numpy(cnt).to(dev))}
+
+    def staging_drive(put):
+        def loop():
+            state = P.init_state(cfg, device=dev)
+            for img, cnt, _ in frames:
+                state, _, _ = P.image_step(state, *put(img, cnt), cfg)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, syncs = sync_free(loop)
+        return (time.perf_counter() - t0) * 1e3 / n, len(syncs) / n
+
+    staging = {name: [] for name in puts}
+    for name in ("staged", "pageable", "pageable", "staged", "staged",
+                 "pageable"):
+        staging[name].append(staging_drive(puts[name]))
+    check(all(sy == 0 for _, sy in staging["staged"]), "staged frames "
+          f"synchronised the host: {staging['staged']}")
+    emit({"phase": "apps", "run": "staging", "nvidia_smi": smi,
+          "frames": n, "window": cfg.local_map_size,
+          "ring_width": cfg.ring_width, "stager_waits": stager.waits,
+          **{f"{name}_ms_per_frame": [ms for ms, _ in r]
+             for name, r in staging.items()},
+          **{f"{name}_syncs_per_frame": [sy for _, sy in r]
+             for name, r in staging.items()}})
+
+    # --chunk 12: chained_image_step, three chunks
+    res_c = tmp / "res_chunk"
+    rep, counts = run_app(run_kitti, base + ["--results-dir", res_c,
+                                             "--chunk", 12],
+                          check, "run_kitti --chunk 12")
+    gap = traj_gap(read_poses(res_c / "poses.txt"), est)
+    check(gap[0] <= 1e-6, f"run_kitti --chunk 12 vs per frame: {gap}")
+    check(counts == want, f"run_kitti --chunk 12 launch counts {counts}")
+    check(rep["host_syncs"] == 0, f"run_kitti --chunk 12: "
+          f"{rep['host_syncs']} host synchronisations between due points")
+    emit(app_line("run_kitti --chunk 12", rep, counts, smi,
+                  vs_per_frame_max_dt_m_drot_rad=gap))
+
+    # --mapping: the launch file's map (40/50 m cells, 3/2 neighbours) and a
+    # 65,536-row received local map; K7 once a frame and once more for the
+    # end-of-run truncation check at the final pose, as the JAX app does
+    res_m, ck_m = tmp / "res_map", tmp / "ck_map"
+    rep, counts = run_app(run_kitti, base + [
+        "--mapping", "--results-dir", res_m, "--checkpoint-dir", ck_m,
+        "--checkpoint-every", APP_CK_EVERY], check, "run_kitti --mapping")
+    est_m = read_poses(res_m / "poses.txt")
+    ate = traj_ate(est_m, gt_pos)
+    want_m = launches(smoothness=n, select_edges=n, knn_coords=2 * n,
+                      local_map_compact=n + 1, probe_insert=n)
+    check(ate < 0.1, f"run_kitti --mapping ATE {ate:.4f} m")
+    check(rep["map_overflow"] == 0 and rep["local_map_truncated"] == 0,
+          f"run_kitti --mapping: overflow {rep['map_overflow']}, local map "
+          f"truncated by {rep['local_map_truncated']}")
+    check(counts == want_m, f"run_kitti --mapping launch counts {counts} "
+          f"!= {want_m}")
+    check(rep["host_syncs"] == 0, f"run_kitti --mapping: "
+          f"{rep['host_syncs']} host synchronisations between due points")
+    emit(app_line("run_kitti --mapping", rep, counts, smi,
+                  ate_m_first_20=ate))
+
+    # the resumes, each in a new process: the map restored there needs
+    # nothing of the look-back status words K7 keeps per device
+    res_mr = tmp / "res_map_resumed"
+    rep = run_app_process(fresh, "run_kitti", base + [
+        "--mapping", "--results-dir", res_mr, "--checkpoint-dir", ck_m],
+        check, "run_kitti --mapping resumed")
+    gap = traj_gap(read_poses(res_mr / "poses.txt")[APP_CK_EVERY:],
+                   est_m[APP_CK_EVERY:])
+    check(rep.get("start_frame") == APP_CK_EVERY, f"run_kitti --mapping "
+          f"resumed at {rep.get('start_frame')}")
+    check(gap[0] < 0.01 and gap[1] < 1e-3, f"run_kitti --mapping resumed "
+          f"vs uninterrupted: {gap}")
+    check(rep.get("kernel_build") == "cold", "the first new process found the "
+          "kernels built")
+    check(rep["host_syncs"] == 0, f"run_kitti --mapping resumed: "
+          f"{rep['host_syncs']} host synchronisations between due points")
+    emit(app_line("run_kitti --mapping, resumed in a new process", rep,
+                  None, smi, vs_uninterrupted_max_dt_m_drot_rad=gap))
+    res_r = tmp / "res_resumed"
+    rep = run_app_process(fresh, "run_kitti", base + [
+        "--results-dir", res_r, "--checkpoint-dir", ck], check,
+        "run_kitti resumed")
+    gap = traj_gap(read_poses(res_r / "poses.txt")[APP_CK_EVERY:],
+                   est[APP_CK_EVERY:])
+    check(rep.get("start_frame") == APP_CK_EVERY, f"run_kitti resumed at "
+          f"{rep.get('start_frame')}")
+    check(gap[0] <= 1e-6, f"run_kitti resumed vs uninterrupted: {gap}")
+    check(rep.get("kernel_build") == "warm", "the second new process rebuilt "
+          f"{rep.get('compiled')}")
+    check(rep["host_syncs"] == 0, f"run_kitti resumed: {rep['host_syncs']} "
+          "host synchronisations between due points")
+    emit(app_line("run_kitti, resumed in a new process", rep, None, smi,
+                  vs_uninterrupted_max_dt_m_drot_rad=gap))
+
+    # run_synthetic: its defaults (20 frames), then the map on raw scans
+    for label, argv in (("run_synthetic", []),
+                        ("run_synthetic --mapping --raw-path",
+                         ["--mapping", "--raw-path"])):
+        rep, counts = run_app(run_synthetic, argv, check, label)
+        check(rep["ate_m"] < 0.1, f"{label} ATE {rep['ate_m']:.4f} m")
+        check(rep["host_syncs"] == 0, f"{label}: {rep['host_syncs']} host "
+              "synchronisations between its frames")
+        emit(app_line(label, rep, counts, smi))
+
+    # run_ouster --dir on phase 6's organised clouds (the 128-row preset),
+    # then a resume whose checkpoint covers every file
+    odir, res_o, ck_o = tmp / "ouster", tmp / "res_ouster", tmp / "ck_ouster"
+    odir.mkdir()
+    for i, spin in enumerate(spins[:N_OUSTER_APP]):
+        np.save(odir / f"{i:06d}.npy", organized_from_unorganized(
+            spin, OUSTER_CFG.scan_lines, OUSTER_COLS))
+    o_args = ["--dir", odir, "--prefetch", 8, "--checkpoint-dir", ck_o,
+              "--checkpoint-every", N_OUSTER_APP]
+    rep, counts = run_app(run_ouster, o_args + ["--results-dir", res_o],
+                          check, "run_ouster")
+    ate = traj_ate(read_poses(res_o / "poses.txt"), gt_pos)
+    want_o = launches(smoothness=N_OUSTER_APP, select_edges=N_OUSTER_APP,
+                      knn_coords=2 * N_OUSTER_APP)
+    check(rep["rings"] == OUSTER_CFG.scan_lines
+          and rep["frames"] == N_OUSTER_APP, f"run_ouster read "
+          f"{rep['rings']} rows, {rep['frames']} frames")
+    check(ate < 0.1, f"run_ouster ATE {ate:.4f} m")
+    check(counts == want_o, f"run_ouster launch counts {counts}")
+    check(rep["host_syncs"] == 0, f"run_ouster: {rep['host_syncs']} host "
+          "synchronisations between due points")
+    emit(app_line("run_ouster --dir", rep, counts, smi, ate_m_first_20=ate))
+    rep, counts = run_app(run_ouster, o_args, check, "run_ouster resumed")
+    check(rep.get("frames") == 0 and counts == launches(),
+          f"run_ouster resumed past its files ran {rep.get('frames')} "
+          f"frames, launches {counts}")
+    emit(app_line("run_ouster, checkpoint covers every file", rep, counts,
+                  smi))
+
+    # run_mapping on run_kitti's trajectory
+    map_out = tmp / "map_out"
+    rep, counts = run_app(run_mapping, base + [
+        "--poses", res / "poses.txt", "--out", map_out], check,
+        "run_mapping")
+    want = launches(smoothness=n, select_edges=n, probe_insert=n,
+                    local_map_compact=1)
+    check(rep["occupied_slots"] > 0, "run_mapping: empty map")
+    check((map_out / "map.ply").exists(), "run_mapping wrote no map.ply")
+    check(counts == want, f"run_mapping launch counts {counts} != {want}")
+    emit(app_line("run_mapping", rep, counts, smi))
+    emit({"phase": "apps", "run": "all",
+          "seconds": time.perf_counter() - t_phase})
 
 
 def main() -> int:
@@ -1386,7 +1739,11 @@ def main() -> int:
           "backend": "gloo", "max_dt_m": sc_gap[0], "max_drot_rad": sc_gap[1],
           "same_n_edges": sc_same, "seconds": time.perf_counter() - t0})
 
-    # ---- 13. the bench drive: steady-state time a frame -------------------
+    # ---- 13. the apps, as a user runs them (before the profiler runs) -----
+    with tempfile.TemporaryDirectory() as tmp:
+        apps_phase(Path(tmp), spins, gt_pos, gt_yaw, dev, smi, check)
+
+    # ---- 14. the bench drive: steady-state time a frame -------------------
     bimgs = bench[0][0]
     bench_b = {b: stack_lanes([bench[s][0] for s in range(b)])
                for b in TIMED_BATCHES}
@@ -1494,7 +1851,7 @@ def main() -> int:
                           bench_b[max(TIMED_BATCHES)][:N_FRAMES - 5], cfg,
                           keep=False, step=P.batch_image_step)[0][-1]
 
-    # ---- 14. each kernel against its plain version, bench shapes ---------
+    # ---- 15. each kernel against its plain version, bench shapes ---------
     img = bimgs[N_FRAMES - 1]
     sm_k = SM.smoothness_cuda(img.xyz, img.count)
     sm_p = SM.smoothness_plain(img.xyz, img.count)
@@ -2051,7 +2408,7 @@ def main() -> int:
          "ptxas": usage.get("probe_insert")},
     ]
 
-    # ---- 15. where a frame's device time goes ----------------------------
+    # ---- 16. where a frame's device time goes ----------------------------
     # the bench drive's last frames again, from the states they met
     n_prof = 5
     last = bimgs[N_FRAMES - n_prof:]

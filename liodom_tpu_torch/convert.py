@@ -5,8 +5,9 @@ prev_odom, received map, imu_ori), turned into numpy arrays by its caller,
 becomes the port's :class:`~liodom_tpu_torch.odometry.pipeline.OdomState`,
 and its ``MapState`` the port's :class:`~liodom_tpu_torch.mapping.grid.
 MapState`, so both engines can continue from the same mid-course state; the
-sharded layouts of the parallel layer are taken apart rank by rank.  The
-system has no weights; this is their counterpart.
+sharded layouts of the parallel layer are taken apart rank by rank, and a
+JAX run's checkpoint becomes the port's (:func:`checkpoint_from_numpy`).
+The system has no weights; this is their counterpart.
 """
 
 from __future__ import annotations
@@ -148,3 +149,35 @@ def sharded_combined_state_from_numpy(np_state: Sequence, d: int, m: int,
         f32(np.asarray(wxyz)[d, m]), flag(np.asarray(wvalid)[d, m]),
         idx(np.asarray(slot)[d]), idx(np.asarray(nframes)[d]),
         f32(np.asarray(rxyz)[d, m]), flag(np.asarray(rvalid)[d, m]))
+
+
+def checkpoint_from_numpy(ckpt, device=None):
+    """The port's :class:`~liodom_tpu_torch.runtime.checkpoint.
+    EngineCheckpoint` from a JAX package's one restored without a template
+    (``liodom_tpu.runtime.checkpoint.restore(directory)``): its states are
+    nested dicts keyed by the NamedTuple field names, their leaves arrays
+    (numpy or JAX, read through ``np.asarray``).  The odometry state goes
+    through :func:`state_from_numpy` and the map through
+    :func:`map_state_from_numpy`; orbax's one-byte stand-in for the empty
+    received map of an odometry-only run (an int8 leaf where a bool mask
+    belongs) becomes the empty map again.  A run resumed from the result
+    continues the JAX run."""
+    from liodom_tpu_torch.runtime.checkpoint import EngineCheckpoint
+    o = ckpt.odom_state
+    window = o["window"]
+    rxyz, rvalid = o["received_xyz"], o["received_valid"]
+    if np.asarray(rvalid).dtype != np.bool_:
+        rxyz, rvalid = np.zeros((0, 3), np.float32), np.zeros((0,), bool)
+    # np.array copies: a restored JAX array reads back as a read-only
+    # buffer, which a tensor must not alias
+    state = state_from_numpy({k: np.array(v) for k, v in {
+        "window_xyz": window["xyz"], "window_valid": window["valid"],
+        "next_slot": window["next_slot"], "nframes": window["nframes"],
+        "odom_q": o["odom"]["q"], "odom_t": o["odom"]["t"],
+        "prev_q": o["prev_odom"]["q"], "prev_t": o["prev_odom"]["t"],
+        "received_xyz": rxyz, "received_valid": rvalid,
+        "imu_ori": o["imu_ori"]}.items()}, device)
+    mstate = (None if ckpt.map_state is None else map_state_from_numpy(
+        {k: np.array(ckpt.map_state[k]) for k in MAP_KEYS}, device))
+    traj = np.asarray(ckpt.trajectory, np.float64).reshape(-1, 3, 4)
+    return EngineCheckpoint(state, mstate, traj, int(ckpt.frame_index))

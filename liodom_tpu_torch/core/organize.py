@@ -1,7 +1,7 @@
 """Row-organised (Ouster-style) clouds from unorganised ones: the port's
 copy of the numpy helper ``organized_from_unorganized`` of
-``liodom_tpu/core/io.py`` (that module is otherwise not ported).  It turns
-a synthetic spin into the input of
+``liodom_tpu/core/io.py`` (the port's ``core/io.py`` re-exports it).  It
+turns a synthetic spin into the input of
 :func:`liodom_tpu_torch.ops.features.split_scan_ouster`."""
 
 from __future__ import annotations

@@ -596,3 +596,34 @@ def test_voxel_downsample_on_the_card_is_the_cpu_result(dev):
     # the leaves' sums run in sorted order on both devices: bit for bit
     assert torch.equal(gv.cpu(), cv) and int(cv.sum()) > 1000
     assert torch.equal(gx.cpu(), cx) and torch.equal(gx, gx2)
+
+
+def test_stager_and_steps_make_no_host_sync(dev):
+    """The apps' frame loop between due points: frames staged from pinned
+    buffers and ``image_step`` on them, under torch's sync debug mode set to
+    raise, more frames than the stager has slots; then one block fetch
+    gives the poses of an ``image_step`` loop on plainly copied frames."""
+    from liodom_tpu_torch.runtime.device_io import Stager, fetch_poses
+    cfg, imgs = _images(6)
+    host = [(im.xyz.numpy(), im.count.numpy()) for im in imgs]
+    state = P.init_state(cfg)
+    P.image_step(state, imgs[0].xyz.to(dev), imgs[0].count.to(dev), cfg)
+    stager = Stager((cfg.scan_lines, cfg.ring_width, 3), dev, slots=2)
+    pending = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for x, c in host:
+            state, pose, ne = P.image_step(state, *stager.put(x, c), cfg)
+            pending.append((pose.q, pose.t, ne))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    mats, nes = fetch_poses(pending)
+    ref, ref_ne = P.init_state(cfg), []
+    for im in imgs:
+        ref, pose, ne = P.image_step(ref, im.xyz.to(dev), im.count.to(dev),
+                                     cfg)
+        ref_ne.append(int(ne))
+        assert np.array_equal(mats[len(ref_ne) - 1],
+                              pose.matrix().cpu().double().numpy())
+    assert nes.tolist() == ref_ne

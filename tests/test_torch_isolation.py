@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither jax nor liodom_tpu (nor does a
-``parallel.launch`` run), its entry points default to CUDA and raise
-without it, and a CPU tensor takes each kernel's plain version without
+``parallel.launch`` run), its entry points and apps default to CUDA and
+raise without it, and a CPU tensor takes each kernel's plain version without
 touching a launch counter."""
 
 import json
@@ -66,7 +66,13 @@ def test_port_and_chip_smoke_import_no_jax():
                  "ops.probe_insert", "ops.voxel", "core.organize",
                  "mapping.grid", "mapping.service",
                  "parallel.mesh", "parallel.sharded", "parallel.sharded_map",
-                 "parallel.combined", "parallel.launch", "convert"):
+                 "parallel.combined", "parallel.launch", "convert",
+                 "core.io", "core.presets", "runtime.native",
+                 "runtime.stats", "runtime.publisher", "runtime.channels",
+                 "runtime.viz", "runtime.tracer", "runtime.checkpoint",
+                 "runtime.logging_config", "runtime.device_io",
+                 "apps.run_kitti", "apps.run_synthetic", "apps.run_ouster",
+                 "apps.run_mapping"):
         assert f"liodom_tpu_torch.{name}" in res["modules"]
 
 
@@ -140,6 +146,27 @@ def test_entry_points_default_to_cuda():
             init_batch_state(cfg, 2)
     assert G.init_map(64, device="cpu").code.device.type == "cpu"
     assert init_batch_state(cfg, 2, device="cpu").odom.t.shape == (2, 3)
+
+
+def test_apps_default_to_cuda(tmp_path):
+    """Each app runs on CUDA unless ``--device cpu``: without a card and
+    that flag it raises before it reads any input; so does a trace that
+    names no device."""
+    from liodom_tpu_torch.apps import (run_kitti, run_mapping, run_ouster,
+                                       run_synthetic)
+    from liodom_tpu_torch.runtime.tracer import DeviceTrace
+    argvs = ((run_kitti, ["--root", str(tmp_path)]),
+             (run_mapping, ["--root", str(tmp_path), "--poses", "p.txt"]),
+             (run_ouster, ["--synthetic"]), (run_synthetic, []))
+    for app, argv in argvs:
+        assert app.parse_args(argv).device is None
+        assert app.parse_args(argv + ["--device", "cpu"]).device == "cpu"
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                app.main(argv)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DeviceTrace(str(tmp_path))
 
 
 def test_raw_scan_entry_points_default_to_cuda():
