@@ -23,6 +23,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from liodom_tpu_torch.runtime.cache import enable_persistent_cache
+
+enable_persistent_cache()
+
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
@@ -69,6 +73,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="directory for PLY exports (trajectory; per-frame "
                     "debug dumps every --viz-every frames)")
     ap.add_argument("--viz-every", type=int, default=0)
+    ap.add_argument("--aot", action="store_true",
+                    help="warm start: build the kernels and capture the "
+                    "step as a CUDA graph before frame 0, one graph a "
+                    "local-map refresh pattern (runtime/aot.py); the chunk "
+                    "mode's remainder frames take the eager step")
     ap.add_argument("--device", default=None,
                     help="torch device; CUDA unless given (cpu runs the "
                     "kernels' plain versions)")
@@ -89,6 +98,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     from liodom_tpu_torch.runtime import native
     from liodom_tpu_torch.runtime.channels import FrequencyMonitor
     from liodom_tpu_torch.runtime.device_io import (Stager, SyncAudit,
+                                                    staging_slots,
                                                     device_name, fetch_poses,
                                                     path_kernels,
                                                     prepare_kernels,
@@ -184,8 +194,15 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             report["frames"] = 0
             return report
 
+    if args.aot:
+        step_frame, step_chunk, captured = _captured_steps(
+            args, cfg, mcfg, state, mstate, dev, chunk, start_frame, n,
+            step_frame, step_chunk)
+        report.update(captured)
+
     stager = Stager((cfg.scan_lines, cfg.ring_width, 3), dev,
-                    slots=2 * chunk + 2)
+                    slots=staging_slots(
+                        chunk, (args.time_every, args.sync_every), args.aot))
     audit = SyncAudit(dev)
     ring_dropped = 0          # points lost to the ring_width clamp (loader)
     last_odom_ms = float("nan")   # latest sampled device latency
@@ -359,6 +376,86 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                   f"{np.degrees(r_err):.3f} deg")
         report["ate_m"] = ate
     return report
+
+
+def _captured_steps(args, cfg, mcfg, state, mstate, dev, chunk: int,
+                    start_frame: int, n: int, step_frame, step_chunk):
+    """``--aot``: the step captured before frame 0 (``runtime/aot.py``),
+    one graph for each local-map refresh pattern the run meets — the
+    per-frame step's refresh or not, each full chunk's pattern from its
+    first frame's index modulo the cadence; the remainder frames of the
+    chunk mode keep the eager ``step_frame``, as the JAX app's do.
+    Returns (step_frame, step_chunk, {"aot_capture_s", "graphs"})."""
+    import torch
+
+    from liodom_tpu_torch.mapping.service import (
+        chained_combined_image_step, combined_image_step)
+    from liodom_tpu_torch.odometry import pipeline as P
+    from liodom_tpu_torch.runtime import aot
+
+    t0 = time.perf_counter()
+    every = max(args.local_map_every, 1)
+    img = torch.zeros((cfg.scan_lines, cfg.ring_width, 3),
+                      dtype=torch.float32, device=dev)
+    cnt = torch.zeros((cfg.scan_lines,), dtype=torch.int32, device=dev)
+    head = (state, mstate) if args.mapping else (state,)
+    graphs = {}
+    if chunk == 1:
+        for refresh in ((True, False) if args.mapping and every > 1
+                        else (True,)):
+            if args.mapping:
+                def fn(s, m, x, c, i=0 if refresh else 1):
+                    return combined_image_step(s, m, x, c, cfg, mcfg, step=i,
+                                               local_map_every=every)
+            else:
+                def fn(s, x, c):
+                    return P.image_step(s, x, c, cfg)
+            graphs[refresh] = aot.get_or_compile(
+                "kitti_combined" if args.mapping else "kitti_image_step", fn,
+                head + (img, cnt), extra=f"{cfg}|{mcfg}|every={every}"
+                f"|refresh={refresh}")
+
+        def captured_frame(s, m, x, c, i):
+            g = graphs[every == 1 or i % every == 0]
+            if args.mapping:
+                return g(s, m, x, c)
+            s, pose, ne = g(s, x, c)
+            return s, m, pose, ne
+        step_frame = captured_frame
+    else:
+        imgs = torch.stack([img] * chunk)
+        cnts = torch.stack([cnt] * chunk)
+        phases = ({i0 % every for i0 in range(start_frame, n - chunk + 1,
+                                               chunk)}
+                  if args.mapping else {0})
+        for phase in sorted(phases):
+            if args.mapping:
+                def fn(s, m, xs, cs, i0=phase):
+                    return chained_combined_image_step(
+                        s, m, xs, cs, cfg, mcfg, step0=i0,
+                        local_map_every=every)
+            else:
+                def fn(s, xs, cs):
+                    return P.chained_image_step(s, xs, cs, cfg)
+            graphs[phase] = aot.get_or_compile(
+                "kitti_combined_chunk" if args.mapping
+                else "kitti_image_chunk", fn, head + (imgs, cnts),
+                extra=f"{cfg}|{mcfg}|every={every}|chunk={chunk}"
+                f"|phase={phase}")
+
+        def captured_chunk(s, m, xs, cs, i0):
+            g = graphs[i0 % every if args.mapping else 0]
+            if args.mapping:
+                return g(s, m, xs, cs)
+            s, poses, nes = g(s, xs, cs)
+            return s, m, poses, nes
+        step_chunk = captured_chunk
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out = {"aot_capture_s": time.perf_counter() - t0, "graphs": len(graphs)}
+    print(f"aot: {len(graphs)} step(s) captured in {out['aot_capture_s']:.2f}"
+          f" s")
+    return step_frame, step_chunk, out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

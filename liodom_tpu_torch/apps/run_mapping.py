@@ -25,6 +25,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from liodom_tpu_torch.runtime.cache import enable_persistent_cache
+
+enable_persistent_cache()
+
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()

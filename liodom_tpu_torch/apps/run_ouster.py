@@ -34,6 +34,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from liodom_tpu_torch.runtime.cache import enable_persistent_cache
+
+enable_persistent_cache()
+
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
@@ -56,6 +60,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     "frame with a blocking pose fetch")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=500)
+    ap.add_argument("--aot", action="store_true",
+                    help="warm start: build the kernels and capture the "
+                    "step as a CUDA graph before frame 0 "
+                    "(runtime/aot.py); the chunk mode's remainder frames "
+                    "take the eager step")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="load+split worker threads")
     ap.add_argument("--results-dir", default=None)
@@ -77,6 +86,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     from liodom_tpu_torch.runtime import checkpoint as CK
     from liodom_tpu_torch.runtime.channels import FrequencyMonitor
     from liodom_tpu_torch.runtime.device_io import (Stager, SyncAudit,
+                                                    staging_slots,
                                                     device_name, fetch_poses,
                                                     path_kernels,
                                                     prepare_kernels)
@@ -163,6 +173,34 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             report["frames"] = 0
             return report
 
+    def step_image(s, x, c):
+        return P.image_step(s, x, c, cfg)
+
+    def step_chunk(s, xs, cs):
+        return P.chained_image_step(s, xs, cs, cfg)
+
+    if args.aot:
+        from liodom_tpu_torch.runtime import aot
+        t_aot = time.perf_counter()
+        ex_img = torch.zeros((cfg.scan_lines, cfg.ring_width, 3),
+                             dtype=torch.float32, device=dev)
+        ex_cnt = torch.zeros((cfg.scan_lines,), dtype=torch.int32,
+                             device=dev)
+        if chunk > 1:
+            step_chunk = aot.get_or_compile(
+                "ouster_image_chunk", step_chunk,
+                (state, torch.stack([ex_img] * chunk),
+                 torch.stack([ex_cnt] * chunk)),
+                extra=f"{cfg}|chunk={chunk}")
+        else:
+            step_image = aot.get_or_compile(
+                "ouster_image_step", step_image, (state, ex_img, ex_cnt),
+                extra=str(cfg))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        report.update(aot_capture_s=time.perf_counter() - t_aot, graphs=1)
+        print(f"aot: 1 step captured in {report['aot_capture_s']:.2f} s")
+
     pool = ThreadPoolExecutor(max_workers=args.prefetch)
     depth = max(args.prefetch * 2, chunk + 2)
     futures = {i: pool.submit(make_frame, i)
@@ -176,7 +214,8 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         return out
 
     stager = Stager((cfg.scan_lines, cfg.ring_width, 3), dev,
-                    slots=2 * chunk + 2)
+                    slots=staging_slots(chunk, (args.time_every, 50),
+                                        args.aot))
     audit = SyncAudit(dev)
     n_dropped = 0
     cbuf, pending = [], []
@@ -198,7 +237,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                 t0 = time.perf_counter()
                 x, c = stager.put(img, counts)
                 if chunk == 1:
-                    state, pose, n_edges = P.image_step(state, x, c, cfg)
+                    state, pose, n_edges = step_image(state, x, c)
                     pending.append((pose.q, pose.t, n_edges))
                     flushed = True
                 else:
@@ -206,9 +245,9 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                     flushed = len(cbuf) == chunk or i == n - 1
                     if flushed:
                         if len(cbuf) == chunk:
-                            state, cposes, cnes = P.chained_image_step(
+                            state, cposes, cnes = step_chunk(
                                 state, torch.stack([b[0] for b in cbuf]),
-                                torch.stack([b[1] for b in cbuf]), cfg)
+                                torch.stack([b[1] for b in cbuf]))
                             pending.append((cposes.q, cposes.t, cnes))
                         else:
                             for bx, bc in cbuf:

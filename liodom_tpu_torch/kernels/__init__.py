@@ -5,7 +5,8 @@ its own shared library with a plain C interface, loaded with ``ctypes``.
 Nothing is compiled when this module is imported: a library is built the
 first time a kernel is asked for on a CUDA tensor, or by :func:`build_all`,
 which starts one ``nvcc`` per source in parallel.  Builds land in
-``kernels/build/`` (git-ignored), named by a hash of the source and the
+``kernels/build/`` (git-ignored; ``runtime/cache.py`` may name another
+directory before the first build), named by a hash of the source and the
 flags (and of the shared headers ``csrc/*.cuh``), so an edited source is
 rebuilt and an unchanged one is reused.
 """
@@ -35,6 +36,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_started = False            # a build or a load has used BUILD_DIR
+
+
+def set_build_dir(path) -> Path:
+    """Make ``path`` the build directory if no library has been built or
+    loaded yet; returns the build directory in use, created."""
+    global BUILD_DIR
+    with _lock:
+        if path is not None and not _started:
+            BUILD_DIR = Path(path).resolve()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        return BUILD_DIR
 
 
 def nvcc_path() -> str:
@@ -67,7 +80,9 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     ``nvcc`` process per source, all started together.  Returns
     ``{name: compiler log}`` (``ptxas`` register and shared-memory report)
     for the sources compiled by this call; raises if any compile fails."""
+    global _started
     nvcc = nvcc_path()
+    _started = True
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
@@ -99,7 +114,9 @@ def load(name: str, signatures: Iterable[tuple]) -> ctypes.CDLL:
 
     ``signatures``: ``(symbol, argtypes)`` pairs; every entry point returns
     the ``cudaError_t`` of its launch as an int."""
+    global _started
     with _lock:
+        _started = True
         lib = _libs.get(name)
         if lib is None:
             path = library_path(name, nvcc_path())

@@ -148,18 +148,45 @@ def _decode_cell_keys(code: torch.Tensor, cfg: MapConfig) -> torch.Tensor:
                         axis_key(21, sz)], dim=-1)
 
 
+def _slot_sums(slot: torch.Tensor, payload: torch.Tensor, cap: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-slot sums of the frame's rows: a stable sort by slot, then each
+    slot's rows added in row order (``segment_reduce``), the order of JAX's
+    scatter-add on the CPU, so a sum is the same on every device and from
+    run to run (``index_add_`` on CUDA adds in atomic order).  Returns (the
+    slot of each segment (E,) int64, its sums (E, W)); the segments past
+    the last slot are empty and name ``cap``."""
+    e = slot.shape[0]
+    dev = slot.device
+    order = torch.argsort(slot, stable=True)
+    slot_s = slot[order]
+    head = torch.ones_like(slot_s, dtype=torch.bool)
+    head[1:] = slot_s[1:] != slot_s[:-1]
+    seg = torch.cumsum(head.to(torch.int64), dim=0) - 1
+    lengths = torch.zeros(e, dtype=torch.int64, device=dev).index_add_(
+        0, seg, torch.ones_like(seg))
+    # unsafe: the lengths sum to E by construction; checking it would read
+    # them back to the host
+    sums = torch.segment_reduce(payload[order], "sum", lengths=lengths,
+                                axis=0, unsafe=True)
+    # every row of a segment holds its slot: any writer gives the same value
+    seg_slot = torch.full((e,), cap, dtype=torch.int64,
+                          device=dev).scatter_(0, seg, slot_s)
+    return seg_slot, sums
+
+
 def update_map(state: MapState, pts: torch.Tensor, valid: torch.Tensor,
                pose: Pose, cfg: MapConfig) -> MapState:
     """Hash-grid ``Map::updateMap`` (map.cc:90-129), the production path.
 
     Transform to world, route each point to its (cell, leaf), find or
-    insert its slot, then fold the new points into the slot centroids: one
-    E-sized ``index_add_`` of ``[x y z 1]`` and C-sized element-wise passes
-    (``key`` and ``valid`` decoded from the table).  Points are dropped, and
-    counted in ``overflow``, when the probe exhausts its 64 rounds.
-    Non-packable configs take :func:`update_map_full`.  On CUDA the sums of
-    ``index_add_`` land in a varying order, so a centroid may differ from
-    the CPU's in its last ulp; every integer output is the same."""
+    insert its slot, then fold the new points into the slot centroids: the
+    E-sized per-slot sums of ``[x y z 1]`` (:func:`_slot_sums`, in row
+    order, so the map is the same from run to run on the card) and C-sized
+    element-wise passes (``key`` and ``valid`` decoded from the table).
+    Points are dropped, and counted in ``overflow``, when the probe
+    exhausts its 64 rounds.  Non-packable configs take
+    :func:`update_map_full`."""
     if not packable(cfg):
         return update_map_full(state, pts, valid, pose, cfg)
 
@@ -171,12 +198,13 @@ def update_map(state: MapState, pts: torch.Tensor, valid: torch.Tensor,
 
     tab, slot, _claimed, failed = probe_insert(state.code, code, valid)
     ok = valid & ~failed
-    slot_c = torch.where(ok, slot, cap)             # cap -> spare row, dropped
+    slot_c = torch.where(ok, slot.to(torch.int64), cap)  # cap: spare, dropped
 
     payload = torch.cat([torch.where(ok[:, None], new_xyz, 0.0),
                          ok[:, None].to(dtype)], dim=1)        # (E, 4)
+    seg_slot, sums = _slot_sums(slot_c, payload, cap)
     acc = torch.zeros((cap + 1, 4), dtype=dtype, device=new_xyz.device)
-    acc = acc.index_add_(0, slot_c, payload)[:cap]
+    acc = acc.index_copy_(0, seg_slot, sums)[:cap]
     add_sum, add_cnt = acc[:, :3], acc[:, 3]
     base_w = state.valid.to(dtype)                  # stored centroid weight
     touched = add_cnt > 0
@@ -186,6 +214,60 @@ def update_map(state: MapState, pts: torch.Tensor, valid: torch.Tensor,
                           state.xyz)
     out_valid = tab != EMPTY
     out_key = torch.where(out_valid[:, None], _decode_cell_keys(tab, cfg), 0)
+
+    dropped = (valid & failed).sum(dtype=torch.int32)
+    return MapState(out_xyz, out_key, out_valid, state.overflow + dropped, tab)
+
+
+def update_map_sparse_epilogue(state: MapState, pts: torch.Tensor,
+                               valid: torch.Tensor, pose: Pose,
+                               cfg: MapConfig) -> MapState:
+    """The O(E) variant of :func:`update_map` (``grid.py:334``), which the
+    JAX package measured slower and keeps for the comparison of
+    ``scripts/map_epilogue_sweep.py``: every pass after the probe is
+    frame-sized.  The per-slot sums are :func:`update_map`'s
+    (:func:`_slot_sums`); the touched centroids are gathered, updated and
+    written back in place of the C-sized fold, and ``key`` and
+    ``valid`` are stamped only at the slots claimed by this call (a matched
+    slot carries them already); the key is the reference expression on the
+    claiming point, the packed-code decode of :func:`update_map` for every
+    cell the code does not alias.  Same slots, keys, validity, table and
+    overflow as :func:`update_map`; centroids to float32 rounding.
+    Non-packable configs take :func:`update_map_full`."""
+    if not packable(cfg):
+        return update_map_full(state, pts, valid, pose, cfg)
+
+    cap = state.xyz.shape[0]
+    dtype = state.xyz.dtype
+
+    new_xyz = se3.transform(pose, pts.to(dtype))
+    code = _packed_codes(new_xyz, valid, cfg)
+
+    tab, slot, claimed, failed = probe_insert(state.code, code, valid)
+    ok = valid & ~failed
+    slot = slot.to(torch.int64)
+    slot_c = torch.where(ok, slot, cap)             # cap -> spare row, dropped
+
+    payload = torch.cat([torch.where(ok[:, None], new_xyz, 0.0),
+                         ok[:, None].to(dtype)], dim=1)        # (E, 4)
+    seg_slot, acc = _slot_sums(slot_c, payload, cap)
+    sums, cnts = acc[:, :3], acc[:, 3]
+
+    # new centroid per touched slot = VoxelGrid over {stored centroid
+    # (weight = valid)} + {this frame's points in the leaf}
+    tgt = torch.where((cnts > 0) & (seg_slot < cap), seg_slot, cap)
+    g = torch.clamp(tgt, max=cap - 1)                # a safe gather index
+    w0 = state.valid[g].to(dtype)
+    cent = ((state.xyz[g] * w0[:, None] + sums)
+            / torch.clamp(w0 + cnts, min=1.0)[:, None])
+    spare = state.xyz.new_zeros((1, 3))
+    out_xyz = torch.cat([state.xyz, spare]).index_copy_(0, tgt, cent)[:cap]
+
+    claim_tgt = torch.where(claimed, slot, cap)
+    out_key = torch.cat([state.key, state.key.new_zeros((1, 3))]).index_copy_(
+        0, claim_tgt, cell_keys(new_xyz, cfg))[:cap]
+    out_valid = torch.cat([state.valid, state.valid.new_zeros(1)]).index_fill_(
+        0, claim_tgt, True)[:cap]
 
     dropped = (valid & failed).sum(dtype=torch.int32)
     return MapState(out_xyz, out_key, out_valid, state.overflow + dropped, tab)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +42,7 @@ _SIG = [("liodom_local_map_compact", [ctypes.c_void_p] * 5
         ("liodom_local_map_compact_shape", [ctypes.c_int, ctypes.c_int,
                                             ctypes.c_void_p])]
 _STATE: Dict[torch.device, torch.Tensor] = {}
+_RETIRED: List[torch.Tensor] = []     # outgrown _STATE buffers, kept
 
 
 def compact_rows_plain(xyz: torch.Tensor, hit: torch.Tensor, capacity: int
@@ -112,11 +113,12 @@ def compact_hits_tiled(xyz: torch.Tensor, key: torch.Tensor,
     return out, out_valid, n_hits
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def _device_offsets(data: bytes, device: torch.device) -> torch.Tensor:
     """The (K, 3) int32 offsets of ``data`` sorted by (x, y, z), the
     order the kernel's binary search takes (adding the base keeps it), on
-    ``device``: copied once per neighbourhood and device and kept, from
+    ``device``: copied once per neighbourhood and device and kept for the
+    life of the process (a captured CUDA graph holds their address), from
     pinned memory without waiting, so no step synchronises with the host
     for them."""
     offs = np.frombuffer(data, np.int32).reshape(-1, 3)
@@ -132,9 +134,12 @@ def _lookback_state(device: torch.device, tiles: int) -> torch.Tensor:
     a tile, zeroed when first needed (or outgrown) and then left to the
     kernel, which tags each launch's words with the next epoch, so no call
     clears them.  Launches on one device must therefore be ordered (one
-    stream)."""
+    stream).  An outgrown buffer is kept alive: a captured CUDA graph may
+    still launch K7 on it."""
     state = _STATE.get(device)
     if state is None or state.numel() < 1 + tiles:
+        if state is not None:
+            _RETIRED.append(state)
         state = torch.zeros(1 + max(tiles, 256), dtype=torch.int64,
                             device=device)
         _STATE[device] = state

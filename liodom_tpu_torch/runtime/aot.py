@@ -1,0 +1,157 @@
+"""Warm start: a step captured as a CUDA graph before frame 0 (port of
+``runtime/aot.py``).
+
+The JAX package's ``get_or_compile`` hands an app its step compiled ahead
+of the first frame and specialised to the argument shapes, so the first
+frame pays no compile.  The port has no compiler in the loop; its cold
+costs are the ``nvcc`` build of the kernels (kept by ``runtime/cache.py``),
+the first launches (libraries loaded, K7's neighbourhood offsets copied to
+the card, the allocator filled) and, every frame, the host's dispatch of
+some 2,000 launches.  :func:`get_or_compile` pays the first two before
+frame 0 and captures one call of the step in a ``torch.cuda.CUDAGraph``,
+which replays those launches without the host dispatching them.
+
+Contract, as in JAX: the callable takes exactly ``example_args``'s
+structure, with every tensor of the example's shape, dtype and device;
+anything else in the structure (a host int, a config) is baked into the
+graph and must equal the example's.  A host value that chooses a branch
+(the local-map refresh of ``combined_image_step``) is therefore part of
+the graph: capture one graph a branch pattern, each under its own
+``extra``.
+
+Outputs: each call copies its tensors into the graph's input buffers,
+replays, and returns clones of the graph's outputs, so a tensor returned
+by one call is never written by the next (a caller may keep poses across
+calls) and the state a caller passes back aliases no graph buffer.  The
+copies cost two passes over the state a frame (on a 2^20-slot map, ~35 MB
+read and written each way).
+
+Graphs live in an in-process registry keyed by :func:`_tag`; a CUDA graph
+cannot outlive its process, so nothing is written to disk: with ``save``,
+``directory`` names the kernels' library directory (``runtime/cache.py``,
+taking effect before the first build), the one artefact that persists.
+There is no counterpart of JAX's serialised executable.  On a CPU device,
+which the caller has to ask for, there is no graph: ``fn`` is returned
+after one warm call.  A capture that fails raises; nothing falls back to
+the eager step.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+from typing import Any, Callable, Dict, Optional
+
+import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from liodom_tpu_torch.runtime import cache
+
+_GRAPHS: Dict[str, Callable[..., Any]] = {}
+_LOCK = threading.Lock()
+WARM_CALLS = 2              # eager calls on a side stream before a capture
+
+
+def _device(leaves) -> torch.device:
+    """The one device of the tensor leaves; raises for none or several."""
+    devs = {x.device for x in leaves if isinstance(x, torch.Tensor)}
+    if len(devs) != 1:
+        raise ValueError(f"get_or_compile: example tensors on {devs or 'no'} "
+                         "device(s); they must share one")
+    return devs.pop()
+
+
+def _tag(name: str, example_args, extra: str = "") -> str:
+    """Identity of a compiled step: ``name``, the torch version, the device
+    kind, every leaf's shape and dtype (a non-tensor leaf's value, which the
+    graph bakes in), and ``extra``, which must carry whatever changes the
+    step without changing a shape (the configs, a branch pattern)."""
+    leaves, _ = tree_flatten(example_args)
+    dev = _device(leaves)
+    kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else dev.type)
+    sig = ";".join(f"{tuple(x.shape)}/{x.dtype}"
+                   if isinstance(x, torch.Tensor)
+                   else f"()/{type(x).__name__}={x!r}" for x in leaves)
+    h = hashlib.sha256(f"{name}|{torch.__version__}|{kind}|{sig}|{extra}"
+                       .encode()).hexdigest()[:16]
+    return f"{name}-{h}"
+
+
+def _capture(fn: Callable, leaves, spec, dev: torch.device
+             ) -> Callable[..., Any]:
+    """Build and load the kernels, warm ``fn`` on a side stream, capture
+    one call and return its replaying callable."""
+    from liodom_tpu_torch.runtime.device_io import (path_kernels,
+                                                    prepare_kernels)
+    prepare_kernels(path_kernels(True), dev)
+    is_t = [isinstance(x, torch.Tensor) for x in leaves]
+    static = [x.detach().clone() if t else x for x, t in zip(leaves, is_t)]
+
+    def call():
+        return fn(*tree_unflatten(static, spec))
+
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARM_CALLS):
+                call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+    out_leaves, out_spec = tree_flatten(out)
+
+    def replay(*args):
+        got, got_spec = tree_flatten(args)
+        if got_spec != spec:
+            raise TypeError(f"captured step called with {got_spec}, "
+                            f"captured with {spec}")
+        for x, s, t in zip(got, static, is_t):
+            if not t:
+                if x != s:
+                    raise ValueError(f"captured step baked in {s!r}, "
+                                     f"called with {x!r}")
+            elif (not isinstance(x, torch.Tensor) or x.shape != s.shape
+                  or x.dtype != s.dtype or x.device != s.device):
+                raise ValueError(
+                    f"captured step takes {tuple(s.shape)} {s.dtype} on "
+                    f"{s.device}, got {getattr(x, 'shape', type(x))}")
+            elif x is not s:
+                s.copy_(x)
+        graph.replay()
+        return tree_unflatten([o.clone() if isinstance(o, torch.Tensor)
+                               else o for o in out_leaves], out_spec)
+
+    return replay
+
+
+def get_or_compile(name: str, fn: Callable, example_args,
+                   directory: Optional[str] = None, save: bool = True,
+                   extra: str = "") -> Callable[..., Any]:
+    """The warm-start entry: a callable for ``fn`` at ``example_args``'s
+    structure, from the registry when this tag was captured before in
+    this process.  On CUDA the kernels of the path are built (into
+    ``directory`` if given, see the module docstring) and loaded, ``fn``
+    runs :data:`WARM_CALLS` times on the example args on a side stream
+    and one call is captured; on the CPU ``fn`` itself after one warm
+    call.  Raises if the capture fails."""
+    tag = _tag(name, example_args, extra)
+    with _LOCK:
+        hit = _GRAPHS.get(tag)
+    if hit is not None:
+        return hit
+    if save and directory is not None:
+        cache.enable_persistent_cache(directory)
+    leaves, spec = tree_flatten(example_args)
+    dev = _device(leaves)
+    if dev.type == "cuda":
+        compiled = _capture(fn, leaves, spec, dev)
+    elif dev.type == "cpu":
+        fn(*example_args)
+        compiled = fn
+    else:
+        raise ValueError(f"get_or_compile: no route for device {dev}")
+    with _LOCK:
+        return _GRAPHS.setdefault(tag, compiled)

@@ -18,6 +18,7 @@
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 import warnings
 from typing import List, Optional, Sequence, Tuple
@@ -85,6 +86,20 @@ class Stager:
         return d_img, d_cnt
 
 
+def staging_slots(chunk: int, due_every: Sequence[int],
+                  ahead: bool) -> int:
+    """The pinned buffers a frame loop stages through: two dispatches and
+    two spare.  With ``ahead`` (a captured step, ``--aot``: the host
+    outruns the card) also every frame between two due points, each of
+    which drains the queue (``due_every``: the loop's cadences in frames,
+    0 for one it does not keep), so the ring never makes the host wait."""
+    slots = 2 * chunk + 2
+    gaps = [d for d in due_every if d > 0]
+    if ahead and gaps:
+        slots = max(slots, min(gaps) + chunk + 1)
+    return slots
+
+
 def fetch_poses(pending: List[Tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]]
                 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -111,24 +126,35 @@ class SyncAudit:
 
     On CUDA, inside ``with audit:`` torch's sync debug mode is ``"warn"``
     and every call that makes the host wait for the card warns; the
-    warnings are counted into :attr:`count` (the first kept in
-    :attr:`first`), other warnings are re-issued.  A due point — a pose
-    fetch, a timing sample, a checkpoint — runs under :meth:`allowed`, with
-    the mode off.  On the CPU there is nothing to count."""
+    warnings of every thread are caught and counted into :attr:`count`
+    (the first kept in :attr:`first`, a thread's own in :attr:`by_thread`),
+    other warnings are re-issued.  A due point — a pose fetch, a timing
+    sample, a checkpoint, a mapper thread's read of its overflow count —
+    runs under :meth:`allowed`: its synchronisations are counted in
+    :attr:`due` and not in :attr:`count`.  The mode is process-wide, so a
+    due point of one thread neither hides nor is charged with another
+    thread's synchronisations: each warning is judged by the thread that
+    raised it.  On the CPU there is nothing to count."""
 
     def __init__(self, device: torch.device):
         self.enabled = device.type == "cuda"
         self.count = 0
+        self.due = 0
+        self.by_thread: dict = {}
         self.first: Optional[str] = None
+        self._local = threading.local()
+        self._lock = threading.Lock()
         self._catch = None
-        self._caught = None
+        self._show = None
         self._mode = 0
 
     def __enter__(self):
         if self.enabled:
-            self._catch = warnings.catch_warnings(record=True)
-            self._caught = self._catch.__enter__()
+            self._catch = warnings.catch_warnings()
+            self._catch.__enter__()
             warnings.simplefilter("always")
+            self._show = warnings.showwarning
+            warnings.showwarning = self._record
             self._mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("warn")
         return self
@@ -137,27 +163,31 @@ class SyncAudit:
         if self.enabled:
             torch.cuda.set_sync_debug_mode(self._mode)
             self._catch.__exit__(*exc)
-            for w in self._caught:
-                if _SYNC_WARNING in str(w.message):
-                    self.count += 1
-                    self.first = self.first or str(w.message)
-                else:
-                    warnings.warn_explicit(w.message, w.category, w.filename,
-                                           w.lineno)
         return False
+
+    def _record(self, message, category, filename, lineno, file=None,
+                line=None):
+        if _SYNC_WARNING not in str(message):
+            self._show(message, category, filename, lineno, file, line)
+            return
+        with self._lock:
+            if getattr(self._local, "due", 0):
+                self.due += 1
+                return
+            name = threading.current_thread().name
+            self.count += 1
+            self.by_thread[name] = self.by_thread.get(name, 0) + 1
+            self.first = self.first or f"{name}: {message}"
 
     @contextlib.contextmanager
     def allowed(self):
-        """A due point: the host may wait for the card here."""
-        if not self.enabled:
-            yield
-            return
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode(0)
+        """A due point of the calling thread: it may wait for the card
+        here."""
+        self._local.due = getattr(self._local, "due", 0) + 1
         try:
             yield
         finally:
-            torch.cuda.set_sync_debug_mode(mode)
+            self._local.due -= 1
 
 
 def path_kernels(mapping: bool) -> Tuple[str, ...]:

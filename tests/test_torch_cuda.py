@@ -627,3 +627,66 @@ def test_stager_and_steps_make_no_host_sync(dev):
         assert np.array_equal(mats[len(ref_ne) - 1],
                               pose.matrix().cpu().double().numpy())
     assert nes.tolist() == ref_ne
+
+
+def test_captured_image_step_equals_eager_and_keeps_outputs(dev):
+    """``runtime/aot.get_or_compile``: ``image_step`` captured as a CUDA
+    graph gives the eager step's poses and edge counts bit for bit, frame
+    after frame, and poses kept across calls stay distinct (each call
+    returns tensors the next does not write)."""
+    from liodom_tpu_torch.runtime import aot
+    cfg, imgs = _images(6)
+    imgs = [RingImage(im.xyz.to(dev), im.count.to(dev)) for im in imgs]
+    state = P.init_state(cfg)
+
+    def fn(s, x, c):
+        return P.image_step(s, x, c, cfg)
+
+    step = aot.get_or_compile("test_image_step", fn,
+                              (state, imgs[0].xyz, imgs[0].count),
+                              extra=str(cfg))
+    assert step is not fn                   # a graph, not the eager step
+    eager, graph, kept = P.init_state(cfg), state, []
+    for im in imgs:
+        eager, ep, en = P.image_step(eager, im.xyz, im.count, cfg)
+        graph, gp, gn = step(graph, im.xyz, im.count)
+        assert torch.equal(gp.q, ep.q) and torch.equal(gp.t, ep.t)
+        assert torch.equal(gn, en)
+        kept.append((gp.t, ep.t))
+    for g, e in kept:
+        assert torch.equal(g, e)
+    assert len({tuple(g.tolist()) for g, _ in kept[1:]}) == len(kept) - 1
+    with pytest.raises(ValueError):
+        step(graph, imgs[0].xyz[:, :8], imgs[0].count)
+
+
+def test_captured_combined_step_refresh_patterns(dev):
+    """``combined_image_step`` at cadence 4, one graph for a refreshing
+    frame and one for the others: within 1 cm of the eager drive (the
+    map's centroid sums land in atomic order) with equal edge counts."""
+    from liodom_tpu_torch.runtime import aot
+    cfg, imgs = _images(6)
+    cfg = cfg.replace(mapping=True)
+    mcfg = MapConfig(map_capacity=131072, local_map_capacity=16384)
+    imgs = [RingImage(im.xyz.to(dev), im.count.to(dev)) for im in imgs]
+    odom, m = S.init_combined(cfg, mcfg)
+    steps = {}
+    for refresh in (True, False):
+        def fn(o, mm, x, c, i=0 if refresh else 1):
+            return S.combined_image_step(o, mm, x, c, cfg, mcfg, step=i,
+                                         local_map_every=4)
+        steps[refresh] = aot.get_or_compile(
+            "test_combined", fn, (odom, m, imgs[0].xyz, imgs[0].count),
+            extra=f"{cfg}|{mcfg}|refresh={refresh}")
+    eo, em = odom, m
+    go, gm = odom, m
+    for i, im in enumerate(imgs):
+        eo, em, ep, en = S.combined_image_step(eo, em, im.xyz, im.count, cfg,
+                                               mcfg, step=i,
+                                               local_map_every=4)
+        go, gm, gp, gn = steps[i % 4 == 0](go, gm, im.xyz, im.count)
+        assert torch.equal(gn, en)
+        assert float((gp.t - ep.t).norm()) < 0.01
+    assert int(gm.overflow) == int(em.overflow) == 0
+    assert abs(int(gm.valid.sum()) - int(em.valid.sum())) <= \
+        0.001 * int(em.valid.sum())

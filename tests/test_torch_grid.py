@@ -304,3 +304,69 @@ def test_update_continues_from_a_converted_jax_map():
     assert_map_equal(tm, jm)
     with pytest.raises(KeyError):
         convert.map_state_from_numpy({"xyz": as_np[0]}, device="cpu")
+
+
+def _sparse_frames(seed=21, n_frames=6, e=500):
+    """``tests/test_mapping.py::test_sparse_epilogue_matches_update_map``'s
+    inputs: normal clouds of 30 x 30 x 5 m, ~10 % padding, random poses
+    drifting 2 m a frame."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_frames):
+        pts = (rng.normal(size=(e, 3)) * np.array([30, 30, 5])).astype(
+            np.float32)
+        valid = rng.random(e) > 0.1
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        t = rng.normal(size=3) * 5 + np.array([i * 2.0, 0.0, 0.0])
+        out.append((pts, valid, q.astype(np.float32), t.astype(np.float32)))
+    return out
+
+
+@pytest.mark.parametrize("capacity", [8192, 1024])
+def test_sparse_epilogue_matches_jax(capacity):
+    """The port's ``update_map_sparse_epilogue`` against JAX's over the JAX
+    test's frames (seed 21, 6 frames of 500 points): codes, keys, validity
+    and overflow bit for bit, centroids within 1e-5 m; at 1,024 slots the
+    table fills and points are dropped."""
+    jcfg, cfg = _cfgs("default", map_capacity=capacity)
+    jm, tm = JG.init_map(capacity), G.init_map(capacity, device="cpu")
+    for pts, valid, q, t in _sparse_frames():
+        jm = JG.update_map_sparse_epilogue(jm, jnp.asarray(pts),
+                                           jnp.asarray(valid), _jpose(q, t),
+                                           jcfg)
+        tm = G.update_map_sparse_epilogue(tm, torch.from_numpy(pts),
+                                          torch.from_numpy(valid),
+                                          _tpose(q, t), cfg)
+        assert_map_equal(tm, jm)
+    assert int(tm.valid.sum()) > 1000
+    assert (int(tm.overflow) > 0) is (capacity == 1024)
+
+
+def test_sparse_epilogue_matches_update_map():
+    """The JAX test's own contract on the port: the sparse epilogue and
+    ``update_map`` give one slot layout, the same keys, validity, table and
+    overflow, and centroids within 1e-5 m, frame after frame; a
+    non-packable config takes the sorted soup in both."""
+    _, cfg = _cfgs("default", map_capacity=8192)
+    a = G.init_map(8192, device="cpu")
+    b = G.init_map(8192, device="cpu")
+    for i, (pts, valid, q, t) in enumerate(_sparse_frames()):
+        args = (torch.from_numpy(pts), torch.from_numpy(valid), _tpose(q, t),
+                cfg)
+        a = G.update_map(a, *args)
+        b = G.update_map_sparse_epilogue(b, *args)
+        assert torch.equal(a.valid, b.valid), i
+        assert torch.equal(a.code, b.code), i
+        assert torch.equal(a.key, b.key), i
+        assert int(a.overflow) == int(b.overflow), i
+        torch.testing.assert_close(a.xyz, b.xyz, atol=1e-5, rtol=0)
+    _, flat = _cfgs("nonpackable", resolution=0.1)
+    pts, valid, q, t = _sparse_frames(n_frames=1)[0]
+    args = (torch.from_numpy(pts), torch.from_numpy(valid), _tpose(q, t),
+            flat)
+    full = G.update_map_full(G.init_map(1024, device="cpu"), *args)
+    sparse = G.update_map_sparse_epilogue(G.init_map(1024, device="cpu"),
+                                          *args)
+    for x, y in zip(full, sparse):
+        assert torch.equal(x, y)

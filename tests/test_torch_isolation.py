@@ -72,7 +72,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "runtime.viz", "runtime.tracer", "runtime.checkpoint",
                  "runtime.logging_config", "runtime.device_io",
                  "apps.run_kitti", "apps.run_synthetic", "apps.run_ouster",
-                 "apps.run_mapping"):
+                 "apps.run_mapping", "apps.run_stream", "apps.run_longcourse",
+                 "runtime.aot", "runtime.cache"):
         assert f"liodom_tpu_torch.{name}" in res["modules"]
 
 
@@ -167,6 +168,22 @@ def test_apps_default_to_cuda(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             DeviceTrace(str(tmp_path))
+
+
+def test_stream_and_longcourse_apps_default_to_cuda(tmp_path):
+    """``run_stream`` and ``run_longcourse`` run on CUDA unless ``--device
+    cpu``; without a card and that flag they raise before they render or
+    read a frame."""
+    from liodom_tpu_torch.apps import run_longcourse, run_stream
+    for app, argv in ((run_stream, []), (run_stream, ["--root",
+                                                      str(tmp_path)]),
+                      (run_longcourse, []), (run_longcourse, ["--chunk",
+                                                              "12"])):
+        assert app.parse_args(argv).device is None
+        assert app.parse_args(argv + ["--device", "cpu"]).device == "cpu"
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                app.main(argv)
 
 
 def test_raw_scan_entry_points_default_to_cuda():
