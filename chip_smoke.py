@@ -148,8 +148,8 @@ Phases, each printing one JSON line:
    twice, the probe once a folded frame and K7 every 4th, 0 host syncs
    between due points.  Then ``run_longcourse`` (8 render workers, the
    launch file's 15-frame window, a 2^20-slot map) at its defaults cut to
-   500 frames (rc 0: overflow, truncation and ring drops 0; launches
-   500/500/1000, the probe 500, K7 at every 4th frame and each growth
+   400 frames (rc 0: overflow, truncation and ring drops 0; launches
+   400/400/800, the probe 400, K7 at every 4th frame and each growth
    sample; map leaves and load, RPE@1, drift %, scans/s), a 300-frame
    course per frame with a checkpoint at frame 150, the same with
    ``--chunk 12`` (within 1 cm and 1e-3 rad over its first 36 frames, map
@@ -170,17 +170,37 @@ Phases, each printing one JSON line:
 15. aot — ``runtime/aot.get_or_compile`` captures ``image_step``,
    ``combined_image_step`` (cadence 1; cadence 4: a refreshing and a
    holding graph), ``chained_image_step`` and
-   ``chained_combined_image_step`` (chunks of 12, cadence 4) as CUDA
-   graphs, the capture seconds reported; on phase 2's drive, every replay
-   under sync debug mode (0 syncs, the launch counters untouched): the
+   ``chained_combined_image_step`` (chunks of 12, cadence 4),
+   ``batch_image_step`` at B = 4 and 8 and the sharded flagship on phase
+   11's one-rank NCCL mesh (its kernels, K5's included, prepared before
+   the warm calls by ``path_kernels(True, sharded=True)``) as CUDA
+   graphs, the capture seconds reported; every replay under sync debug
+   mode (0 syncs, the launch counters untouched): on phase 2's drive the
    odometry graphs' poses ``torch.equal`` to phase 2's and equal edge
-   counts, the combined ones within 1 cm and 1e-3 rad over 20 frames of
-   the eager drive at their cadence, and three poses kept across three
-   calls distinct and equal to the eager ones; on the bench drive, graph
-   against eager ms a frame and host ms a frame, two drives each in turns
-   by CUDA events after 12 warm-up frames (a finding, held only to the
-   125 ms limit).
-16. kernels — each kernel against its plain PyTorch version on the card, on
+   counts, the combined ones and the sharded flagship within 1 cm and
+   1e-3 rad over 20 frames of the eager drive (the flagship's: phase
+   11's) at their cadence, with the frames equal counted, and three
+   poses kept across three calls distinct and equal to the eager ones;
+   on the bench lanes the batch graphs' poses and edge counts
+   ``torch.equal`` to an eager batch drive's; on the bench drive (the
+   bench lanes for the batch), graph against eager ms a frame and host
+   ms a frame, two drives each in turns by CUDA events after 12 warm-up
+   frames (a finding, held only to the 125 ms limit).
+16. stages — ``liodom_tpu_torch.tools.bench_stages`` in this process, its
+   JSON line printed: each stage of the frame (K1, K2, the kNN and line
+   fit with its prepare / K3 / line-fit sub-rows, the LM solve, the window
+   push, the map update with its probe / sums sub-rows, K7) eager and
+   captured alone as a CUDA graph, the fused steps eager, as a bare graph
+   and chained through ``get_or_compile``: every row finite and > 0, every
+   stage graph's outputs ``torch.equal`` to the eager stage's, the fused
+   graphs equal to eager and at most 125 ms.
+17. warm_cache — ``python -m liodom_tpu_torch.tools.warm_cache`` in a new
+   process started from a copy of the package without its build
+   directories (cold: the seven kernel sources and the native loader
+   compiled), then in a second new process (warm: nothing compiled); the
+   build seconds of each source and each program's CUDA context, library
+   load, first and second eager call and capture.
+18. kernels — each kernel against its plain PyTorch version on the card, on
    the bench drive's last frame, window, map and pose: K1 bit-exact there
    and at every shape the port launches it with (``smoothness_cases``: the
    folded B = 4 and 8 rings, the Ouster path's 128 rings, a width of
@@ -226,8 +246,10 @@ Phases, each printing one JSON line:
    over the combined drive's 36 frames at 524,288 and 2^20 slots: slots,
    keys, codes and overflow ``torch.equal``, centroids within 1e-5 m,
    the probe once a frame for each, ms a call, and whether two calls of
-   each on one input give bit-equal centroids.
-17. profile — torch.profiler over 5 frames of the bench drive, for
+   each on one input give bit-equal centroids, and ``update_map_full`` at
+   ``resolution=0.1`` (the sorted soup of a map that is not packable)
+   called twice on one input: every field ``torch.equal``.
+19. profile — torch.profiler over 5 frames of the bench drive, for
    ``image_step``, ``combined_image_step``, ``batch_image_step`` at B = 4
    and 8 and the sharded flagship: device busy time and share, device
    kernels a frame, the largest kernels by time, and the host's operators
@@ -294,10 +316,14 @@ from liodom_tpu_torch.parallel.sharded import (all_gather, init_batch_state,
 from liodom_tpu_torch.runtime import aot
 from liodom_tpu_torch.runtime import checkpoint as CK
 from liodom_tpu_torch.runtime import native
-from liodom_tpu_torch.runtime.device_io import Stager
-
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
+from liodom_tpu_torch.runtime.device_io import Stager, path_kernels
+from liodom_tpu_torch.tools import bench_stages
+# the card's peaks (H100 SXM data sheet: HBM3, FP32 outside the tensor
+# cores), its nvidia-smi line, and device ms by CUDA events behind a
+# device-side sleep, shared with the stage timer
+from liodom_tpu_torch.tools.bench_stages import (
+    FP32_OPS_PER_S, HBM_BYTES_PER_S, nvidia_smi_line)
+from liodom_tpu_torch.tools.bench_stages import device_ms as cuda_ms
 
 N_FRAMES = 36
 N_CPU_FRAMES = 6
@@ -329,43 +355,6 @@ OUSTER_COLS = 2048
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warm: int = 3) -> float:
-    """Mean device time of ``fn()`` in ms over ``reps`` runs, by CUDA events
-    around the whole batch after ``warm`` unmeasured runs.
-
-    The batch is queued behind a device-side sleep longer than one batch
-    takes the host to enqueue, so the events time the device's work and not
-    the host's launch rate (a few-microsecond kernel is enqueued slower than
-    it runs)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    h0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - h0
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    # 2x the batch's host time at 2 GHz (the H100's SM clock is at most
-    # 1.98 GHz, so the sleep lasts at least that long)
-    torch.cuda._sleep(int(2.0 * host_s * 2e9))
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def bound(bytes_moved: float, ops: float):
@@ -920,23 +909,24 @@ def timed_in_turns(drives: dict, warm: int) -> dict:
     return runs
 
 
-def aot_phase(cfg, ccfg, imgs, eager, ceager, gt_pos, bimgs, smi,
-              check) -> None:
+def aot_phase(cfg, ccfg, imgs, eager, ceager, seager, gt_pos, bimgs,
+              bench_b, mesh, sstep, smi, check) -> None:
     """The ``aot`` phase: each step captured by ``runtime/aot.py`` and
     held to its eager drive (see the module docstring)."""
     t_phase = time.perf_counter()
-    (poses, n_edges), (cposes, cedges) = eager, ceager
+    (poses, n_edges), (cposes, cedges), sposes = eager, ceager, seager
     x0, c0 = imgs[0].xyz, imgs[0].count
     odom0 = P.init_state(cfg)
     comb0 = S.init_combined(ccfg, MCFG)
+    shard0 = CB.init_combined_image_sharded(ccfg, MCFG, mesh)
     xs = torch.stack([im.xyz for im in imgs[:CHUNK]])
     cs = torch.stack([im.count for im in imgs[:CHUNK]])
     capture_s, graphs = {}, {}
 
-    def capture(name, fn, args, extra):
+    def capture(name, fn, args, extra, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        graphs[name] = aot.get_or_compile(name, fn, args, extra=extra)
+        graphs[name] = aot.get_or_compile(name, fn, args, extra=extra, **kw)
         torch.cuda.synchronize()
         capture_s[name] = time.perf_counter() - t0
 
@@ -957,9 +947,22 @@ def aot_phase(cfg, ccfg, imgs, eager, ceager, gt_pos, bimgs, smi,
             lambda o, m, x, c: S.chained_combined_image_step(
                 o, m, x, c, ccfg, MCFG, step0=0, local_map_every=4),
             comb0 + (xs, cs), f"{ccfg}|{MCFG}|every=4|chunk={CHUNK}|phase=0")
+    # the batch step at B = 4 and 8 (K4: knn_coords' second entry point)
+    for b in TIMED_BATCHES:
+        capture(f"batch_{b}",
+                lambda s, x, c: P.batch_image_step(s, x, c, cfg),
+                (init_batch_state(cfg, b), bench_b[b][0].xyz,
+                 bench_b[b][0].count), f"{cfg}|B={b}")
+    # the sharded flagship on phase 11's one-rank NCCL mesh, whose
+    # communicators exist already; K5 prepared before the warm calls
+    capture("sharded", sstep, shard0 + (x0, c0), f"{ccfg}|{MCFG}|sharded",
+            kernel_names=path_kernels(True, sharded=True))
 
     def odom(name):
         return graphs[name]
+
+    def sharded(o, m, x, c, i):
+        return graphs["sharded"](o, m, x, c)
 
     def comb(every):
         def step(o, m, x, c, i):
@@ -977,7 +980,12 @@ def aot_phase(cfg, ccfg, imgs, eager, ceager, gt_pos, bimgs, smi,
     e4_t, e4_q, _, _ = drive_error(e4_poses, gt_pos)
     t_ref, q_ref, _, _ = drive_error(poses, gt_pos)
     ct_ref, cq_ref, _, _ = drive_error(cposes, gt_pos)
+    st_ref, sq_ref, _, _ = drive_error(sposes, gt_pos)
     ref_edges = [int(x) for x in n_edges]
+    # the batch steps' eager drives on the bench lanes
+    beager = {b: run_course(init_batch_state(cfg, b), bench_b[b], cfg,
+                            keep=False, step=P.batch_image_step)[1:]
+              for b in TIMED_BATCHES}
     torch.cuda.synchronize()
     reset_counters()
     (drives, syncs) = sync_free(lambda: {
@@ -987,7 +995,11 @@ def aot_phase(cfg, ccfg, imgs, eager, ceager, gt_pos, bimgs, smi,
         "combined_every1": graph_drive(comb(1), comb0, imgs),
         "combined_every4": graph_drive(comb(4), comb0, imgs),
         "chained_combined_every4": graph_drive(ccomb, comb0, imgs,
-                                               chunk=CHUNK)})
+                                               chunk=CHUNK),
+        **{f"batch_{b}": graph_drive(odom(f"batch_{b}"),
+                                     init_batch_state(cfg, b), bench_b[b])
+           for b in TIMED_BATCHES},
+        "sharded": graph_drive(sharded, shard0, imgs)})
     replay_counts = read_counters()
     check(replay_counts == launches(), f"aot: replays moved the launch "
           f"counters (they count at capture only): {replay_counts}")
@@ -995,6 +1007,15 @@ def aot_phase(cfg, ccfg, imgs, eager, ceager, gt_pos, bimgs, smi,
           f"captured drives: {syncs[:1]}")
     res = {}
     for name, (_, gposes, gedges) in drives.items():
+        if name.startswith("batch_"):
+            bposes, bedges = beager[int(name.split("_")[1])]
+            same = same_poses(gposes, bposes)
+            check(all(same), f"aot {name}: {same.count(False)} poses not "
+                  "torch.equal to the eager drive's")
+            check(all(torch.equal(g, e) for g, e in zip(gedges, bedges)),
+                  f"aot {name}: edge counts differ from eager")
+            res[name] = {"poses_equal": sum(same), "frames": len(same)}
+            continue
         gt_, gq_, _, gate = drive_error(gposes, gt_pos)
         same_edges = [int(x) for x in gedges] == ref_edges
         check(same_edges, f"aot {name}: edge counts differ from eager")
@@ -1004,14 +1025,16 @@ def aot_phase(cfg, ccfg, imgs, eager, ceager, gt_pos, bimgs, smi,
                   "torch.equal to the eager drive's")
             res[name] = {"poses_equal": sum(same), "frames": len(same)}
             continue
-        ref_t, ref_q = (ct_ref, cq_ref) if name == "combined_every1" else (
-            e4_t, e4_q)
+        ref_t, ref_q = {"combined_every1": (ct_ref, cq_ref),
+                        "sharded": (st_ref, sq_ref)}.get(name, (e4_t, e4_q))
         gap = pose_gap(gt_[:N_ATE], gq_[:N_ATE], ref_t[:N_ATE],
                        ref_q[:N_ATE])
         check(gap[0] < 0.01 and gap[1] < 1e-3, f"aot {name} vs eager over "
               f"{N_ATE} frames: {gap}")
         res[name] = {"vs_eager_max_dt_m_drot_rad": gap,
                      f"ate_m_first_{N_ATE}": gate}
+        if name == "sharded":
+            res[name]["poses_equal"] = sum(same_poses(gposes, sposes))
     # three poses kept across three calls: distinct, each eager's
     kept = drives["image_step"][1][:3]
     distinct = len({tuple(p.t.tolist()) for p in kept}) == 3
@@ -1043,6 +1066,13 @@ def aot_phase(cfg, ccfg, imgs, eager, ceager, gt_pos, bimgs, smi,
         return lambda st, ims, first: graph_drive(step, st, ims, first,
                                                   chunk)[0]
 
+    def eager_batch(st, ims, first):
+        return run_course(st, ims, cfg, keep=False,
+                          step=P.batch_image_step)[0][-1]
+
+    def eager_sharded(st, ims, first):
+        return run_sharded(*st, ims, sstep, keep=False)[0][-1]
+
     n_warm = 12                 # a whole chunk unmeasured, two measured
     timing = {}
     for name, e_drive, g_drive, init in (
@@ -1056,9 +1086,16 @@ def aot_phase(cfg, ccfg, imgs, eager, ceager, gt_pos, bimgs, smi,
              captured(odom("chained_image_step"), CHUNK),
              lambda: P.init_state(cfg)),
             ("chained_combined_every4", eager_cchained,
-             captured(ccomb, CHUNK), lambda: S.init_combined(ccfg, MCFG))):
-        runs = timed_in_turns({"eager": (e_drive, init, bimgs),
-                               "graph": (g_drive, init, bimgs)}, n_warm)
+             captured(ccomb, CHUNK), lambda: S.init_combined(ccfg, MCFG)),
+            *((f"batch_{b}", eager_batch, captured(odom(f"batch_{b}")),
+               lambda b=b: init_batch_state(cfg, b))
+              for b in TIMED_BATCHES),
+            ("sharded", eager_sharded, captured(sharded),
+             lambda: CB.init_combined_image_sharded(ccfg, MCFG, mesh))):
+        frames = bench_b[int(name[6:])] if name.startswith("batch_") \
+            else bimgs
+        runs = timed_in_turns({"eager": (e_drive, init, frames),
+                               "graph": (g_drive, init, frames)}, n_warm)
         for mode, r in runs.items():
             worst = max(ms for ms, _ in r)
             check(worst <= FRAME_BUDGET_MS, f"aot timing {name} {mode}: "
@@ -1082,7 +1119,9 @@ def sparse_epilogue_phase(imgs, poses, cfg, check) -> dict:
     maps each, at 524,288 and 2^20 slots: slots, keys, codes and overflow
     ``torch.equal``, centroids within 1e-5 m, the probe once a frame for
     each; both functions' ms a call on the last frame, and whether two
-    calls of each on the same input give bit-equal centroids."""
+    calls of each on the same input give bit-equal centroids.  Then
+    ``update_map_full`` at ``resolution=0.1`` (not packable): every field
+    of two calls on one input ``torch.equal``."""
     edges = [F.select_edges(im, F.smoothness(im, cfg), cfg) for im in imgs]
     out = {}
     for cap in (MCFG.map_capacity, 1 << 20):
@@ -1125,13 +1164,104 @@ def sparse_epilogue_phase(imgs, poses, cfg, check) -> dict:
                          "leaves": int(dense.valid.sum()),
                          "overflow": int(dense.overflow), "ms_per_call": ms,
                          "repeat_xyz_bit_equal": repeat}
+    # the sorted soup of a non-packable map (0.1 m leaves): the drive's
+    # frames into it, then two calls on the last frame's input
+    mcfg = MCFG.replace(resolution=0.1)
+    m = G.init_map(mcfg.map_capacity)
+    for e, p in zip(edges[:-1], poses[:-1]):
+        m = G.update_map(m, e.xyz, e.valid, p, mcfg)
+    e, p = edges[-1], poses[-1]
+    a = G.update_map_full(m, e.xyz, e.valid, p, mcfg)
+    b = G.update_map_full(m, e.xyz, e.valid, p, mcfg)
+    same = {k: torch.equal(getattr(a, k), getattr(b, k))
+            for k in G.MapState._fields}
+    check(not G.packable(mcfg) and all(same.values()), f"update_map_full at "
+          f"resolution 0.1: two calls on one input differ: {same}")
+    out["update_map_full_resolution_0.1"] = {
+        "fields_equal": same, "leaves": int(a.valid.sum()),
+        "overflow": int(a.overflow),
+        "ms_per_call": cuda_ms(lambda: G.update_map_full(
+            m, e.xyz, e.valid, p, mcfg), 20)}
     return out
+
+
+def stages_phase(smi, check) -> None:
+    """The ``stages`` phase: ``tools/bench_stages`` in this process (its
+    JSON line printed as it prints it), every row finite and > 0 eager and
+    as a graph, every stage graph's outputs ``torch.equal`` to the eager
+    stage's, the fused graphs (bare and state-chained) equal to eager and
+    within the frame budget."""
+    t0 = time.perf_counter()
+    out = bench_stages.run()
+    print(json.dumps(out), flush=True)
+    rows = dict(out["stage_ms"], odom_ms=out["odom_ms"],
+                combined_ms=out["combined_ms"])
+    bad = [name for name, row in rows.items()
+           if not all(math.isfinite(row[k]) and row[k] > 0
+                      for k in ("eager_ms", "graph_ms"))]
+    check(not bad, f"stages: rows not finite and > 0: {bad}")
+    unequal = [n for n, ok in out["graph_equal"].items() if not ok]
+    check(not unequal, f"stages: graphs not torch.equal to eager: {unequal}")
+    for key in ("odom_ms", "combined_ms"):
+        row = out[key]
+        check(row["graph_equals_eager"] and row["chained_graph_poses_equal"],
+              f"stages: the fused {key} graph differs from eager")
+        worst = max(row["graph_ms"], row["chained_graph_ms"])
+        check(worst <= FRAME_BUDGET_MS, f"stages: fused {key} graph "
+              f"{worst:.1f} ms > {FRAME_BUDGET_MS}")
+    emit({"phase": "stages", "nvidia_smi": smi,
+          "rows": len(out["stage_ms"]), "glue": out["glue"],
+          "seconds": time.perf_counter() - t0})
+
+
+def warm_cache_phase(smi, check) -> None:
+    """The ``warm_cache`` phase: ``python -m liodom_tpu_torch.tools.
+    warm_cache`` in a new process started from a copy of the package
+    without its build directories (cold: every kernel source and the native
+    loader compiled), then in a second new process (warm: nothing
+    compiled); both reports, the build seconds and each program's."""
+    t0 = time.perf_counter()
+    reports = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fresh = Path(tmp)
+        shutil.copytree(Path(liodom_tpu_torch.__file__).parent,
+                        fresh / "liodom_tpu_torch",
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+        env = dict(os.environ, PYTHONPATH=str(fresh))
+        for run in ("cold", "warm"):
+            s0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "liodom_tpu_torch.tools.warm_cache"],
+                cwd=fresh, env=env, capture_output=True, text=True,
+                timeout=600)
+            if out.returncode != 0:
+                raise SystemExit(f"warm_cache ({run}) exited "
+                                 f"{out.returncode}:\n{out.stdout[-3000:]}\n"
+                                 f"{out.stderr[-3000:]}")
+            rep = json.loads(out.stdout.strip().splitlines()[-1])
+            rep["process_s"] = time.perf_counter() - s0
+            reports[run] = rep
+    cold, warm = reports["cold"], reports["warm"]
+    check(cold["compiled"] == sorted(kernels.SOURCES)
+          and cold["native_loader"]["build"] == "cold",
+          f"warm_cache cold: compiled {cold['compiled']}, native loader "
+          f"{cold['native_loader']}")
+    check(warm["compiled"] == [] and warm["native_loader"]["build"] == "warm"
+          and warm["native_loader"]["loaded"],
+          f"warm_cache warm: compiled {warm['compiled']}, native loader "
+          f"{warm['native_loader']}")
+    for run, rep in reports.items():
+        check(len(rep["programs"]) == 3 and all(
+            v is not None and v >= 0 for prog in rep["programs"].values()
+            for v in prog.values()), f"warm_cache {run}: {rep['programs']}")
+    emit({"phase": "warm_cache", "nvidia_smi": smi, "cold": cold,
+          "warm": warm, "seconds": time.perf_counter() - t0})
 
 
 APP_CK_EVERY = 24           # run_kitti's checkpoint in the apps phase
 STREAM_MAPPING_FRAMES = 40  # run_stream --mapping at 10 Hz
 STREAM_OVERLOAD_FRAMES = 60  # run_stream --rate 200 (apps/run_stream.py:45)
-LONGCOURSE_FRAMES = 500     # run_longcourse at its defaults, cut from 1,000
+LONGCOURSE_FRAMES = 400     # run_longcourse at its defaults, cut from 1,000
 LONGCOURSE_SHORT = 300      # the --chunk, --imu and resume courses
 LONGCOURSE_CK = 150         # the resume's checkpoint
 N_OUSTER_APP = 20           # run_ouster's organised clouds
@@ -2335,8 +2465,14 @@ def main() -> int:
           "filtered_image_step": raw_timing["filtered"],
           "runs_ms_and_host_ms_in_turns": runs})
     # ---- 15. the steps captured as CUDA graphs before frame 0 -------------
-    aot_phase(cfg, ccfg, imgs, main_drive, (cposes_k, cedges_k), gt_pos,
-              bimgs, smi, check)
+    aot_phase(cfg, ccfg, imgs, main_drive, (cposes_k, cedges_k), sposes,
+              gt_pos, bimgs, bench_b, mesh, sstep, smi, check)
+
+    # ---- 16. the per-stage timer, eager and as CUDA graphs ----------------
+    stages_phase(smi, check)
+
+    # ---- 17. the deploy-time warm cache, cold then warm -----------------
+    warm_cache_phase(smi, check)
 
     # the states every frame of the bench drive left, for the kernel checks
     # and the profile (untimed)
@@ -2352,7 +2488,7 @@ def main() -> int:
                           bench_b[max(TIMED_BATCHES)][:N_FRAMES - 5], cfg,
                           keep=False, step=P.batch_image_step)[0][-1]
 
-    # ---- 16. each kernel against its plain version, bench shapes ---------
+    # ---- 18. each kernel against its plain version, bench shapes ---------
     img = bimgs[N_FRAMES - 1]
     sm_k = SM.smoothness_cuda(img.xyz, img.count)
     sm_p = SM.smoothness_plain(img.xyz, img.count)
@@ -2911,7 +3047,7 @@ def main() -> int:
          "ptxas": usage.get("probe_insert")},
     ]
 
-    # ---- 17. where a frame's device time goes ----------------------------
+    # ---- 19. where a frame's device time goes ----------------------------
     # the bench drive's last frames again, from the states they met
     n_prof = 5
     last = bimgs[N_FRAMES - n_prof:]

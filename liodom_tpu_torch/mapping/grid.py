@@ -189,14 +189,37 @@ def update_map(state: MapState, pts: torch.Tensor, valid: torch.Tensor,
     :func:`update_map_full`."""
     if not packable(cfg):
         return update_map_full(state, pts, valid, pose, cfg)
+    return fold_frame(state, valid, insert_frame(state, pts, valid, pose,
+                                                 cfg), cfg)
 
+
+class Inserted(NamedTuple):
+    """A frame found or inserted in the table (:func:`insert_frame`)."""
+    xyz: torch.Tensor       # (E, 3) the frame's points in the world frame
+    table: torch.Tensor     # (C,) int64 the table after the insert
+    slot: torch.Tensor      # (E,) int32 each point's slot
+    claimed: torch.Tensor   # (E,) bool, the point claimed its slot
+    failed: torch.Tensor    # (E,) bool, the probe gave up on the point
+
+
+def insert_frame(state: MapState, pts: torch.Tensor, valid: torch.Tensor,
+                 pose: Pose, cfg: MapConfig) -> Inserted:
+    """The first half of :func:`update_map` and its sparse epilogue: the
+    frame to world, its packed (cell, leaf) codes, and the probe kernel's
+    find-or-insert of each code (packable configs only)."""
+    new_xyz = se3.transform(pose, pts.to(state.xyz.dtype))
+    code = _packed_codes(new_xyz, valid, cfg)
+    return Inserted(new_xyz, *probe_insert(state.code, code, valid))
+
+
+def fold_frame(state: MapState, valid: torch.Tensor, ins: Inserted,
+               cfg: MapConfig) -> MapState:
+    """The second half of :func:`update_map`: the per-slot sums of the
+    inserted frame folded into the stored centroids, ``key`` and ``valid``
+    decoded from the table, the dropped points counted."""
     cap = state.xyz.shape[0]
     dtype = state.xyz.dtype
-
-    new_xyz = se3.transform(pose, pts.to(dtype))
-    code = _packed_codes(new_xyz, valid, cfg)
-
-    tab, slot, _claimed, failed = probe_insert(state.code, code, valid)
+    new_xyz, tab, slot, failed = ins.xyz, ins.table, ins.slot, ins.failed
     ok = valid & ~failed
     slot_c = torch.where(ok, slot.to(torch.int64), cap)  # cap: spare, dropped
 
@@ -240,10 +263,8 @@ def update_map_sparse_epilogue(state: MapState, pts: torch.Tensor,
     cap = state.xyz.shape[0]
     dtype = state.xyz.dtype
 
-    new_xyz = se3.transform(pose, pts.to(dtype))
-    code = _packed_codes(new_xyz, valid, cfg)
-
-    tab, slot, claimed, failed = probe_insert(state.code, code, valid)
+    new_xyz, tab, slot, claimed, failed = insert_frame(state, pts, valid,
+                                                       pose, cfg)
     ok = valid & ~failed
     slot = slot.to(torch.int64)
     slot_c = torch.where(ok, slot, cap)             # cap -> spare row, dropped
@@ -313,9 +334,17 @@ def update_map_full(state: MapState, pts: torch.Tensor, valid: torch.Tensor,
     head = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), ~same])
     seg = torch.cumsum(head.to(torch.int64), dim=0) - 1
     w = ok_s.to(dtype)
-    sums = torch.zeros((n, 3), dtype=dtype, device=dev).index_add_(
-        0, seg, xyz_s * w[:, None])
-    cnts = torch.zeros((n,), dtype=dtype, device=dev).index_add_(0, seg, w)
+    # seg ascends, so each segment's rows are added in row order
+    # (``segment_reduce``, as in :func:`_slot_sums`): the same sums on every
+    # device and from run to run; the lengths' integer adds are exact in any
+    # order.  unsafe: they sum to n by construction, and checking it would
+    # read them back to the host
+    lengths = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+        0, seg, torch.ones_like(seg))
+    acc = torch.segment_reduce(torch.cat([xyz_s * w[:, None], w[:, None]],
+                                         dim=1),
+                               "sum", lengths=lengths, axis=0, unsafe=True)
+    sums, cnts = acc[:, :3], acc[:, 3]
     means = sums / torch.clamp(cnts, min=1.0)[:, None]
     # segment -> its head row; a segment with no rows reads row n - 1 (the
     # JAX gather's clamp), masked out below

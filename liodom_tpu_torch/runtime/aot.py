@@ -34,13 +34,24 @@ There is no counterpart of JAX's serialised executable.  On a CPU device,
 which the caller has to ask for, there is no graph: ``fn`` is returned
 after one warm call.  A capture that fails raises; nothing falls back to
 the eager step.
+
+Any step the JAX ``get_or_compile`` takes is captured: the odometry and
+combined steps, chained or not, ``batch_image_step`` (K4 is the
+``knn_coords`` library's second entry point) and the sharded steps of
+``parallel/``, whose kernel list (``device_io.path_kernels(...,
+sharded=True)``: K5 in place of K3) the caller passes.  A sharded step's
+collectives are captured with it: its process group and communicators must
+exist before the capture (the first collective of a group creates its
+communicator, which synchronises), and the warm calls have ended, on the
+host too, before the capture begins, so no work of theirs is in flight
+while the stream is captured.
 """
 
 from __future__ import annotations
 
 import hashlib
 import threading
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
@@ -78,19 +89,11 @@ def _tag(name: str, example_args, extra: str = "") -> str:
     return f"{name}-{h}"
 
 
-def _capture(fn: Callable, leaves, spec, dev: torch.device
-             ) -> Callable[..., Any]:
-    """Build and load the kernels, warm ``fn`` on a side stream, capture
-    one call and return its replaying callable."""
-    from liodom_tpu_torch.runtime.device_io import (path_kernels,
-                                                    prepare_kernels)
-    prepare_kernels(path_kernels(True), dev)
-    is_t = [isinstance(x, torch.Tensor) for x in leaves]
-    static = [x.detach().clone() if t else x for x, t in zip(leaves, is_t)]
-
-    def call():
-        return fn(*tree_unflatten(static, spec))
-
+def capture_graph(call: Callable[[], Any], dev: torch.device
+                  ) -> Tuple[torch.cuda.CUDAGraph, Any]:
+    """``call()`` run :data:`WARM_CALLS` times on a side stream (libraries
+    loaded, workspaces made), then captured once: (the graph, the outputs
+    of the captured call, which each replay rewrites)."""
     with torch.cuda.device(dev):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -98,9 +101,26 @@ def _capture(fn: Callable, leaves, spec, dev: torch.device
             for _ in range(WARM_CALLS):
                 call()
         torch.cuda.current_stream().wait_stream(side)
+        # the warm calls end before the capture begins: a collective's work
+        # is then no longer in flight (its communicator exists, and nothing
+        # of it is left for the process group to track while capturing)
+        torch.cuda.synchronize(dev)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             out = call()
+    return graph, out
+
+
+def _capture(fn: Callable, leaves, spec, dev: torch.device,
+             kernel_names: Sequence[str]) -> Callable[..., Any]:
+    """Build and load the named kernels, capture one call of ``fn`` on
+    static copies of the leaves and return its replaying callable."""
+    from liodom_tpu_torch.runtime.device_io import prepare_kernels
+    prepare_kernels(kernel_names, dev)
+    is_t = [isinstance(x, torch.Tensor) for x in leaves]
+    static = [x.detach().clone() if t else x for x, t in zip(leaves, is_t)]
+    graph, out = capture_graph(lambda: fn(*tree_unflatten(static, spec)),
+                               dev)
     out_leaves, out_spec = tree_flatten(out)
 
     def replay(*args):
@@ -129,14 +149,19 @@ def _capture(fn: Callable, leaves, spec, dev: torch.device
 
 def get_or_compile(name: str, fn: Callable, example_args,
                    directory: Optional[str] = None, save: bool = True,
-                   extra: str = "") -> Callable[..., Any]:
+                   extra: str = "",
+                   kernel_names: Optional[Sequence[str]] = None
+                   ) -> Callable[..., Any]:
     """The warm-start entry: a callable for ``fn`` at ``example_args``'s
     structure, from the registry when this tag was captured before in
-    this process.  On CUDA the kernels of the path are built (into
-    ``directory`` if given, see the module docstring) and loaded, ``fn``
-    runs :data:`WARM_CALLS` times on the example args on a side stream
-    and one call is captured; on the CPU ``fn`` itself after one warm
-    call.  Raises if the capture fails."""
+    this process.  On CUDA the step's kernels are built (into
+    ``directory`` if given, see the module docstring) and loaded:
+    ``kernel_names``, by default those of the odometry and map steps
+    (``device_io.path_kernels(True)``; a sharded step of ``parallel/``
+    passes ``path_kernels(..., sharded=True)``); then ``fn`` runs
+    :data:`WARM_CALLS` times on the example args on a side stream and one
+    call is captured.  On the CPU ``fn`` itself after one warm call.
+    Raises if the capture fails."""
     tag = _tag(name, example_args, extra)
     with _LOCK:
         hit = _GRAPHS.get(tag)
@@ -147,7 +172,10 @@ def get_or_compile(name: str, fn: Callable, example_args,
     leaves, spec = tree_flatten(example_args)
     dev = _device(leaves)
     if dev.type == "cuda":
-        compiled = _capture(fn, leaves, spec, dev)
+        if kernel_names is None:
+            from liodom_tpu_torch.runtime.device_io import path_kernels
+            kernel_names = path_kernels(True)
+        compiled = _capture(fn, leaves, spec, dev, kernel_names)
     elif dev.type == "cpu":
         fn(*example_args)
         compiled = fn

@@ -190,12 +190,17 @@ class SyncAudit:
             self._local.due -= 1
 
 
-def path_kernels(mapping: bool) -> Tuple[str, ...]:
-    """The kernel sources an image step launches: K1, K2 and the kNN (K3,
-    or K6 under ``LIODOM_KNN_IMPL=pallas_lines``), and with the map K7 and
+def path_kernels(mapping: bool, sharded: bool = False) -> Tuple[str, ...]:
+    """The kernel sources an image step launches: K1, K2 and the kNN (K3 or
+    K4, or K6 under ``LIODOM_KNN_IMPL=pallas_lines``; K5 on the sharded
+    steps of ``parallel/``, whatever the setting), and with the map K7 and
     the probe kernel."""
-    knn = ("knn_lines" if resolve_knn_impl() == "pallas_lines"
-           else "knn_coords")
+    if sharded:
+        knn = "knn_index"
+    elif resolve_knn_impl() == "pallas_lines":
+        knn = "knn_lines"
+    else:
+        knn = "knn_coords"
     return ("smoothness", "select", knn) + (
         ("local_map_compact", "probe_insert") if mapping else ())
 

@@ -690,3 +690,124 @@ def test_captured_combined_step_refresh_patterns(dev):
     assert int(gm.overflow) == int(em.overflow) == 0
     assert abs(int(gm.valid.sum()) - int(em.valid.sum())) <= \
         0.001 * int(em.valid.sum())
+
+
+def test_update_map_full_is_reproducible_on_the_card(dev):
+    """``update_map_full`` at ``resolution=0.1`` (not packable, the sorted
+    soup): two calls on one input give every field ``torch.equal``, since
+    each leaf's rows are summed in row order (``segment_reduce``), not in
+    atomic order; and the result is the CPU path's to float32 rounding."""
+    cfg, imgs = _images(4)
+    mcfg = MapConfig(resolution=0.1, map_capacity=65536)
+    assert not G.packable(mcfg)
+    edges = [F.select_edges(im, F.smoothness(im, cfg), cfg) for im in imgs]
+    poses = [Pose(torch.tensor([1.0, 0.0, 0.0, 0.0]),
+                  torch.tensor([0.5 * i, 0.1 * i, 0.0])) for i in range(4)]
+    m_cpu = G.init_map(65536, device="cpu")
+    for e, p in zip(edges[:3], poses[:3]):
+        m_cpu = G.update_map(m_cpu, e.xyz, e.valid, p, mcfg)
+    m = G.MapState(*(t.to(dev) for t in m_cpu))
+    e, p = edges[3], poses[3]
+    args = (e.xyz.to(dev), e.valid.to(dev), Pose(p.q.to(dev), p.t.to(dev)),
+            mcfg)
+    a = G.update_map_full(m, *args)
+    b = G.update_map_full(m, *args)
+    for name in G.MapState._fields:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    c = G.update_map_full(m_cpu, e.xyz, e.valid, p, mcfg)
+    assert torch.equal(a.valid.cpu(), c.valid)
+    assert torch.equal(a.code.cpu(), c.code)
+    assert float((a.xyz.cpu() - c.xyz).abs().max()) <= 1e-5
+    assert int(a.valid.sum()) > 4000
+
+
+def test_captured_batch_step_equals_eager(dev):
+    """``batch_image_step`` at B = 4 captured by ``aot.get_or_compile``
+    (K4 is ``knn_coords``' second entry point: nothing new to build): the
+    eager step's poses and edge counts, bit for bit, frame after frame."""
+    from liodom_tpu_torch.parallel.sharded import init_batch_state
+    from liodom_tpu_torch.runtime import aot
+    cfg, imgs = _images(5)
+    b = 4
+    # four distinct lanes: each a frame behind the previous
+    xs = [torch.stack([imgs[max(i - s, 0)].xyz for s in range(b)]).to(dev)
+          for i in range(len(imgs))]
+    cs = [torch.stack([imgs[max(i - s, 0)].count for s in range(b)]).to(dev)
+          for i in range(len(imgs))]
+
+    def fn(s, x, c):
+        return P.batch_image_step(s, x, c, cfg)
+
+    step = aot.get_or_compile("test_batch_step", fn,
+                              (init_batch_state(cfg, b), xs[0], cs[0]),
+                              extra=f"{cfg}|B={b}")
+    assert step is not fn
+    eager = graph = init_batch_state(cfg, b)
+    for x, c in zip(xs, cs):
+        eager, ep, en = P.batch_image_step(eager, x, c, cfg)
+        graph, gp, gn = step(graph, x, c)
+        assert torch.equal(gp.q, ep.q) and torch.equal(gp.t, ep.t)
+        assert torch.equal(gn, en)
+
+
+def test_captured_sharded_step_on_a_one_rank_nccl_group(dev):
+    """The sharded flagship captured on a one-rank NCCL group (its
+    communicators made before the capture; K5 prepared by
+    ``path_kernels(True, sharded=True)``): within 1 cm and 1e-3 rad of the
+    eager step, equal edge counts."""
+    import socket
+
+    import torch.distributed as dist
+    from liodom_tpu_torch.parallel import combined as CB
+    from liodom_tpu_torch.parallel import launch
+    from liodom_tpu_torch.parallel.mesh import make_mesh
+    from liodom_tpu_torch.parallel.sharded import all_gather
+    from liodom_tpu_torch.runtime import aot
+    from liodom_tpu_torch.runtime.device_io import path_kernels
+    cfg, imgs = _images(6)
+    cfg = cfg.replace(mapping=True)
+    mcfg = MapConfig(map_capacity=131072, local_map_capacity=16384)
+    imgs = [RingImage(im.xyz.to(dev), im.count.to(dev)) for im in imgs]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    launch.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = make_mesh(1, 1)
+        one = torch.ones(1, device=dev)
+        for group in mesh.get_all_groups():
+            all_gather(one, group, 1)
+            dist.all_reduce(one, group=group)
+        sstep = CB.make_sharded_combined_image_step(mesh, cfg, mcfg)
+        init = CB.init_combined_image_sharded(cfg, mcfg, mesh)
+        step = aot.get_or_compile(
+            "test_sharded_step", sstep, init + (imgs[0].xyz, imgs[0].count),
+            extra=f"{cfg}|{mcfg}|sharded",
+            kernel_names=path_kernels(True, sharded=True))
+        assert step is not sstep
+        es, em = gs, gm = init
+        for im in imgs:
+            es, em, ep, en = sstep(es, em, im.xyz, im.count)
+            gs, gm, gp, gn = step(gs, gm, im.xyz, im.count)
+            assert torch.equal(gn, en)
+            assert float((gp.t - ep.t).norm()) < 0.01
+            dq = float((gp.q - ep.q).abs().max())
+            assert dq < 1e-3
+        assert int(gm.overflow) == int(em.overflow) == 0
+    finally:
+        dist.destroy_process_group()
+
+
+def test_bench_stages_graphs_equal_their_eager_stages(dev):
+    """``tools/bench_stages``: every stage graph (and each fused graph)
+    replays to the eager call's outputs, ``torch.equal``; every row is
+    timed, eager and as a graph."""
+    from liodom_tpu_torch.tools import bench_stages as BS
+    out = BS.run("cuda", frames=6, width=900, ring_width=2048, reps=3)
+    assert out["graph_equal"] and all(out["graph_equal"].values()), \
+        out["graph_equal"]
+    for name, row in out["stage_ms"].items():
+        assert row["eager_ms"] > 0 and row["graph_ms"] > 0, name
+    for key in ("odom_ms", "combined_ms"):
+        assert out[key]["graph_equals_eager"]
+        assert out[key]["chained_graph_poses_equal"]

@@ -241,6 +241,24 @@ def test_update_map_full_matches_jax(name, packable):
         assert_map_equal(a, b)
 
 
+def test_update_map_full_nonpackable_matches_jax_over_frames():
+    """8 frames at ``resolution=0.1`` (not packable) into a table that holds
+    them all, through ``update_map`` (which takes the sorted soup), each
+    frame's map against JAX's: the segment sums in row order keep every
+    leaf and its centroid as ``jax.ops.segment_sum`` makes them."""
+    jcfg, cfg = _cfgs("default", resolution=0.1)
+    assert not G.packable(cfg)
+    cap = 16384
+    jm, tm = JG.init_map(cap), G.init_map(cap, device="cpu")
+    for pts, valid, q, t in _frames(6, n_frames=8, e=1200):
+        jm = JG.update_map(jm, jnp.asarray(pts), jnp.asarray(valid),
+                           _jpose(q, t), jcfg)
+        tm = G.update_map(tm, torch.from_numpy(pts), torch.from_numpy(valid),
+                          _tpose(q, t), cfg)
+        assert_map_equal(tm, jm)
+    assert int(tm.overflow) == 0 and int(tm.valid.sum()) > 4000
+
+
 def test_hash_map_and_sorted_soup_hold_one_point_set():
     _, cfg = _cfgs("small_cells")
     hm, fm = G.init_map(8192, device="cpu"), G.init_map(8192, device="cpu")
