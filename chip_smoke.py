@@ -200,7 +200,15 @@ Phases, each printing one JSON line:
    compiled), then in a second new process (warm: nothing compiled); the
    build seconds of each source and each program's CUDA context, library
    load, first and second eager call and capture.
-18. kernels — each kernel against its plain PyTorch version on the card, on
+18. bench — ``python -m liodom_tpu_torch.tools.bench`` (the port of
+   ``bench.py``) in a new process at ``bench.py``'s sizes, with
+   ``LIODOM_BENCH_BUDGET_S`` high enough that no phase is skipped, its rows
+   printed as they came: every row and final key present, no
+   ``parity_failed`` (each graph row against its eager run, the chained
+   rows against their per-frame runs), no warning line (truncation,
+   overflow, a failed gate), every lane at >= 8 scans/s eager and as a
+   graph, exit code 0.
+19. kernels — each kernel against its plain PyTorch version on the card, on
    the bench drive's last frame, window, map and pose: K1 bit-exact there
    and at every shape the port launches it with (``smoothness_cases``: the
    folded B = 4 and 8 rings, the Ouster path's 128 rings, a width of
@@ -249,7 +257,7 @@ Phases, each printing one JSON line:
    each on one input give bit-equal centroids, and ``update_map_full`` at
    ``resolution=0.1`` (the sorted soup of a map that is not packable)
    called twice on one input: every field ``torch.equal``.
-19. profile — torch.profiler over 5 frames of the bench drive, for
+20. profile — torch.profiler over 5 frames of the bench drive, for
    ``image_step``, ``combined_image_step``, ``batch_image_step`` at B = 4
    and 8 and the sharded flagship: device busy time and share, device
    kernels a frame, the largest kernels by time, and the host's operators
@@ -1256,6 +1264,72 @@ def warm_cache_phase(smi, check) -> None:
             for v in prog.values()), f"warm_cache {run}: {rep['programs']}")
     emit({"phase": "warm_cache", "nvidia_smi": smi, "cold": cold,
           "warm": warm, "seconds": time.perf_counter() - t0})
+
+
+BENCH_ROWS = ("odometry_scans_per_s_1chip", "odometry_scans_per_s_chained",
+              "odometry_scans_per_s_window15", "ouster_scans_per_s",
+              "combined_scans_per_s_1chip", "combined_scans_per_s_chained",
+              "batched_odometry_scans_per_s_B4",
+              "batched_odometry_scans_per_s_B8")
+BENCH_FINAL = ("window15_scans_per_s", "chained_scans_per_s",
+               "ouster_scans_per_s", "combined_chained_scans_per_s",
+               "combined_chained_pf_control", "batched_B4_scans_per_s",
+               "batched_B8_scans_per_s", "combined_scans_per_s",
+               "combined_async_scans_per_s")
+
+
+def bench_phase(smi, check) -> None:
+    """The ``bench`` phase: ``python -m liodom_tpu_torch.tools.bench`` in a
+    new process at ``bench.py``'s sizes, its budget high enough that no
+    phase is skipped, its rows printed as they came.  Fails on an exit code
+    other than 0, a row or final key missing, any ``parity_failed``, any
+    warning line (stdout's truncation and overflow lines, stderr's gate
+    lines) and a lane under 8 scans/s, eager or graph."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "liodom_tpu_torch.tools.bench"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        env=dict(os.environ, LIODOM_BENCH_BUDGET_S="100000"), timeout=900)
+    check(out.returncode == 0, f"bench exited {out.returncode}:\n"
+          f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    lines = [json.loads(x) for x in out.stdout.splitlines() if x.strip()]
+    for line in lines:
+        print(json.dumps(line), flush=True)
+    if out.returncode != 0 or not lines:
+        return
+    final = lines[-1]
+    rows = {r["metric"]: r for r in lines[:-1] if "metric" in r}
+    check(list(rows) == list(BENCH_ROWS),
+          f"bench rows {list(rows)} != {list(BENCH_ROWS)}")
+    missing = [k for k in BENCH_FINAL + tuple(f"eager_{k}" for k in
+                                                BENCH_FINAL) if k not in final]
+    check(not missing, f"bench: final line lacks {missing}")
+    flagged = [k for line in lines for k in line
+               if k.endswith("parity_failed") or k.endswith("_skipped")]
+    check(not flagged, f"bench: {flagged}")
+    warned = ([line for line in lines if "warning" in line]
+              + [x for x in out.stderr.splitlines()
+                 if x.startswith("WARNING")])
+    check(not warned, f"bench warnings: {warned}")
+
+    def lanes(key: str) -> int:
+        m = re.search(r"_B(\d+)", key)
+        return int(m.group(1)) if m else 1
+
+    rates = {f"{name}:{k}": v / lanes(name) for name, row in rows.items()
+             for k, v in row.items()
+             if k in ("value", "eager_value", "per_frame_same_protocol",
+                      "eager_per_frame_same_protocol")}
+    rates.update({k: v / lanes(k) for k, v in final.items()
+                  if k.endswith("_scans_per_s") or k.endswith("_pf_control")
+                  or k in ("value", "eager_value")})
+    slow = {k: v for k, v in rates.items()
+            if not (isinstance(v, float) and v >= MIN_SCANS_PER_S)}
+    check(not slow, f"bench: lanes under {MIN_SCANS_PER_S} scans/s: {slow}")
+    emit({"phase": "bench", "nvidia_smi": smi, "card": final.get("card"),
+          "build_s": final.get("build_s"),
+          "bench_wall_s": final.get("bench_wall_s"),
+          "seconds": time.perf_counter() - t0})
 
 
 APP_CK_EVERY = 24           # run_kitti's checkpoint in the apps phase
@@ -2474,6 +2548,9 @@ def main() -> int:
     # ---- 17. the deploy-time warm cache, cold then warm -----------------
     warm_cache_phase(smi, check)
 
+    # ---- 18. the port of bench.py, eager and as CUDA graphs -------------
+    bench_phase(smi, check)
+
     # the states every frame of the bench drive left, for the kernel checks
     # and the profile (untimed)
     bstates, _, _ = run_course(P.init_state(cfg), bimgs, cfg)
@@ -2488,7 +2565,7 @@ def main() -> int:
                           bench_b[max(TIMED_BATCHES)][:N_FRAMES - 5], cfg,
                           keep=False, step=P.batch_image_step)[0][-1]
 
-    # ---- 18. each kernel against its plain version, bench shapes ---------
+    # ---- 19. each kernel against its plain version, bench shapes ---------
     img = bimgs[N_FRAMES - 1]
     sm_k = SM.smoothness_cuda(img.xyz, img.count)
     sm_p = SM.smoothness_plain(img.xyz, img.count)
@@ -3047,7 +3124,7 @@ def main() -> int:
          "ptxas": usage.get("probe_insert")},
     ]
 
-    # ---- 19. where a frame's device time goes ----------------------------
+    # ---- 20. where a frame's device time goes ----------------------------
     # the bench drive's last frames again, from the states they met
     n_prof = 5
     last = bimgs[N_FRAMES - n_prof:]

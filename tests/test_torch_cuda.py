@@ -811,3 +811,41 @@ def test_bench_stages_graphs_equal_their_eager_stages(dev):
     for key in ("odom_ms", "combined_ms"):
         assert out[key]["graph_equals_eager"]
         assert out[key]["chained_graph_poses_equal"]
+
+
+def test_bench_graph_rows_pass_their_gates(dev):
+    """``tools/bench`` at a small size (900 columns, ring width 2,048, 2 + 4
+    frames, chunks of 3 so that the chained combined course meets two
+    refresh phases, B = 2): every row present, no gate failed (each graph
+    against its eager run: ``torch.equal`` for the odometry, window-15,
+    Ouster and batch rows, <= 1e-6 m for the combined ones; the chained
+    rows within 1e-3 m of their per-frame runs), no truncation or
+    overflow, every rate finite, eager and graph."""
+    import math
+    from liodom_tpu_torch.tools import bench as B
+    lines = []
+    out = B.run(width=900, ring_width=2048, n_warm=2, n_bench=4,
+                map_capacity=131072, local_map_capacity=8192, batches=(2,),
+                chunk=3, reps=2, emit=lines.append)
+    assert [r["metric"] for r in out["rows"]] == [
+        "odometry_scans_per_s_1chip", "odometry_scans_per_s_chained",
+        "odometry_scans_per_s_window15", "ouster_scans_per_s",
+        "combined_scans_per_s_1chip", "combined_scans_per_s_chained",
+        "batched_odometry_scans_per_s_B2"]
+    assert not out["warnings"]
+    for row in out["rows"]:
+        assert not row.get("parity_failed"), row
+        assert math.isfinite(row["value"]) and row["value"] > 0, row
+        assert math.isfinite(row["eager_value"]) and row["eager_value"] > 0
+    for name, modes in out["poses"].items():
+        g, e = modes["graph"][-1], modes["eager"][-1]
+        if name.startswith("combined"):
+            assert float((g.t - e.t).norm()) <= B.COMBINED_PARITY_TOL_M
+        else:
+            assert torch.equal(g.t, e.t) and torch.equal(g.q, e.q), name
+    final = out["final"]
+    assert lines[-1] is final
+    assert not any(k.endswith("_skipped") or "parity" in k for k in final)
+    assert "combined_async_scans_per_s" in final
+    assert "," in final["card"]          # nvidia-smi: name, power limit
+    assert final["build_s"] is not None and final["build_s"] >= 0
