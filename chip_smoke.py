@@ -245,12 +245,34 @@ Phases, each printing one JSON line:
    the tie scenes without a radius bit for bit on every row against
    ``knn_index_launch_plain``, one kernel a call
    under the profiler, its cluster blocks and thread groups beside its
-   ptxas usage; K3, K4, K5 and K6 at k = 3 and 8 (the walk built for
-   every 1 <= k <= 16) bit for bit against ``knn_launch_plain`` /
-   ``knn_index_launch_plain`` / ``knn_lines_launch_plain`` on the bench
-   inputs (K6's gate as above), with ptxas registers and spills at k = 5
-   and 8; then each kernel's time beside its plain version's and its
-   bound.  Also ``update_map_sparse_epilogue`` against ``update_map``
+   ptxas usage; K3, K4, K5 and K6 at k = 3, 8, 16 (the register walk,
+   built for every 1 <= k <= 16), 17, 32, 64 and 512 (ListWalk, its lists
+   in shared memory, at 512 in device memory) bit for bit against
+   ``knn_launch_plain`` / ``knn_index_launch_plain`` /
+   ``knn_lines_launch_plain`` on the bench inputs (K6's gate as above),
+   with ptxas registers and spills at k = 5 and 8 and of ListWalk's
+   kernels (no static shared memory); ListWalk's own entry points at k =
+   1, 5 and 16, bit for bit, and K4, K5 and K6 at 128 ref tiles of a tie
+   lattice at k = 420 (the last whose lists fit shared memory) and 421
+   (the first in device memory), bit for bit.  The lifted
+   limits (``lifted_limits`` line), each drive with its counters set to 0
+   just before and read just after: ``image_step`` at ``knn_k=20`` over 20
+   bench frames (K3 on ListWalk twice a frame; ATE reported, not held),
+   its first 6 within 1 cm and 1e-3 rad of the CPU path with equal edge
+   counts, and 6 frames each under ``pallas_lines`` (K6), of
+   ``batch_image_step`` at B = 4 (K4) and of the sharded flagship (K5)
+   within 1 cm and 1e-3 rad of their references; K2 at 64 seeded rings x
+   49,152 columns (88 slots) and x 38,741 (424), past a block's shared
+   memory, bidx, bval and points ``torch.equal`` to ``select_plain``, the
+   same at 49,152 columns with 8 x 290 slots (a region's values in the
+   device scratch) and 8 x 330 (the lists and slots there), its
+   device-memory path also at the bench shape, and ``image_step`` at ring
+   width 49,152 for 6 frames within 1e-6 m of the main drive; K7 at
+   ``cells_xy=70`` (19,883 targets) on the combined drive's map at the
+   bench capacity and at 1,024, its device-memory path also at 75 and 174
+   targets, and 6 frames of ``combined_image_step`` at ``cells_xy=70``,
+   every refresh equal to the plain version.  Then each kernel's time
+   beside its plain version's and its bound, the new paths' too.  Also ``update_map_sparse_epilogue`` against ``update_map``
    over the combined drive's 36 frames at 524,288 and 2^20 slots: slots,
    keys, codes and overflow ``torch.equal``, centroids within 1e-5 m,
    the probe once a frame for each, ms a call, and whether two calls of
@@ -344,7 +366,24 @@ N_BATCH_CPU = 3             # frames of the batch path's CPU parity
 N_LOCKSTEP = 3              # tests/test_batch.py's horizon, reported
 CHUNK = 12                  # chained_image_step frames a call (bench.py:147)
 K6_OPS_PER_QUERY = 160      # csrc/knn_lines.cu's epilogue, counted by hand
-OTHER_K = (3, 8)            # the kNN kernels at k other than 5
+# the kNN kernels at k other than 5: the register walk to 16, ListWalk
+# above (its lists in device memory at 512)
+OTHER_K = (3, 8, 16, 17, 32, 64, 512)
+ANY_K = 20                  # knn_k of the drives on ListWalk
+# ListWalk's shared-memory boundary: at 128 ref tiles, k = 420 is the last
+# whose lists fit a block's 227 KB (16 KB of buffers, 512 bytes a
+# neighbour, 4 bytes a ref tile and the count)
+LIST_EDGE_TILES, LIST_EDGE = 128, 420
+N_ANY_K = 6                 # frames of each drive past a limit
+# K2 past a block's shared memory: (columns, edges_per_region): 8 x 11 and
+# 8 x 53 slots a ring
+WIDE_RINGS = ((49152, 10), (38741, 52))
+# its layouts at 49,152 columns: 8 x 290 slots leave shared memory too
+# little room for a region's values, which go to the device scratch; at
+# 8 x 330 the lists and slots go there, handed to rank 0 through global
+# memory
+SCRATCH_RINGS = ((49152, 289, "values"), (49152, 329, "lists"))
+CELLS_XY_WIDE = 70          # K7 past it: 141^2 XY keys plus the z column
 # one dependent step of K2's walk: a shared-memory load and a warp vote,
 # ~30 cycles at the H100's 1.98 GHz boost clock (published latency)
 WALK_STEP_S = 30 / 1.98e9
@@ -374,11 +413,17 @@ def bound(bytes_moved: float, ops: float):
 
 _COUNTED = {"smoothness": SM.smoothness_cuda,
             "select_edges": SEL.select_edges_cuda,
+            "select_edges_global": SEL.select_edges_global_cuda,
             "knn_coords": KNN.knn_launch,
             "knn_coords_batched": KNN.knn_launch_batched,
             "knn_lines": KNN.knn_lines_launch,
             "knn_index": KNN.knn_index_launch,
+            "knn_coords_any_k": KNN.knn_launch_any_k,
+            "knn_coords_batched_any_k": KNN.knn_launch_batched_any_k,
+            "knn_lines_any_k": KNN.knn_lines_launch_any_k,
+            "knn_index_any_k": KNN.knn_index_launch_any_k,
             "local_map_compact": K7.compact_hits_cuda,
+            "local_map_compact_global": K7.compact_hits_global_cuda,
             "probe_insert": PI.probe_insert_cuda}
 
 
@@ -439,6 +484,15 @@ def usage_at_k(usage: dict, kernel: str, k: int) -> dict:
     (its mangled name holds ``<kernel>ILi<k>E``)."""
     for name, u in (usage or {}).items():
         if re.search(rf"{kernel}ILi{k}E", name):
+            return u
+    return {}
+
+
+def usage_of(usage: dict, pattern: str) -> dict:
+    """ptxas usage of the entry function whose mangled name matches
+    ``pattern`` (a non-template kernel, or one instantiation)."""
+    for name, u in (usage or {}).items():
+        if re.search(pattern, name):
             return u
     return {}
 
@@ -615,17 +669,18 @@ def run_course(state, imgs, cfg, keep: bool = True, quats=None,
 
 
 def run_combined(odom, m, imgs, cfg, every_frame: bool = True,
-                 first: int = 0, keep: bool = True):
+                 first: int = 0, keep: bool = True, mcfg: MapConfig = MCFG):
     """Drive ``combined_image_step`` over the images (frames ``first``,
     ``first + 1``, ...) at the bench's map configuration.  ``every_frame``:
     refresh the local map each frame (``step=0``), else every 4th frame
-    (``step=i``), the two cadences of ``bench.py``'s combined rows.
+    (``step=i``), the two cadences of ``bench.py``'s combined rows;
+    ``mcfg`` the map configuration.
     Returns the (odometry, map) state after each frame (``keep=False``: the
     last one only), the poses and the edge counts, all on the device."""
     states, poses, n_edges = [], [], []
     for i, img in enumerate(imgs, start=first):
         odom, m, pose, ne = S.combined_image_step(
-            odom, m, img.xyz, img.count, cfg, MCFG,
+            odom, m, img.xyz, img.count, cfg, mcfg,
             step=0 if every_frame else i, local_map_every=4)
         states = (states if keep else []) + [(odom, m)]
         poses.append(pose)
@@ -1840,6 +1895,301 @@ def apps_phase(tmp: Path, spins, gt_pos, gt_yaw, dev, smi, check) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+def any_k_drives(cfg, ccfg, bimgs, lanes_b, gt_pos, mesh, check) -> dict:
+    """The steps at ``knn_k`` = ANY_K, past the register walk, so that the
+    kNN kernels run ListWalk (each drive's counters set to 0 just before
+    and read just after): ``image_step`` over N_ATE bench frames (K3 on
+    ListWalk twice a frame, its ATE reported, not held: k = 20 is not the
+    reference's setting), its first N_CPU_FRAMES against the port's CPU
+    path (< 1 cm, < 1e-3 rad, equal edge counts); under ``pallas_lines``
+    (K6), ``batch_image_step`` on the bench lanes (K4, lane 0 against the
+    solo drive) and the sharded flagship on ``mesh`` (K5, against
+    ``combined_image_step`` at the same k), N_ANY_K frames each, within
+    1 cm and 1e-3 rad; no host synchronisation anywhere."""
+    k20, c20 = cfg.replace(knn_k=ANY_K), ccfg.replace(knn_k=ANY_K)
+    n = N_ANY_K
+    out, counts = {}, {}
+
+    def drive(name, run, **want):
+        torch.cuda.synchronize()
+        reset_counters()
+        (_, poses, ne), syncs = sync_free(run)
+        counts[name] = read_counters()
+        check(counts[name] == launches(**want),
+              f"knn_k={ANY_K} {name}: launches {counts[name]}")
+        check(not syncs, f"knn_k={ANY_K} {name}: {len(syncs)} host syncs")
+        return poses, ne
+
+    poses, ne = drive("image_step", lambda: run_course(
+        P.init_state(k20), bimgs[:N_ATE], k20, keep=False),
+        smoothness=N_ATE, select_edges=N_ATE, knn_coords_any_k=2 * N_ATE)
+    t, q, _, ate = drive_error(poses, gt_pos[:N_ATE])
+    ne = torch.stack(ne).cpu().numpy()
+    cpu = [RingImage(im.xyz.cpu(), im.count.cpu())
+           for im in bimgs[:N_CPU_FRAMES]]
+    _, cposes, cedges = run_course(P.init_state(k20, device="cpu"), cpu, k20)
+    ct, cq, _, _ = drive_error(cposes, gt_pos[:N_CPU_FRAMES])
+    dt, dr = pose_gaps(ct, cq, t[:N_CPU_FRAMES], q[:N_CPU_FRAMES])
+    same = [int(c) for c in cedges] == ne[:N_CPU_FRAMES].tolist()
+    check(dt.max() < 0.01 and dr.max() < 1e-3 and same,
+          f"knn_k={ANY_K}: card vs CPU path {dt.max():.2e} m "
+          f"{dr.max():.2e} rad, same edge counts {same}")
+    out["image_step"] = {
+        "frames": N_ATE, "launches": counts["image_step"],
+        f"ate_m_first_{N_ATE}": ate, "n_edges_min": int(ne.min()),
+        "cpu_frames": N_CPU_FRAMES, "cpu_max_dt_m": float(dt.max()),
+        "cpu_max_drot_rad": float(dr.max()), "cpu_same_n_edges": same}
+
+    def near(name, poses, ref_t, ref_q):
+        pt, pq, _, _ = drive_error(poses, gt_pos[:n])
+        gt, gr = pose_gaps(pt, pq, ref_t, ref_q)
+        check(gt.max() < 0.01 and gr.max() < 1e-3,
+              f"knn_k={ANY_K} {name}: {gt.max():.2e} m {gr.max():.2e} rad")
+        out[name] = {"frames": n, "launches": counts[name],
+                     "max_dt_m": float(gt.max()),
+                     "max_drot_rad": float(gr.max())}
+
+    os.environ["LIODOM_KNN_IMPL"] = "pallas_lines"
+    lp, _ = drive("lines", lambda: run_course(
+        P.init_state(k20), bimgs[:n], k20, keep=False),
+        smoothness=n, select_edges=n, knn_lines_any_k=2 * n)
+    os.environ["LIODOM_KNN_IMPL"] = "pallas_coords"
+    near("lines", lp, t[:n], q[:n])
+    bp, _ = drive("batch", lambda: run_course(
+        init_batch_state(k20, LANES), lanes_b[:n], k20, keep=False,
+        step=P.batch_image_step),
+        smoothness=n, select_edges=n, knn_coords_batched_any_k=2 * n)
+    near("batch", [se3.Pose(p.q[0], p.t[0]) for p in bp], t[:n], q[:n])
+    cp, _ = drive("combined", lambda: run_combined(
+        *S.init_combined(c20, MCFG), bimgs[:n], c20, keep=False),
+        smoothness=n, select_edges=n, knn_coords_any_k=2 * n,
+        local_map_compact=n, probe_insert=n)
+    cpt, cpq, _, _ = drive_error(cp, gt_pos[:n])
+    sstep = CB.make_sharded_combined_image_step(mesh, c20, MCFG)
+    sp, _ = drive("sharded", lambda: run_sharded(
+        *CB.init_combined_image_sharded(c20, MCFG, mesh), bimgs[:n], sstep,
+        keep=False),
+        smoothness=n, select_edges=n, knn_index_any_k=2 * n,
+        local_map_compact=n, probe_insert=n)
+    near("sharded", sp, cpt, cpq)
+    out["combined"] = {"frames": n, "launches": counts["combined"]}
+    return out
+
+
+def wide_planes(dev, rings: int, width: int, seed: int):
+    """Rings of ``width`` columns sampled every 5 cm along gentle curves
+    (~12 % of the gaps broken, so a pick suppresses up to 5 neighbours a
+    side), counts within 2,000 of the width and one ring below
+    ``min_points``, and a smoothness plane quantised to 1/8 (many exact
+    ties), all from ``seed``: (RingImage, smoothness) on ``dev``."""
+    rng = np.random.default_rng(seed)
+    s = np.cumsum(np.where(rng.random((rings, width)) < 0.12, 0.4, 0.05),
+                  axis=1)
+    off = np.arange(rings)[:, None]
+    xyz = np.stack([10.0 + np.cos(s * 0.01 + off), s,
+                    0.1 * np.sin(s * 0.3 + off)], -1).astype(np.float32)
+    count = (width - rng.integers(0, 2000, rings)).astype(np.int32)
+    count[5] = 20
+    xyz[np.arange(width)[None, :] >= count[:, None]] = 0.0
+    sm = (np.round(rng.random((rings, width)) * 8.0) / 8.0).astype(np.float32)
+    return (RingImage(torch.from_numpy(xyz).to(dev),
+                      torch.from_numpy(count).to(dev)),
+            torch.from_numpy(sm).to(dev))
+
+
+def select_bound(img, cfg, bval):
+    """(bound_ms, bound_by) of K2 on ``img``: it reads the smoothness plane,
+    the counts and the image (gap flags), writes the slots; 8 operations a
+    column for the gaps, 2 compares a scanned column (per ring and region,
+    the picks made plus the failing one, at most max_picks, passes over
+    the region)."""
+    r, w = img.xyz.shape[:2]
+    slots = cfg.scan_regions * cfg.max_edges_per_region
+    bval = bval.reshape(r, cfg.scan_regions, cfg.max_edges_per_region)
+    passes = torch.clamp(bval.sum(-1) + 1, max=cfg.max_edges_per_region)
+    region_len = torch.clamp(img.count - 10, min=0) // cfg.scan_regions
+    scanned = int((passes * region_len[:, None]).sum())
+    return bound(r * w * 4 + r * 4 + img.xyz.numel() * 4
+                 + r * slots * (4 + 4 + 12), 8 * r * w + 2 * scanned)
+
+
+def select_wide_phase(cfg, img, sm, raws, poses, dev, check) -> dict:
+    """K2 where a ring's arrays exceed a block's shared memory
+    (WIDE_RINGS on 64 seeded rings): ``select_smem_bytes`` above 227 KB,
+    the wrapper's launch on the device-memory path, bidx, bval and the
+    points ``torch.equal`` to ``select_plain``, timed beside it; the same
+    at SCRATCH_RINGS, each layout of that path taken (a region's values,
+    then the lists and slots, in the device scratch); that path
+    called directly on the bench frame (88 and 168 slots) equal to the
+    shared-memory kernel; and ``image_step`` at ring width 49,152 over the
+    main drive's first N_ANY_K raw scans (K2 on that path once a frame):
+    poses within 1e-6 m of the main drive's (the picks depend on the
+    counts, not the width)."""
+    out = {}
+    for seed, (w, picks) in enumerate(WIDE_RINGS):
+        c = cfg.replace(edges_per_region=picks, ring_width=w)
+        wimg, wsm = wide_planes(dev, 64, w, seed)
+        smem = SEL.select_smem_bytes(w, c.scan_regions,
+                                     c.max_edges_per_region)
+        check(smem > 232448, f"K2 at {w} columns fits shared memory")
+        bidx, bval, pts = SEL.select_slots_global(wimg, wsm, c)
+        reach = SEL._reach_plane(wimg.xyz, c.neighbor_gap_sq)
+        pidx, pval = SEL.select_plain(wsm, reach, wimg.count, c)
+        pedges = SEL.select_edges_plain(wimg, wsm, c)
+        before = SEL.select_edges_global_cuda.launches
+        edges = SEL.select_edges_cuda(wimg, wsm, c)
+        took = SEL.select_edges_global_cuda.launches - before
+        same = (torch.equal(bidx, pidx) and torch.equal(bval != 0, pval)
+                and torch.equal(pts.reshape(-1, 3), pedges.xyz)
+                and torch.equal(edges.xyz, pedges.xyz)
+                and torch.equal(edges.valid, pedges.valid))
+        check(same and took == 1,
+              f"K2 at {w} columns, {c.scan_regions * c.max_edges_per_region}"
+              f" slots: equal {same}, device-memory launches {took}")
+        b = select_bound(wimg, c, pval)
+        out[f"rings64x{w}_slots{c.scan_regions * c.max_edges_per_region}"] = {
+            "smem_bytes_needed": smem, "bit_exact": same,
+            "n_edges": int(pval.sum()),
+            **SEL.select_global_shape(w, c.scan_regions,
+                                      c.max_edges_per_region),
+            "ms": cuda_ms(lambda: SEL.select_edges_cuda(wimg, wsm, c), 10),
+            "plain_ms": cuda_ms(lambda: SEL.select_edges_plain(wimg, wsm, c),
+                                2, 1),
+            "bound_ms": b[0], "bound_by": b[1]}
+    for seed, (w, picks, where) in enumerate(SCRATCH_RINGS, len(WIDE_RINGS)):
+        c = cfg.replace(edges_per_region=picks, ring_width=w)
+        wimg, wsm = wide_planes(dev, 64, w, seed)
+        lay = SEL.select_global_shape(w, c.scan_regions,
+                                      c.max_edges_per_region)
+        total = torch.clamp(wimg.count - 10, min=0)
+        longest = int((total - total // c.scan_regions
+                       * (c.scan_regions - 1)).max())
+        in_scratch = {"values": lay["values_in_smem"] < longest,
+                      "lists": lay["lists_in_scratch"]}
+        bidx, bval, pts = SEL.select_slots_global(wimg, wsm, c)
+        reach = SEL._reach_plane(wimg.xyz, c.neighbor_gap_sq)
+        pidx, pval = SEL.select_plain(wsm, reach, wimg.count, c)
+        pedges = SEL.select_edges_plain(wimg, wsm, c)
+        same = (torch.equal(bidx, pidx) and torch.equal(bval != 0, pval)
+                and torch.equal(pts.reshape(-1, 3), pedges.xyz))
+        s_ = c.scan_regions * c.max_edges_per_region
+        out[f"rings64x{w}_slots{s_}_{where}_in_scratch"] = {
+            **lay, "longest_region": longest, "bit_exact": same,
+            "n_edges": int(pval.sum())}
+        check(in_scratch[where] and not in_scratch["lists" if where ==
+                                                   "values" else "values"],
+              f"K2 at {w} columns, {s_} slots: layout {lay}, longest "
+              f"region {longest}")
+        check(same, f"K2 at {w} columns, {s_} slots, {where} in the "
+              "scratch: not equal to select_plain")
+    for c in (cfg, cfg.replace(edges_per_region=20)):
+        got = SEL.select_edges_global_cuda(img, sm, c)
+        want = SEL.select_edges_cuda(img, sm, c)
+        same = (torch.equal(got.valid, want.valid)
+                and torch.equal(got.xyz, want.xyz))
+        s_ = c.scan_regions * c.max_edges_per_region
+        check(same, f"K2's device-memory path at the bench shape, {s_} slots")
+        out[f"bench_slots{s_}_equal_to_smem_path"] = same
+    out["bench_ms"] = cuda_ms(
+        lambda: SEL.select_edges_global_cuda(img, sm, cfg), 50)
+    out["bench_smem_path_ms"] = cuda_ms(
+        lambda: SEL.select_edges_cuda(img, sm, cfg), 50)
+    # image_step at ring width 49,152: the path in a drive
+    wc = cfg.replace(ring_width=WIDE_RINGS[0][0])
+    wimgs = [F.split_scan(r, wc) for r in raws[:N_ANY_K]]
+    torch.cuda.synchronize()
+    reset_counters()
+    (_, wp, _), syncs = sync_free(lambda: run_course(
+        P.init_state(wc), wimgs, wc, keep=False))
+    counts = read_counters()
+    want = launches(smoothness=N_ANY_K, select_edges_global=N_ANY_K,
+                    knn_coords=2 * N_ANY_K)
+    gap = max(float((a.t - b.t).norm()) for a, b in zip(wp, poses))
+    equal = all(torch.equal(a.t, b.t) and torch.equal(a.q, b.q)
+                for a, b in zip(wp, poses))
+    check(counts == want, f"image_step at {wc.ring_width} columns: "
+          f"launches {counts}")
+    check(gap <= 1e-6 and not syncs,
+          f"image_step at {wc.ring_width} columns: {gap:.2e} m from the "
+          f"main drive, {len(syncs)} host syncs")
+    out["image_step_ring_width_49152"] = {
+        "frames": N_ANY_K, "launches": counts, "max_dt_m_to_main": gap,
+        "poses_equal_to_main": equal}
+    return out, counts
+
+
+def compact_wide_phase(kmap, kbase, imgs, ccfg, check):
+    """K7 past the targets a block's shared memory holds: at
+    ``cells_xy`` = CELLS_XY_WIDE on the combined drive's 524,288-slot map
+    at the bench capacity and at 1,024 (a truncating cut), rows, validity
+    and ``n_hits`` ``torch.equal`` to ``compact_hits_plain`` (the wrapper
+    takes the device-memory path); that path called directly at 75 and 174
+    targets; and N_ANY_K frames of ``combined_image_step`` at that
+    ``cells_xy``, every refresh's local map equal to the plain version's
+    on the frame's map and pose."""
+    offs = G.local_map_offsets(MCFG, cells_xy=CELLS_XY_WIDE)
+    check(len(offs) > K7.MAX_TARGETS, f"{len(offs)} targets fit K7's smem")
+    cap = MCFG.local_map_capacity
+    m = (kmap.xyz, kmap.key, kmap.valid)
+    out = {"targets": len(offs)}
+    for c in (cap, 1024):
+        before = K7.compact_hits_global_cuda.launches
+        got = K7.compact_hits_cuda(*m, kbase, offs, c)
+        took = K7.compact_hits_global_cuda.launches - before
+        want = K7.compact_hits_plain(*m, kbase, offs, c)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        check(same and took == 1, f"K7 at {len(offs)} targets, capacity {c}:"
+              f" equal {same}, device-memory launches {took}")
+        out[f"cap{c}"] = {"n_hits": int(got[2]), "bit_exact": same}
+    check(out["cap1024"]["n_hits"] > 1024, "K7: 1,024 did not truncate")
+    for kw in ({"cells_xy": 3, "cells_z": 16}, {"cells_xy": 6, "cells_z": 3}):
+        o = G.local_map_offsets(MCFG, **kw)
+        got = K7.compact_hits_global_cuda(*m, kbase, o, cap)
+        want = K7.compact_hits_plain(*m, kbase, o, cap)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        check(same, f"K7's device-memory path at {len(o)} targets")
+        out[f"entry_targets{len(o)}"] = {"n_hits": int(got[2]),
+                                         "bit_exact": same}
+    occupied = int(kmap.valid.sum())
+    out["ms"] = cuda_ms(lambda: K7.compact_hits_cuda(*m, kbase, offs, cap),
+                        50)
+    out["plain_ms"] = cuda_ms(
+        lambda: K7.compact_hits_plain(*m, kbase, offs, cap), 2, 1)
+    # the mask, the keys of the occupied rows, the hit rows kept, the
+    # buffer, its mask and the count; a binary search of ceil(log2 K) + 1
+    # steps of 3 compares an occupied row
+    steps = math.ceil(math.log2(len(offs))) + 1
+    b = bound(kmap.xyz.shape[0] + occupied * 12
+              + min(out[f"cap{cap}"]["n_hits"], cap) * 12 + cap * 13 + 4,
+              occupied * steps * 3)
+    out.update(bound_ms=b[0], bound_by=b[1], occupied=occupied)
+    # the combined step at that neighbourhood
+    wide = MCFG.replace(cells_xy=CELLS_XY_WIDE)
+    torch.cuda.synchronize()
+    reset_counters()
+    (states, poses, _), syncs = sync_free(lambda: run_combined(
+        *S.init_combined(ccfg, wide), imgs[:N_ANY_K], ccfg, mcfg=wide))
+    counts = read_counters()
+    want = launches(smoothness=N_ANY_K, select_edges=N_ANY_K,
+                    knn_coords=2 * N_ANY_K, probe_insert=N_ANY_K,
+                    local_map_compact_global=N_ANY_K)
+    refresh = []
+    for (odom, mp), p in zip(states, poses):
+        want_map = K7.compact_hits_plain(
+            mp.xyz, mp.key, mp.valid, G.cell_keys(torch.trunc(p.t), wide),
+            offs, wide.local_map_capacity)
+        refresh.append(torch.equal(odom.received_xyz, want_map[0])
+                       and torch.equal(odom.received_valid, want_map[1]))
+    check(counts == want, f"combined at cells_xy={CELLS_XY_WIDE}: launches "
+          f"{counts}")
+    check(all(refresh) and not syncs,
+          f"combined at cells_xy={CELLS_XY_WIDE}: refreshes equal {refresh},"
+          f" {len(syncs)} host syncs")
+    out["combined_image_step"] = {"frames": N_ANY_K, "launches": counts,
+                                  "refreshes_equal_to_plain": refresh}
+    return out, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # the sharded_cpu_parity phase's subprocess
@@ -2566,6 +2916,7 @@ def main() -> int:
                           keep=False, step=P.batch_image_step)[0][-1]
 
     # ---- 19. each kernel against its plain version, bench shapes ---------
+    t_kernels = time.perf_counter()
     img = bimgs[N_FRAMES - 1]
     sm_k = SM.smoothness_cuda(img.xyz, img.count)
     sm_p = SM.smoothness_plain(img.xyz, img.count)
@@ -2843,6 +3194,11 @@ def main() -> int:
                     <= 1e-4 * eigs[..., 2].abs())
         flips = got6[2] != want6[2]
         other_k[kk] = {
+            "walk": ("register" if kk <= KNN.MAX_K else
+                     "lists in shared memory"
+                     if KNN.knn_any_k_shape("knn_coords", prep[2].shape[-1],
+                                            kk)["lists_in_smem"] else
+                     "lists in device memory"),
             "knn_coords_equal": all(torch.equal(a, b)
                                     for a, b in zip(got3, want3)),
             "knn_coords_batched_equal": all(torch.equal(a, b)
@@ -2860,6 +3216,82 @@ def main() -> int:
             check(other_k[kk][key], f"k={kk}: {key} is False")
         check(other_k[kk]["knn_lines_gate_flips_off_ratio_boundary"] == 0,
               f"k={kk}: K6 gate flips away from the ratio boundary")
+    check(other_k[512]["walk"] == "lists in device memory",
+          "k=512: ListWalk's lists did not go to device memory")
+
+    # ListWalk's own entry points where the register walk also runs, bit
+    # for bit
+    t_lifted = time.perf_counter()
+    any_k_entry = {}
+    for kk in (1, 5, 16):
+        got = (KNN.knn_launch_any_k(*prep, k=kk),
+               KNN.knn_launch_batched_any_k(*prep_b, k=kk),
+               KNN.knn_index_launch_any_k(*prep5, m5, k=kk))
+        want = (KNN.knn_launch_plain(*prep, k=kk),
+                KNN.knn_launch_plain(*prep_b, k=kk),
+                KNN.knn_index_launch_plain(*prep5, m5, k=kk))
+        same = all(torch.equal(a, b) for g, w_ in zip(got, want)
+                   for a, b in zip(g, w_))
+        if kk >= 2:
+            g6 = KNN.knn_lines_launch_any_k(*prep_l, *gates, k=kk)
+            w6 = KNN.knn_lines_launch_plain(*prep_l, *gates, k=kk)
+            same &= torch.equal(g6[0], w6[0]) and torch.equal(g6[1], w6[1])
+        name = f"k{kk}"
+        any_k_entry[name] = same
+        check(same, f"ListWalk's entry points ({name}) differ from the "
+              f"plain versions")
+    # the shared-memory boundary at 128 ref tiles of the tie lattice: k =
+    # LIST_EDGE the last whose lists fit beside the staging buffers and the
+    # ranked flags, LIST_EDGE + 1 the first in device memory; each launch
+    # takes ListWalk, bit for bit
+    for kern in ("knn_coords", "knn_index", "knn_lines"):
+        st = usage_of(usage.get(kern), f"{kern}_any_k_kernel").get(
+            "static_smem_bytes")
+        check(st == 0, f"{kern}'s ListWalk kernel has {st} bytes of static "
+              "shared memory beside the dynamic size it is sized to")
+    lat = [tie_scene(s_, 1000, LIST_EDGE_TILES * KNN.TILE_M)
+           for s_ in range(2)]
+    prep_e = KNN.knn_prepare_batched(*(
+        torch.from_numpy(np.stack([ln[i] for ln in lat])).to(dev)
+        for i in range(4)), 1.0)
+    check(prep_e[2].shape[-1] == LIST_EDGE_TILES,
+          f"the boundary lattice has {prep_e[2].shape[-1]} ref tiles")
+    m_e = LIST_EDGE_TILES * KNN.TILE_M
+    for kk in (LIST_EDGE, LIST_EDGE + 1):
+        shape_e = KNN.knn_any_k_shape("knn_coords", LIST_EDGE_TILES, kk)
+        before = (KNN.knn_launch_batched_any_k.launches,
+                  KNN.knn_index_launch_any_k.launches,
+                  KNN.knn_lines_launch_any_k.launches)
+        got = (KNN.knn_launch_batched(*prep_e, k=kk),
+               KNN.knn_index_launch(*prep_e, m_e, k=kk),
+               KNN.knn_lines_launch(*prep_e, *gates, k=kk)[:2])
+        took = tuple(a - b for a, b in zip(
+            (KNN.knn_launch_batched_any_k.launches,
+             KNN.knn_index_launch_any_k.launches,
+             KNN.knn_lines_launch_any_k.launches), before))
+        want = (KNN.knn_launch_plain(*prep_e, k=kk),
+                KNN.knn_index_launch_plain(*prep_e, m_e, k=kk),
+                KNN.knn_lines_launch_plain(*prep_e, *gates, k=kk)[:2])
+        same = all(torch.equal(a, b) for g, w_ in zip(got, want)
+                   for a, b in zip(g, w_))
+        name = f"k{kk}_at_{LIST_EDGE_TILES}_ref_tiles"
+        any_k_entry[name] = {"equal": same, "any_k_launches": took,
+                             **shape_e}
+        check(same and took == (1, 1, 1)
+              and shape_e["lists_in_smem"] == (kk == LIST_EDGE)
+              and shape_e["dynamic_smem_bytes"] <= 232448,
+              f"ListWalk at {name}: {any_k_entry[name]}")
+    any_k = any_k_drives(cfg, ccfg, bimgs, bench_b[LANES], gt_pos, mesh,
+                         check)
+    select_wide, wide_counts = select_wide_phase(
+        cfg, img, sm_k, raws, main_drive[0], dev, check)
+    compact_wide, k7w_counts = compact_wide_phase(kmap, kbase, imgs, ccfg,
+                                                  check)
+    emit({"phase": "lifted_limits", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_lifted,
+          "any_k_entry_points_equal": any_k_entry, "knn_k_20": any_k,
+          "select_edges_global": select_wide,
+          "local_map_compact_global": compact_wide})
 
     flags = prep[2]
     n_e, n_m = flags.shape
@@ -2867,7 +3299,7 @@ def main() -> int:
     flagged_b = int(prep_b[2].sum())
     flagged5 = int(prep5[2].sum())
     sparse_epilogue = sparse_epilogue_phase(imgs, cposes_k, cfg, check)
-    emit({"phase": "kernels",
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t_kernels,
           "sparse_epilogue": sparse_epilogue,
           "smoothness": {"bit_exact": all(v["bit_exact"]
                                           for v in k1.values()),
@@ -2929,18 +3361,7 @@ def main() -> int:
 
     k2_ms = cuda_ms(lambda: SEL.select_edges_cuda(img, sm_k, cfg), 50)
     k2_plain = cuda_ms(lambda: SEL.select_edges_plain(img, sm_k, cfg), 3, 1)
-    slots = cfg.scan_regions * cfg.max_edges_per_region
-    # scanned columns: per ring and region, (picks made + the failing one,
-    # at most max_picks) passes over the region
-    bval = ec_k.valid.reshape(r, cfg.scan_regions, cfg.max_edges_per_region)
-    passes = torch.clamp(bval.sum(-1) + 1, max=cfg.max_edges_per_region)
-    region_len = (torch.clamp(img.count - 10, min=0) // cfg.scan_regions)
-    scanned = int((passes * region_len[:, None]).sum())
-    # reads the smoothness plane, the counts and the image (gap flags),
-    # writes the slots; 8 operations a column for the gaps, 2 compares a
-    # scanned column
-    k2_bound = bound(r * w * 4 + r * 4 + img.xyz.numel() * 4
-                     + r * slots * (4 + 4 + 12), 8 * r * w + 2 * scanned)
+    k2_bound = select_bound(img, cfg, ec_k.valid)
     # the longest ring's chain of dependent walk steps, one shared-memory
     # step each
     k2_latency_ms = max(w_stats["steps"]) * WALK_STEP_S * 1e3
@@ -3021,6 +3442,62 @@ def main() -> int:
     copy_bound = bound(2 * n_tab * 8, 0)[0]
     rounds = probe["bench"]["rounds"]
     rounds_bound_ms = (2 * rounds + 1) * L2_TRIP_S * 1e3
+
+    # ListWalk at k = 17 (ANY_K's neighbour below it) beside the plain
+    # versions, with its bound at that k: the register rows' bytes and
+    # flagged pairs, the outputs k wide; K3 also at 32, 64 and 512
+    kw = OTHER_K[OTHER_K.index(KNN.MAX_K) + 1]
+
+    def err(got, want):
+        return float((got - want).abs().max())
+
+    a3 = (lambda: KNN.knn_launch_any_k(*prep, k=kw))
+    a3_err = err(a3()[0], KNN.knn_launch_plain(*prep, k=kw)[0])
+    a3_ms = cuda_ms(a3, 20)
+    a3_ms_at = {kk: cuda_ms(lambda: KNN.knn_launch_any_k(*prep, k=kk),
+                            2 if kk > 100 else 10)
+                for kk in OTHER_K if kk > kw}
+    a3_ms_at.update({kk: cuda_ms(lambda: KNN.knn_launch_any_k(*prep, k=kk),
+                                 20) for kk in (5, 16)})
+    a3_plain = cuda_ms(lambda: KNN.knn_coords_plain(
+        query, qvalid, map_xyz, map_valid, kw), 3, 1)
+    a3_bound = bound(q4.numel() * 4 + r4.numel() * 4 + flags.numel() * 4
+                     + e_q * 4 + e_q * kw * 4 * 4,
+                     flagged * KNN.TILE_E * KNN.TILE_M * 8)
+    a4 = (lambda: KNN.knn_launch_batched_any_k(*prep_b, k=kw))
+    a4_err = err(a4()[0], KNN.knn_launch_plain(*prep_b, k=kw)[0])
+    a4_ms = cuda_ms(a4, 20)
+    a4_plain = cuda_ms(lambda: KNN.knn_coords_batched_plain(
+        query_b, qvalid_b, map_b, mvalid_b, kw), 3, 1)
+    a4_bound = bound(prep_b[0].numel() * 4 + prep_b[1].numel() * 4
+                     + prep_b[2].numel() * 4 + e_b * 4 + e_b * kw * 4 * 4,
+                     flagged_b * KNN.TILE_E * KNN.TILE_M * 8)
+    a5 = (lambda: KNN.knn_index_launch_any_k(*prep5, m5, k=kw))
+    a5_err = err(a5()[0], KNN.knn_index_launch_plain(*prep5, m5, k=kw)[0])
+    a5_ms = cuda_ms(a5, 20)
+    a5_plain = cuda_ms(lambda: KNN.knn_index_plain(
+        s_query, ec_k.valid, s_map, s_valid, kw), 3, 1)
+    a5_bound = bound(sum(t.numel() * 4 for t in prep5) + e5 * kw * 8,
+                     int(ec_k.valid.sum()) * int(s_valid.sum()) * 8)
+    a6 = (lambda: KNN.knn_lines_launch_any_k(*prep_l, *gates, k=kw))
+    a6_got, a6_want = a6(), KNN.knn_lines_launch_plain(*prep_l, *gates, k=kw)
+    a6_err = max(err(a6_got[0], a6_want[0]), err(a6_got[1], a6_want[1]))
+    a6_ms = cuda_ms(a6, 20)
+    a6_plain = cuda_ms(lambda: KNN.knn_lines_plain(
+        query, qvalid, map_xyz, map_valid, kw, *gates), 3, 1)
+    a6_bound = bound(q4.numel() * 4 + r4.numel() * 4 + flags.numel() * 4
+                     + e_q * 4 + e_q * (2 * 12 + 1),
+                     flagged * KNN.TILE_E * KNN.TILE_M * 8
+                     + e_q * K6_OPS_PER_QUERY)
+    any_k_launches = {name: any_k[drive]["launches"][name] for drive, name in
+                      (("image_step", "knn_coords_any_k"),
+                       ("batch", "knn_coords_batched_any_k"),
+                       ("sharded", "knn_index_any_k"),
+                       ("lines", "knn_lines_any_k"))}
+    wide_rings = {k_: v for k_, v in select_wide.items()
+                  if k_.startswith("rings64x") and "_in_scratch" not in k_}
+    k2w_main = wide_rings[f"rings64x{WIDE_RINGS[0][0]}_slots"
+                          f"{cfg.scan_regions * (WIDE_RINGS[0][1] + 1)}"]
 
     rows = [
         {"name": "smoothness", "route": "cuda",
@@ -3122,6 +3599,69 @@ def main() -> int:
          "kernel_ms": probe_ms - clone_ms, "copy_bound_ms": copy_bound,
          "rounds": rounds, "rounds_latency_bound_ms": rounds_bound_ms,
          "ptxas": usage.get("probe_insert")},
+        {"name": "knn_coords_any_k", "route": "cuda",
+         "source": "liodom_tpu_torch/csrc/knn_coords.cu",
+         "replaces": "liodom_tpu/ops/knn_pallas.py:259",
+         "launches": any_k_launches["knn_coords_any_k"],
+         "max_abs_err": a3_err, "ms": a3_ms, "plain_ms": a3_plain,
+         "bound_ms": a3_bound[0], "bound_by": a3_bound[1],
+         "library_ms": None, "k": kw,
+         "ms_at_k": {str(kk): v for kk, v in sorted(a3_ms_at.items())},
+         "shape": KNN.knn_any_k_shape("knn_coords", n_m, kw),
+         "shape_k512": KNN.knn_any_k_shape("knn_coords", n_m, 512),
+         "ptxas": usage_of(usage.get("knn_coords"),
+                           "knn_coords_any_k_kernel")},
+        {"name": "knn_coords_batched_any_k", "route": "cuda",
+         "source": "liodom_tpu_torch/csrc/knn_coords.cu",
+         "replaces": "liodom_tpu/ops/knn_pallas.py:526",
+         "launches": any_k_launches["knn_coords_batched_any_k"],
+         "max_abs_err": a4_err, "ms": a4_ms, "plain_ms": a4_plain,
+         "bound_ms": a4_bound[0], "bound_by": a4_bound[1],
+         "library_ms": None, "k": kw, "batch": LANES,
+         "ptxas": usage_of(usage.get("knn_coords"),
+                           "knn_coords_any_k_kernel")},
+        {"name": "knn_index_any_k", "route": "cuda",
+         "source": "liodom_tpu_torch/csrc/knn_index.cu",
+         "replaces": "liodom_tpu/ops/knn_pallas.py:44",
+         "launches": any_k_launches["knn_index_any_k"],
+         "max_abs_err": a5_err, "ms": a5_ms, "plain_ms": a5_plain,
+         "bound_ms": a5_bound[0], "bound_by": a5_bound[1],
+         "library_ms": None, "k": kw,
+         "ptxas": usage_of(usage.get("knn_index"),
+                           "knn_index_any_k_kernel")},
+        {"name": "knn_lines_any_k", "route": "cuda",
+         "source": "liodom_tpu_torch/csrc/knn_lines.cu",
+         "replaces": "liodom_tpu/ops/knn_pallas.py:580",
+         "launches": any_k_launches["knn_lines_any_k"],
+         "max_abs_err": a6_err, "ms": a6_ms, "plain_ms": a6_plain,
+         "bound_ms": a6_bound[0], "bound_by": a6_bound[1],
+         "library_ms": None, "k": kw,
+         "ptxas": usage_of(usage.get("knn_lines"),
+                           "knn_lines_any_k_kernel")},
+        {"name": "local_map_compact_global", "route": "cuda",
+         "source": "liodom_tpu_torch/csrc/local_map_compact.cu",
+         "replaces": "scripts/compact_pallas_experiment.py:50",
+         "launches": k7w_counts["local_map_compact_global"],
+         "max_abs_err": 0.0 if compact_wide[f"cap{cap}"]["bit_exact"]
+         else float("nan"),
+         "ms": compact_wide["ms"], "plain_ms": compact_wide["plain_ms"],
+         "bound_ms": compact_wide["bound_ms"],
+         "bound_by": compact_wide["bound_by"], "library_ms": None,
+         "targets": compact_wide["targets"],
+         "n_hits": compact_wide[f"cap{cap}"]["n_hits"],
+         "ptxas": usage_of(usage.get("local_map_compact"),
+                           "compact_kernelILb0E")},
+        {"name": "select_edges_global", "route": "cuda",
+         "source": "liodom_tpu_torch/csrc/select.cu",
+         "replaces": "liodom_tpu/ops/select_pallas.py:70",
+         "launches": wide_counts["select_edges_global"],
+         "max_abs_err": 0.0 if k2w_main["bit_exact"] else float("nan"),
+         "ms": k2w_main["ms"], "plain_ms": k2w_main["plain_ms"],
+         "bound_ms": k2w_main["bound_ms"], "bound_by": k2w_main["bound_by"],
+         "library_ms": None, "rings": wide_rings,
+         "bench_ms": select_wide["bench_ms"],
+         "bench_smem_path_ms": select_wide["bench_smem_path_ms"],
+         "ptxas": usage_of(usage.get("select"), "select_kernelILb0E")},
     ]
 
     # ---- 20. where a frame's device time goes ----------------------------

@@ -1,5 +1,6 @@
-// K3 and K4: exact k-nearest-neighbours (1 <= k <= 16) carrying the
-// neighbours' coordinates, written by hand for Hopper (sm_90a).
+// K3 and K4: exact k-nearest-neighbours carrying the neighbours'
+// coordinates, written by hand for Hopper (sm_90a): the register walk for
+// 1 <= k <= 16, ListWalk (liodom_knn_coords_any_k) for any k.
 //
 // K3 replaces the TPU kernel liodom_tpu/ops/knn_pallas.py:_knn_coords_kernel
 // (launched by knn_coords_pallas); K4 replaces the same kernel with
@@ -34,7 +35,10 @@
 // element, whose queries, refs, flags, permutation and outputs start at
 // that element's offset, so a batch element is bit-identical to a K3 launch
 // on that element alone.  The kernel is a template on k; the entry points
-// dispatch the caller's k to its instantiation.
+// dispatch the caller's k to its instantiation.  Above k = 16 the wrapper
+// calls liodom_knn_coords_any_k: ListWalk (knn_search.cuh), one block a
+// query tile, the lists in shared or device memory, the same answer and
+// epilogue; its busiest query tile's block sets its time.
 
 #include <cuda_runtime.h>
 
@@ -101,6 +105,46 @@ int launch_coords(const void* q4, const void* r4, const void* flags,
   }));
 }
 
+// K3 and K4 on ListWalk, for any k: the same epilogue over the list in
+// memory.
+__global__ void __launch_bounds__(ListWalk::kThreads)
+knn_coords_any_k_kernel(const float4* __restrict__ q4,
+                        const float4* __restrict__ r4,
+                        const int* __restrict__ flags,
+                        const int* __restrict__ qperm, int n_query, int n_e,
+                        int n_m, int k, float* scratch,
+                        float* __restrict__ out_d, float* __restrict__ out_c) {
+  const size_t b = blockIdx.y;
+  q4 += b * n_e * kTileE;
+  r4 += b * n_m * kTileM;
+  flags += b * n_e * n_m;
+  qperm += b * n_query;
+  out_d += b * n_query * k;
+  out_c += b * n_query * k * 3;
+
+  const int et = blockIdx.x;
+  const int pos = et * kTileE + threadIdx.x;
+  const float4 q = q4[pos];
+  float* ld;
+  int* li;
+  ListWalk::search(q, r4, flags + static_cast<size_t>(et) * n_m, n_m, k,
+                   tile_lists(scratch, k, n_e), ld, li);
+  if (pos >= n_query) return;
+
+  const size_t dst = static_cast<size_t>(qperm[pos]) * k;
+  const bool valid = q.w != 0.0f;
+  for (int s = 0; s < k; ++s) {
+    const float bd = ld[s * kTileE];
+    const float4 r = neighbour(r4, li[s * kTileE]);
+    float d = bd > kFarPickD2 ? kBig : bd;
+    d = valid ? fmaxf(d, 0.0f) : kBig;
+    out_d[dst + s] = d;
+    out_c[(dst + s) * 3 + 0] = r.x;
+    out_c[(dst + s) * 3 + 1] = r.y;
+    out_c[(dst + s) * 3 + 2] = r.z;
+  }
+}
+
 }  // namespace
 
 // q4 (n_e * 64, 4) f32 sorted queries [x y z valid], r4 (n_m * 512, 4) f32
@@ -127,6 +171,34 @@ extern "C" int liodom_knn_coords_batched(const void* q4, const void* r4,
                                          void* stream) {
   return launch_coords(q4, r4, flags, qperm, out_d, out_c, batch, n_query,
                        n_e, n_m, tile_e, tile_m, k, stream);
+}
+
+// K3 (batch 1) and K4 at any k >= 1 on ListWalk, laid out as above.
+// scratch: nullptr to keep the lists in shared memory (refused where they
+// do not fit: liodom_knn_any_k_shape), else batch * n_e * 2 k 64 words of
+// device memory for them.
+extern "C" int liodom_knn_coords_any_k(const void* q4, const void* r4,
+                                       const void* flags, const void* qperm,
+                                       void* scratch, void* out_d,
+                                       void* out_c, int batch, int n_query,
+                                       int n_e, int n_m, int tile_e,
+                                       int tile_m, int k, void* stream) {
+  if (tile_e != kTileE || tile_m != kTileM || batch > 65535 || k < 1 ||
+      (scratch == nullptr && !ListWalk::lists_fit(n_m, k)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_e <= 0 || batch <= 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(ListWalk::launch(
+      knn_coords_any_k_kernel, n_e, batch, n_m, k, scratch == nullptr, stream,
+      static_cast<const float4*>(q4), static_cast<const float4*>(r4),
+      static_cast<const int*>(flags), static_cast<const int*>(qperm),
+      n_query, n_e, n_m, k, static_cast<float*>(scratch),
+      static_cast<float*>(out_d), static_cast<float*>(out_c)));
+}
+
+// ListWalk as built for n_m ref tiles and k neighbours (knn_search.cuh:
+// ListWalk::shape).
+extern "C" int liodom_knn_any_k_shape(int n_m, int k, int* out) {
+  return ListWalk::shape(n_m, k, out);
 }
 
 // The walk as built (knn_search.cuh): out[0] blocks a cluster, out[1]

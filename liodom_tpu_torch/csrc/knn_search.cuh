@@ -4,7 +4,9 @@
 // thread groups, the partial lists merged through shared and distributed
 // shared memory.  Everything is a template on the number of neighbours K
 // (1 <= K <= kMaxK) and on the split, so each kernel instantiates every k
-// and dispatches on the caller's at run time (with_k).
+// and dispatches on the caller's at run time (with_k).  Any other k takes
+// ListWalk (at the end of this file): one instantiation, its lists in
+// shared or device memory.
 //
 // What held the earlier walk back (NVIDIA H100 80GB HBM3, 700 W; K3 at the
 // bench drive's last frame, 627 of 88 x 55 tile pairs flagged): one block
@@ -383,6 +385,198 @@ cudaError_t with_k(int k, F&& f) {
     if (k == K) return f(std::integral_constant<int, K>{});
     return with_k<K + 1>(k, f);
   }
+}
+
+// The walk at any k (the *_any_k entry points; the wrappers take it for k >
+// kMaxK, where the register lists above would not fit): one block of 64
+// threads a query tile, one thread a query, no cluster.  The block ranks
+// its tile's flagged ref tiles and double-buffers them with cp.async as
+// Walk does; each thread scans every staged ref in ascending index order,
+// 8 distances behind one test against its k-th best, and inserts a ref
+// that beats it with a strict '<' shift (ties keep the earlier, lower
+// index): its list is then exactly the k smallest (d2, index) pairs of the
+// flagged tiles, the register walk's answer and knn_launch_plain's.
+// The lists live in memory, slot-major ([slot][query], stride kTileE, so
+// a warp's 32 accesses to one slot fall in 32 banks): in the block's
+// dynamic shared memory while 8 k 64 bytes fit beside the 16 KB of
+// buffers, the ranked flags and their count (k up to ~420 at the bench's
+// 87 ref tiles), else in a device scratch of 8 k 64 bytes a query tile
+// laid out the same, which the caller allocates; the same code reads both
+// through a base pointer.  The block has no static shared memory, so the
+// dynamic size alone is held to the 227 KB a block may opt in to.  The busiest query tile's one block sets the time (no
+// split over a cluster yet).
+struct ListWalk {
+  static constexpr int kThreads = kTileE;   // one thread a query
+  static constexpr size_t kBufBytes = 2 * kTileM * sizeof(float4);
+  static constexpr size_t kMaxSmem = 232448;
+
+  // a query tile's lists: (d2, index) in k slots for 64 queries
+  static __host__ __device__ size_t list_bytes(int k) {
+    return static_cast<size_t>(8) * k * kTileE;
+  }
+  static bool lists_fit(int n_m, int k) {
+    return smem_bytes(n_m, k, true) <= kMaxSmem;
+  }
+  // Dynamic shared memory: the staging buffers, the lists if they are
+  // kept there, then the ranked flagged tiles and their count.
+  static size_t smem_bytes(int n_m, int k, bool lists_in_smem) {
+    return kBufBytes + (lists_in_smem ? list_bytes(k) : 0) +
+           sizeof(int) * (n_m + 1);
+  }
+
+  static __device__ __forceinline__ void stage(float4* dst,
+                                               const float4* src) {
+#pragma unroll
+    for (int c = 0; c < kTileM / kThreads; ++c) {
+      const int i = c * kThreads + threadIdx.x;
+      const unsigned s =
+          static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                   "l"(src + i)
+                   : "memory");
+    }
+  }
+
+  // (d, i) into the ascending list (ld, li) of k slots at stride kTileE,
+  // after every entry <= d; the last falls off.  The caller has checked
+  // d < ld[(k - 1) * kTileE].
+  static __device__ __forceinline__ void insert(float d, int i, float* ld,
+                                                int* li, int k) {
+    int s = k - 1;
+    while (s > 0) {
+      const float p = ld[(s - 1) * kTileE];
+      if (!(d < p)) break;
+      ld[s * kTileE] = p;
+      li[s * kTileE] = li[(s - 1) * kTileE];
+      --s;
+    }
+    ld[s * kTileE] = d;
+    li[s * kTileE] = i;
+  }
+
+  // The best k refs of the flagged tiles of this block's query tile for
+  // query q (this thread's), in (d2, index) order, into the list at ld /
+  // li (this thread's slot 0; slot s at s * kTileE), kBig and kNone in an
+  // empty slot.  Every thread of the block must call it.  tile_lists is the
+  // block's lists in the device scratch (2 k kTileE words: the d2 slots,
+  // then the index slots), or nullptr to keep them in shared memory.
+  static __device__ __forceinline__ void search(
+      const float4 q, const float4* __restrict__ r4,
+      const int* __restrict__ row_flags, int n_m, int k, float* tile_lists,
+      float*& ld, int*& li) {
+    extern __shared__ __align__(16) float4 smem[];
+    char* after = reinterpret_cast<char*>(smem) + kBufBytes;
+    float* lists = tile_lists;
+    if (lists == nullptr) {
+      lists = reinterpret_cast<float*>(after);
+      after += list_bytes(k);
+    }
+    int* flagged = reinterpret_cast<int*>(after);
+    int& n_flagged = flagged[n_m];
+    ld = lists + threadIdx.x;
+    li = reinterpret_cast<int*>(lists + k * kTileE) + threadIdx.x;
+
+    if (threadIdx.x < 32) {              // flagged[j]: the j-th, ascending
+      int count = 0;
+      for (int base = 0; base < n_m; base += 32) {
+        const int mt = base + threadIdx.x;
+        const bool f = mt < n_m && row_flags[mt] != 0;
+        const unsigned m = __ballot_sync(0xffffffffu, f);
+        if (f) flagged[count + __popc(m & ((1u << threadIdx.x) - 1u))] = mt;
+        count += __popc(m);
+      }
+      if (threadIdx.x == 0) n_flagged = count;
+    }
+    for (int s = 0; s < k; ++s) {
+      ld[s * kTileE] = kBig;
+      li[s * kTileE] = kNone;
+    }
+    __syncthreads();
+    const int tiles = n_flagged;
+    float worst = kBig;                  // ld[(k - 1) * kTileE]
+
+    if (tiles > 0) stage(smem, r4 + flagged[0] * kTileM);
+    commit();
+    for (int t = 0; t < tiles; ++t) {    // uniform in the block
+      if (t + 1 < tiles)
+        stage(smem + ((t + 1) & 1) * kTileM, r4 + flagged[t + 1] * kTileM);
+      commit();
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile t landed
+      __syncthreads();
+      const float4* refs = smem + (t & 1) * kTileM;
+      const int first = flagged[t] * kTileM;
+      for (int i0 = 0; i0 < kTileM; i0 += kBatch) {
+        float d[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const float4 r = refs[i0 + u];
+          const float dx = __fsub_rn(q.x, r.x);
+          const float dy = __fsub_rn(q.y, r.y);
+          const float dz = __fsub_rn(q.z, r.z);
+          d[u] = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                           __fmul_rn(dz, dz));
+        }
+        float lo = d[0];                 // fminf skips a NaN, never enters
+#pragma unroll
+        for (int u = 1; u < kBatch; ++u) lo = fminf(lo, d[u]);
+        if (!(lo < worst)) continue;
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (d[u] < worst) {
+            insert(d[u], first + i0 + u, ld, li, k);
+            worst = ld[(k - 1) * kTileE];
+          }
+        }
+      }
+      __syncthreads();                   // buffer free for tile t + 2
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+
+  // Launch `kernel` on the (n_e, batch) grid of 64-thread blocks with the
+  // dynamic shared memory of n_m ref tiles and, unless the lists go to the
+  // device scratch, the lists of k neighbours.
+  template <typename... Params, typename... Args>
+  static cudaError_t launch(void (*kernel)(Params...), int n_e, int batch,
+                            int n_m, int k, bool lists_in_smem, void* stream,
+                            Args... args) {
+    const size_t smem = smem_bytes(n_m, k, lists_in_smem);
+    if (smem > kMaxSmem) return cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(static_cast<unsigned>(n_e), static_cast<unsigned>(batch)),
+             kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+    return cudaGetLastError();
+  }
+
+  // As built for n_m ref tiles and k neighbours: out[0] threads a block,
+  // out[1] 1 if the lists fit the block's shared memory (else they need
+  // the device scratch), out[2] the block's dynamic shared memory in bytes
+  // as launched, out[3] the scratch's bytes a query tile when it is used.
+  static int shape(int n_m, int k, int* out) {
+    const bool fit = lists_fit(n_m, k);
+    out[0] = kThreads;
+    out[1] = fit ? 1 : 0;
+    out[2] = static_cast<int>(smem_bytes(n_m, k, fit));
+    out[3] = static_cast<int>(list_bytes(k));
+    return 0;
+  }
+};
+
+// The scratch of query tile et of batch element b: 2 k kTileE words, or
+// nullptr when the lists stay in shared memory.
+__device__ __forceinline__ float* tile_lists(float* scratch, int k, int n_e) {
+  if (scratch == nullptr) return nullptr;
+  const size_t tile = static_cast<size_t>(blockIdx.y) * n_e + blockIdx.x;
+  return scratch + tile * 2 * k * kTileE;
+}
+
+// The encoded ref at index i of r4, zero for an empty slot.
+__device__ __forceinline__ float4 neighbour(const float4* __restrict__ r4,
+                                            int i) {
+  return i != kNone ? r4[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
 }  // namespace liodom_knn

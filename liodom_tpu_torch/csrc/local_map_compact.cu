@@ -48,6 +48,16 @@
 // on every run and bit-exact with the plain PyTorch version (cumsum ranks +
 // scatter).  Launches on one device share the status words, so they must
 // be ordered (one stream).  The targets' shared memory limits K to 19,349.
+//
+// Above that (liodom_local_map_compact_global, any K; the wrapper takes it
+// where the targets do not fit): the same kernel with the targets left in
+// device memory, the offsets sorted by (x, y, z) as three int32 arrays,
+// and each key searched as key - base (mod 2^32) among them: key == base +
+// offset exactly when key - base == offset, the int32 comparison of
+// get_local_map.  Nothing is staged; the binary searches read the sorted
+// offsets through L1/L2 (at 19,883 targets, 233 KiB of them), one more
+// step a doubling of K.  Everything else (the look-back, the placement,
+// the zero-fill, the status words) is the kernel above.
 
 #include <cuda_runtime.h>
 
@@ -161,6 +171,10 @@ __device__ __forceinline__ unsigned targets_hit(
   return hit;
 }
 
+// kSmemTargets: the targets base + offset in shared memory, offs (K, 3);
+// else offs (3, K), the offsets alone in device memory, and the keys
+// searched as key - base.
+template <bool kSmemTargets>
 __global__ void __launch_bounds__(kThreads)
 compact_kernel(const float* __restrict__ xyz, const int* __restrict__ key,
                const unsigned char* __restrict__ valid,
@@ -176,6 +190,11 @@ compact_kernel(const float* __restrict__ xyz, const int* __restrict__ key,
   int* s_tx = smem + kFixedBytes / 4;    // the targets' x, y and z,
   int* s_ty = s_tx + n_targets;          // sorted by (x, y, z)
   int* s_tz = s_ty + n_targets;
+  if constexpr (!kSmemTargets) {         // the offsets' x, y, z in memory
+    s_tx = const_cast<int*>(offs);
+    s_ty = s_tx + n_targets;
+    s_tz = s_ty + n_targets;
+  }
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -190,12 +209,20 @@ compact_kernel(const float* __restrict__ xyz, const int* __restrict__ key,
   const long long row0 = static_cast<long long>(tile) * kTile +
                          static_cast<long long>(tid) * kSpan;
   unsigned todo = load_mask(valid, row0, rows);   // bit j: row row0 + j
-  for (int t = tid; t < n_targets; t += kThreads) {
-    s_tx[t] = base[0] + offs[3 * t];
-    s_ty[t] = base[1] + offs[3 * t + 1];
-    s_tz[t] = base[2] + offs[3 * t + 2];
+  // what the keys are shifted by before the search: 0, or -base
+  unsigned sx = 0u, sy = 0u, sz = 0u;
+  if constexpr (kSmemTargets) {
+    for (int t = tid; t < n_targets; t += kThreads) {
+      s_tx[t] = base[0] + offs[3 * t];
+      s_ty[t] = base[1] + offs[3 * t + 1];
+      s_tz[t] = base[2] + offs[3 * t + 2];
+    }
+    __syncthreads();
+  } else {
+    sx = 0u - static_cast<unsigned>(base[0]);
+    sy = 0u - static_cast<unsigned>(base[1]);
+    sz = 0u - static_cast<unsigned>(base[2]);
   }
-  __syncthreads();
   unsigned hits = 0;
   while (todo != 0) {
     int j[kBatch], kx[kBatch], ky[kBatch], kz[kBatch];
@@ -207,6 +234,11 @@ compact_kernel(const float* __restrict__ xyz, const int* __restrict__ key,
       kx[q] = j[q] >= 0 ? __ldg(kp + 0) : 0;
       ky[q] = j[q] >= 0 ? __ldg(kp + 1) : 0;
       kz[q] = j[q] >= 0 ? __ldg(kp + 2) : 0;
+      if constexpr (!kSmemTargets) {     // key - base, wrapping as int32
+        kx[q] = static_cast<int>(static_cast<unsigned>(kx[q]) + sx);
+        ky[q] = static_cast<int>(static_cast<unsigned>(ky[q]) + sy);
+        kz[q] = static_cast<int>(static_cast<unsigned>(kz[q]) + sz);
+      }
     }
     const unsigned found =
         targets_hit(s_tx, s_ty, s_tz, n_targets, kx, ky, kz);
@@ -333,10 +365,36 @@ extern "C" int liodom_local_map_compact(const void* xyz, const void* key,
   const int smem = static_cast<int>(smem_bytes(n_targets));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        compact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        compact_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  compact_kernel<<<tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  compact_kernel<true><<<tiles, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xyz), static_cast<const int*>(key),
+      static_cast<const unsigned char*>(valid), static_cast<const int*>(base),
+      static_cast<const int*>(offsets), n_targets, rows, cap,
+      static_cast<unsigned long long*>(state), static_cast<float*>(out_xyz),
+      static_cast<unsigned char*>(out_valid), static_cast<int*>(n_hits));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same with the targets in device memory, any K >= 0: offsets (3, K)
+// i32, the x, y and z of the offsets sorted by (x, y, z), each row of
+// length K (the base is not added); everything else as above.  A block's
+// shared memory is kFixedBytes.
+extern "C" int liodom_local_map_compact_global(
+    const void* xyz, const void* key, const void* valid, const void* base,
+    const void* offsets, int n_targets, int rows, int cap, void* state,
+    void* out_xyz, void* out_valid, void* n_hits, void* stream) {
+  if (n_targets < 0 || rows < 0 || cap < 0 ||
+      ((reinterpret_cast<unsigned long long>(valid) |
+        reinterpret_cast<unsigned long long>(out_xyz) |
+        reinterpret_cast<unsigned long long>(out_valid)) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = rows > 0 ? (rows + kTile - 1) / kTile : 1;
+  compact_kernel<false><<<tiles, kThreads, kFixedBytes,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xyz), static_cast<const int*>(key),
       static_cast<const unsigned char*>(valid), static_cast<const int*>(base),
       static_cast<const int*>(offsets), n_targets, rows, cap,

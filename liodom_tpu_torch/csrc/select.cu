@@ -59,10 +59,28 @@
 // (select_smem_bytes), so any number of slots a ring fits while
 // 8 min(n_regions L, width) + 4 S + 5 width + 10 bytes fit a block's
 // 227 KB: every S at the bench's 4096 columns.
+//
+// Wider rings (liodom_select_edges_global; the wrapper takes it where
+// select_smem_bytes exceeds 227 KB): the same kernel with every
+// width-sized array in a device scratch of 9 bytes a column and ring, so
+// any width takes it.  Rank 0's window tags and picked mask are there; a
+// region's values are ranked in shared memory sized to the longest region
+// that counts up to the width make (or to the room left), a longer region
+// in the scratch at its columns (the regions are disjoint); no gap flags
+// are kept: a kept entry's reach is read from the ring image itself, the
+// same rounded operations.  The lists and slots
+// stay in shared memory while 8 min(n_regions L, width) + 4 S bytes leave
+// 4 KB for values, else they too go to the scratch, where the other
+// blocks' list writes reach rank 0 through cluster.sync() (a release
+// arrive and an acquire wait at cluster scope order global writes as
+// shared ones).  Each ring has its own scratch, so no cluster reads
+// another's; launches on one stream are ordered.  The same comparisons
+// in the same order: bit-exact with the shared-memory kernel.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 
 namespace {
@@ -114,12 +132,34 @@ __device__ __forceinline__ bool covers(int d, int reach) {
          (d < 0 && -d <= (reach >> 3));
 }
 
+// gap[c] = |p[c] - p[c-1]|^2 <= gap_thr (c - 1 wrapping at column 0, the
+// roll's), each operation rounded on its own in the plain version's order
+__device__ __forceinline__ bool gap_small(const float* p, int c, int width,
+                                          float gap_thr) {
+  const int prev = c == 0 ? width - 1 : c - 1;
+  const float dx = __fsub_rn(p[3 * c + 0], p[3 * prev + 0]);
+  const float dy = __fsub_rn(p[3 * c + 1], p[3 * prev + 1]);
+  const float dz = __fsub_rn(p[3 * c + 2], p[3 * prev + 2]);
+  const float g = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                            __fmul_rn(dz, dz));
+  return g <= gap_thr;
+}
+
+// kSmem: every array in shared memory (list_room lists, slots, values and
+// gap flags of `width` columns).  Else (the global path) scratch holds, for
+// each ring, the window tags (4 bytes a column), the region values at
+// their columns (4) and the picked mask (1), then, when lists_global, the
+// lists and slots; shared memory holds the lists and slots otherwise, then
+// a region's values while it is at most vals_room columns.
+template <bool kSmem>
 __global__ void __launch_bounds__(kThreads)
 select_kernel(const float* __restrict__ smooth, const int* __restrict__ count,
               const float* __restrict__ xyz, int width, int n_regions,
               int max_picks, int min_points, float thr, float gap_thr,
               int list_cap, int list_room, int* __restrict__ bidx,
-              int* __restrict__ bval, float* __restrict__ pts) {
+              int* __restrict__ bval, float* __restrict__ pts,
+              unsigned char* scratch, long long ring_bytes, bool lists_global,
+              int vals_room) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n_blocks = static_cast<int>(cluster.num_blocks());
@@ -135,6 +175,18 @@ select_kernel(const float* __restrict__ smooth, const int* __restrict__ count,
   // (stamp << 11 | reach << 5 | lane), and the picked mask
   int* s_tag = reinterpret_cast<int*>(s_v);
   unsigned char* s_picked = s_gap;
+  float* g_v = nullptr;                  // the ring's values, by column
+  if constexpr (!kSmem) {
+    unsigned char* mine = scratch + static_cast<size_t>(ring) * ring_bytes;
+    s_tag = reinterpret_cast<int*>(mine);
+    g_v = reinterpret_cast<float*>(mine + 4LL * width);
+    s_picked = mine + 8LL * width;
+    if (lists_global) {
+      lists = reinterpret_cast<int2*>(mine + ((9LL * width + 7) & ~7LL));
+      s_col = reinterpret_cast<int*>(lists + list_room);
+      s_v = reinterpret_cast<float*>(smem);
+    }
+  }
   // every block of the cluster has started before any writes into rank 0
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
@@ -144,7 +196,8 @@ select_kernel(const float* __restrict__ smooth, const int* __restrict__ count,
   const int total = max(cnt - 10, 0);
   const int sector = total / n_regions;
   const bool active = cnt >= min_points;
-  int2* root = cluster.map_shared_rank(lists, 0);
+  int2* root = lists;
+  if (kSmem || !lists_global) root = cluster.map_shared_rank(lists, 0);
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 
   for (int j = rank; active && j < n_regions; j += n_blocks) {
@@ -154,38 +207,45 @@ select_kernel(const float* __restrict__ smooth, const int* __restrict__ count,
                                    list_cap);
     const int lo = max(start - 5, 0);
     const int hi = min(start + len + 5, width);
+    float* vals = s_v;
+    if constexpr (!kSmem) {
+      if (len > vals_room) vals = g_v + start;
+    }
     for (int i = tid; i < len; i += kThreads) {
       const float v = smooth[row + start + i];
-      s_v[i] = v != v ? -INFINITY : (v == 0.0f ? 0.0f : v);
+      vals[i] = v != v ? -INFINITY : (v == 0.0f ? 0.0f : v);
     }
-    for (int c = lo + tid; c < hi; c += kThreads) {
-      const int prev = c == 0 ? width - 1 : c - 1;   // the roll's wrap
-      const float dx = __fsub_rn(p[3 * c + 0], p[3 * prev + 0]);
-      const float dy = __fsub_rn(p[3 * c + 1], p[3 * prev + 1]);
-      const float dz = __fsub_rn(p[3 * c + 2], p[3 * prev + 2]);
-      const float g = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
-                                          __fmul_rn(dy, dy)),
-                                __fmul_rn(dz, dz));
-      s_gap[c - lo] = g <= gap_thr ? 1 : 0;
+    if constexpr (kSmem) {
+      for (int c = lo + tid; c < hi; c += kThreads)
+        s_gap[c - lo] = gap_small(p, c, width, gap_thr) ? 1 : 0;
     }
     __syncthreads();
     for (int i = tid; i < len; i += kThreads) {
       // the columns ahead of i in the order: larger values, and equal ones
       // at lower columns
-      const float vi = s_v[i];
+      const float vi = vals[i];
       int before = 0;
 #pragma unroll 4
-      for (int k = 0; k < i; ++k) before += s_v[k] >= vi;
+      for (int k = 0; k < i; ++k) before += vals[k] >= vi;
 #pragma unroll 4
-      for (int k = i + 1; k < len; ++k) before += s_v[k] > vi;
+      for (int k = i + 1; k < len; ++k) before += vals[k] > vi;
       if (before < list_cap) {
         // a pick at b suppresses b + l while the gaps b+1 .. b+l are small,
         // b - l while the gaps b-l+1 .. b are
         const int b = start + i;
         int fwd = 0, bwd = 0;
-        while (fwd < 5 && b + fwd + 1 < width && s_gap[b + fwd + 1 - lo])
-          ++fwd;
-        while (bwd < 5 && b - bwd - 1 >= 0 && s_gap[b - bwd - lo]) ++bwd;
+        if constexpr (kSmem) {
+          while (fwd < 5 && b + fwd + 1 < width && s_gap[b + fwd + 1 - lo])
+            ++fwd;
+          while (bwd < 5 && b - bwd - 1 >= 0 && s_gap[b - bwd - lo]) ++bwd;
+        } else {
+          while (fwd < 5 && b + fwd + 1 < width &&
+                 gap_small(p, b + fwd + 1, width, gap_thr))
+            ++fwd;
+          while (bwd < 5 && b - bwd - 1 >= 0 &&
+                 gap_small(p, b - bwd, width, gap_thr))
+            ++bwd;
+        }
         dst[before] =
             make_int2(__float_as_int(vi), b | ((fwd | (bwd << 3)) << 24));
       }
@@ -320,7 +380,7 @@ extern "C" int liodom_select_edges(const void* smooth, const void* count,
   if (rings <= 0) return static_cast<int>(cudaSuccess);
   const int n_blocks = n_regions < kMaxCluster ? n_regions : kMaxCluster;
   cudaError_t err = cudaFuncSetAttribute(
-      select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      select_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -336,13 +396,97 @@ extern "C" int liodom_select_edges(const void* smooth, const void* count,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, select_kernel, static_cast<const float*>(smooth),
+      &cfg, select_kernel<true>, static_cast<const float*>(smooth),
       static_cast<const int*>(count), static_cast<const float*>(xyz), width,
       n_regions, max_picks, min_points, thr, gap_thr,
       static_cast<int>(list_len(max_picks)), static_cast<int>(room),
       static_cast<int*>(bidx), static_cast<int*>(bval),
-      static_cast<float*>(pts));
+      static_cast<float*>(pts), static_cast<unsigned char*>(nullptr), 0LL,
+      false, 0);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+namespace {
+
+// The global path's layout for a ring width and slot layout: out[0] 1 if
+// the lists and slots go to the scratch, out[1] the columns of a region's
+// values shared memory holds, out[2] a block's dynamic shared memory in
+// bytes, out[3] the scratch's bytes a ring (16-byte aligned).
+void global_layout(int width, int n_regions, int max_picks, long long* out) {
+  const long long lists = n_regions * list_len(max_picks);
+  const long long room = lists < width ? lists : width;
+  const long long small = 8 * room + 4LL * n_regions * max_picks;
+  const bool lists_global = small + 4096 > kMaxSmem;
+  const long long left = kMaxSmem - (lists_global ? 0 : small);
+  // the longest region while the counts are at most the width: the last,
+  // (width - 10) / n_regions + n_regions - 1 columns; sized to it, a block
+  // leaves room for others on its SM
+  const long long most =
+      (width > 10 ? (width - 10) / n_regions : 0) + n_regions;
+  const long long vals = std::min(std::min(left / 4, most),
+                                  static_cast<long long>(width));
+  out[0] = lists_global ? 1 : 0;
+  out[1] = vals;
+  out[2] = (lists_global ? 0 : small) + 4 * vals;
+  out[3] = (((9LL * width + 7) & ~7LL) + (lists_global ? small : 0) + 15) &
+           ~15LL;
+}
+
+}  // namespace
+
+// K2 with the ring's columns in device memory, any width up to 2^24 - 1:
+// the same contract as liodom_select_edges; scratch holds rings x
+// liodom_select_global_shape's out[3] bytes (written before read, never
+// cleared).
+extern "C" int liodom_select_edges_global(
+    const void* smooth, const void* count, const void* xyz, void* bidx,
+    void* bval, void* pts, void* scratch, int rings, int width,
+    int n_regions, int max_picks, int min_points, float thr, float gap_thr,
+    void* stream) {
+  if (width <= 0 || width > kColMask || n_regions < 1 || max_picks < 1 ||
+      scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rings <= 0) return static_cast<int>(cudaSuccess);
+  long long lay[4];
+  global_layout(width, n_regions, max_picks, lay);
+  const long long lists = n_regions * list_len(max_picks);
+  const long long room = lists < width ? lists : width;
+  const int n_blocks = n_regions < kMaxCluster ? n_regions : kMaxCluster;
+  cudaError_t err = cudaFuncSetAttribute(
+      select_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(lay[2]));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rings) * n_blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(lay[2]);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, select_kernel<false>, static_cast<const float*>(smooth),
+      static_cast<const int*>(count), static_cast<const float*>(xyz), width,
+      n_regions, max_picks, min_points, thr, gap_thr,
+      static_cast<int>(list_len(max_picks)), static_cast<int>(room),
+      static_cast<int*>(bidx), static_cast<int*>(bval),
+      static_cast<float*>(pts), static_cast<unsigned char*>(scratch), lay[3],
+      lay[0] != 0, static_cast<int>(lay[1]));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The global path as built for a ring width and slot layout: out[0] 1 if
+// the lists and slots go to the scratch, out[1] a region's columns held in
+// shared memory, out[2] a block's dynamic shared memory in bytes, out[3]
+// the scratch's bytes a ring.
+extern "C" int liodom_select_global_shape(int width, int n_regions,
+                                          int max_picks, long long* out) {
+  global_layout(width, n_regions, max_picks, out);
+  return 0;
 }
 
 // The launch as built for a ring width and slot layout: out[0] blocks a

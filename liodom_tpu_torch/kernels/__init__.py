@@ -21,7 +21,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, List, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -37,6 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 _started = False            # a build or a load has used BUILD_DIR
+_scratch: Dict[tuple, object] = {}   # device_scratch's tensors
+_retired: List[object] = []          # outgrown ones, kept alive
 
 
 def set_build_dir(path) -> Path:
@@ -136,6 +138,27 @@ def require_cpu(t, what: str) -> None:
     has no kernel and no plain route."""
     if t.device.type != "cpu":
         raise ValueError(f"{what}: no kernel for device {t.device}")
+
+
+def device_scratch(name: str, device, numel: int, dtype, floor: int = 0,
+                   zeroed: bool = False):
+    """Scratch ``name`` of a kernel on ``device``: one tensor of ``dtype``
+    for each (name, device), at least ``numel`` elements (``floor`` at the
+    least), grown when outgrown.  An outgrown tensor is kept alive, since a
+    captured CUDA graph may still launch on its address.  ``zeroed``: made
+    zero-filled, for a kernel that reads what its last launch left there;
+    otherwise left unset, for one that writes before it reads.  Launches on
+    one device must be ordered (one stream)."""
+    import torch
+    key = (name, torch.device(device))
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < numel:
+        if buf is not None:
+            _retired.append(buf)
+        make = torch.zeros if zeroed else torch.empty
+        buf = make(max(numel, floor), dtype=dtype, device=device)
+        _scratch[key] = buf
+    return buf
 
 
 def check(err: int, what: str) -> None:

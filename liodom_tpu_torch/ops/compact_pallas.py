@@ -12,10 +12,12 @@ hit.  The cut at capacity is exact, as in ``get_local_map``.
 :func:`compact_hits` dispatches on the tensors' device: a CUDA tensor
 launches ``csrc/local_map_compact.cu`` (a block a tile counts its hits,
 finds its offset by a look-back over the tiles before and places them;
-:func:`compact_hits_tiled` models its schedule), a CPU tensor takes
-:func:`compact_hits_plain` (membership as a broadcast compare, ranks by
-``cumsum``, a scatter).  Both move values and compare integers, so they are
-bit-exact with each other.
+:func:`compact_hits_tiled` models its schedule) with the targets in shared
+memory, or above :data:`MAX_TARGETS` of them with the targets in device
+memory (:func:`compact_hits_global_cuda`); a CPU tensor takes
+:func:`compact_hits_plain` (membership as a broadcast compare over chunks
+of rows, ranks by ``cumsum``, a scatter).  All move values and compare
+integers, so they are bit-exact with each other.
 Neither synchronises with the host: no ``nonzero``, no data-dependent shape.
 """
 
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -37,12 +39,15 @@ SMEM_LIMIT = 232448     # a block's shared memory on Hopper (227 KB)
 # targets the kernel holds in shared memory, 12 bytes each beside 256
 MAX_TARGETS = (SMEM_LIMIT - 256) // 12
 
+# (rows x targets) compares a chunk of the plain membership
+MEMBERSHIP_CHUNK = 1 << 24
+
 _SIG = [("liodom_local_map_compact", [ctypes.c_void_p] * 5
+         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5),
+        ("liodom_local_map_compact_global", [ctypes.c_void_p] * 5
          + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5),
         ("liodom_local_map_compact_shape", [ctypes.c_int, ctypes.c_int,
                                             ctypes.c_void_p])]
-_STATE: Dict[torch.device, torch.Tensor] = {}
-_RETIRED: List[torch.Tensor] = []     # outgrown _STATE buffers, kept
 
 
 def compact_rows_plain(xyz: torch.Tensor, hit: torch.Tensor, capacity: int
@@ -60,12 +65,20 @@ def compact_rows_plain(xyz: torch.Tensor, hit: torch.Tensor, capacity: int
 
 
 def _membership(key: torch.Tensor, valid: torch.Tensor, base: torch.Tensor,
-                offsets: np.ndarray) -> torch.Tensor:
-    """(C,) bool: the row is valid and its key is one of ``base + offsets``."""
+                offsets: np.ndarray, chunk: int = MEMBERSHIP_CHUNK
+                ) -> torch.Tensor:
+    """(C,) bool: the row is valid and its key is one of ``base + offsets``,
+    compared a chunk of rows at a time so that no more than about ``chunk``
+    (row, target) pairs are held at once."""
     offs = torch.as_tensor(np.asarray(offsets, np.int32), device=key.device)
     targets = base[None, :] + offs.reshape(-1, 3)            # (K, 3)
-    eq = torch.all(key[:, None, :] == targets[None, :, :], dim=-1)
-    return torch.any(eq, dim=-1) & valid
+    rows = max(1, chunk // max(1, targets.shape[0]))
+    hit = torch.empty(key.shape[0], dtype=torch.bool, device=key.device)
+    for r0 in range(0, key.shape[0], rows):
+        eq = torch.all(key[r0:r0 + rows, None, :] == targets[None, :, :],
+                       dim=-1)
+        hit[r0:r0 + rows] = torch.any(eq, dim=-1)
+    return hit & valid
 
 
 def compact_hits_plain(xyz: torch.Tensor, key: torch.Tensor,
@@ -129,6 +142,13 @@ def _device_offsets(data: bytes, device: torch.device) -> torch.Tensor:
     return host.pin_memory().to(device, non_blocking=True)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_offsets_soa(data: bytes, device: torch.device) -> torch.Tensor:
+    """:func:`_device_offsets` as (3, K): the sorted offsets' x, y and z
+    each contiguous, kept alike."""
+    return _device_offsets(data, device).t().contiguous()
+
+
 def _lookback_state(device: torch.device, tiles: int) -> torch.Tensor:
     """K7's look-back status words on ``device``: an epoch word and one word
     a tile, zeroed when first needed (or outgrown) and then left to the
@@ -136,14 +156,8 @@ def _lookback_state(device: torch.device, tiles: int) -> torch.Tensor:
     clears them.  Launches on one device must therefore be ordered (one
     stream).  An outgrown buffer is kept alive: a captured CUDA graph may
     still launch K7 on it."""
-    state = _STATE.get(device)
-    if state is None or state.numel() < 1 + tiles:
-        if state is not None:
-            _RETIRED.append(state)
-        state = torch.zeros(1 + max(tiles, 256), dtype=torch.int64,
-                            device=device)
-        _STATE[device] = state
-    return state
+    return kernels.device_scratch("local_map_compact", device, 1 + tiles,
+                                  torch.int64, floor=257, zeroed=True)
 
 
 def compact_shape(rows: int, n_targets: int) -> dict:
@@ -156,6 +170,51 @@ def compact_shape(rows: int, n_targets: int) -> dict:
             "smem_bytes": out[3], "max_targets": out[4]}
 
 
+def _checked(what, xyz, key, valid, base, offsets, capacity):
+    """The launch's inputs, checked: (offsets (K, 3) int32 numpy, xyz, key,
+    valid (16-byte aligned), base), contiguous."""
+    offs = np.ascontiguousarray(offsets, dtype=np.int32)
+    if offs.ndim != 2 or offs.shape[1] != 3:
+        raise ValueError(f"{what} takes (K, 3) offsets, got {offs.shape}")
+    if not all(t.is_cuda and t.device == xyz.device
+               for t in (xyz, key, valid, base)):
+        raise ValueError(f"{what} needs all tensors on one CUDA device")
+    if (xyz.dtype != torch.float32 or key.dtype != torch.int32
+            or valid.dtype != torch.bool or base.dtype != torch.int32):
+        raise TypeError(f"{what} takes float32 xyz, int32 keys and base, "
+                        f"and a bool mask")
+    c = xyz.shape[0]
+    if (xyz.shape != (c, 3) or key.shape != (c, 3) or valid.shape != (c,)
+            or base.shape != (3,)):
+        raise ValueError(f"{what} shapes: xyz {tuple(xyz.shape)}, key "
+                         f"{tuple(key.shape)}, valid {tuple(valid.shape)}, "
+                         f"base {tuple(base.shape)}")
+    if capacity < 0 or c >= 2**31 or capacity >= 2**31:
+        raise ValueError(f"{what}: {c} rows, capacity {capacity}")
+    xyz, key, valid, base = (t.contiguous() for t in (xyz, key, valid, base))
+    if valid.data_ptr() % 16:            # the kernel reads 16 rows a load
+        valid = valid.clone()
+    return offs, xyz, key, valid, base
+
+
+def _launch(symbol, xyz, key, valid, base, offs, d_offs, capacity):
+    """One launch of K7's ``symbol`` -> (out, out_valid, n_hits)."""
+    dev, c = xyz.device, xyz.shape[0]
+    state = _lookback_state(dev, max(1, -(-c // TILE_ROWS)))
+    out = torch.empty((capacity, 3), dtype=torch.float32, device=dev)
+    out_valid = torch.empty(capacity, dtype=torch.bool, device=dev)
+    n_hits = torch.empty((), dtype=torch.int32, device=dev)
+    lib = kernels.load("local_map_compact", _SIG)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, symbol)(
+            xyz.data_ptr(), key.data_ptr(), valid.data_ptr(), base.data_ptr(),
+            d_offs.data_ptr(), len(offs), c, capacity, state.data_ptr(),
+            out.data_ptr(), out_valid.data_ptr(), n_hits.data_ptr(), stream)
+    kernels.check(err, symbol)
+    return out, out_valid, n_hits
+
+
 def compact_hits_cuda(xyz: torch.Tensor, key: torch.Tensor,
                       valid: torch.Tensor, base: torch.Tensor,
                       offsets: np.ndarray, capacity: int
@@ -164,53 +223,43 @@ def compact_hits_cuda(xyz: torch.Tensor, key: torch.Tensor,
     :func:`compact_hits_plain`.  ``offsets`` (host numpy) go to the card
     once per neighbourhood and device (:func:`_device_offsets`); the
     kernel holds the targets in shared memory, at most
-    :data:`MAX_TARGETS` of them."""
-    offs = np.ascontiguousarray(offsets, dtype=np.int32)
-    if offs.ndim != 2 or offs.shape[1] != 3:
-        raise ValueError(f"compact_hits_cuda takes (K, 3) offsets, got "
-                         f"{offs.shape}")
+    :data:`MAX_TARGETS` of them; more launch
+    :func:`compact_hits_global_cuda`."""
+    offs, xyz, key, valid, base = _checked("compact_hits_cuda", xyz, key,
+                                           valid, base, offsets, capacity)
     if len(offs) > MAX_TARGETS:
-        raise ValueError(f"compact_hits_cuda takes at most {MAX_TARGETS} "
-                         f"target keys (a block's 227 KB of shared memory "
-                         f"at 12 bytes a target), got {len(offs)}")
-    if not all(t.is_cuda and t.device == xyz.device
-               for t in (xyz, key, valid, base)):
-        raise ValueError("compact_hits_cuda needs all tensors on one CUDA "
-                         "device")
-    if (xyz.dtype != torch.float32 or key.dtype != torch.int32
-            or valid.dtype != torch.bool or base.dtype != torch.int32):
-        raise TypeError("compact_hits_cuda takes float32 xyz, int32 keys and "
-                        "base, and a bool mask")
-    c = xyz.shape[0]
-    if (xyz.shape != (c, 3) or key.shape != (c, 3) or valid.shape != (c,)
-            or base.shape != (3,)):
-        raise ValueError(f"compact_hits_cuda shapes: xyz {tuple(xyz.shape)}, "
-                         f"key {tuple(key.shape)}, valid "
-                         f"{tuple(valid.shape)}, base {tuple(base.shape)}")
-    if capacity < 0 or c >= 2**31 or capacity >= 2**31:
-        raise ValueError(f"compact_hits_cuda: {c} rows, capacity {capacity}")
-    xyz, key, valid, base = (t.contiguous() for t in (xyz, key, valid, base))
-    if valid.data_ptr() % 16:            # the kernel reads 16 rows a load
-        valid = valid.clone()
-    dev = xyz.device
-    d_offs = _device_offsets(offs.tobytes(), dev)
-    state = _lookback_state(dev, max(1, -(-c // TILE_ROWS)))
-    out = torch.empty((capacity, 3), dtype=torch.float32, device=dev)
-    out_valid = torch.empty(capacity, dtype=torch.bool, device=dev)
-    n_hits = torch.empty((), dtype=torch.int32, device=dev)
-    lib = kernels.load("local_map_compact", _SIG)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.liodom_local_map_compact(
-            xyz.data_ptr(), key.data_ptr(), valid.data_ptr(), base.data_ptr(),
-            d_offs.data_ptr(), len(offs), c, capacity, state.data_ptr(),
-            out.data_ptr(), out_valid.data_ptr(), n_hits.data_ptr(), stream)
-    kernels.check(err, "liodom_local_map_compact")
+        return compact_hits_global_cuda(xyz, key, valid, base, offs,
+                                        capacity)
+    out = _launch("liodom_local_map_compact", xyz, key, valid, base, offs,
+                  _device_offsets(offs.tobytes(), xyz.device), capacity)
     compact_hits_cuda.launches += 1
-    return out, out_valid, n_hits
+    return out
 
 
 compact_hits_cuda.launches = 0
+
+
+def compact_hits_global_cuda(xyz: torch.Tensor, key: torch.Tensor,
+                             valid: torch.Tensor, base: torch.Tensor,
+                             offsets: np.ndarray, capacity: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """K7 with its targets in device memory (``liodom_local_map_compact_
+    global``), any number of them; same contract as
+    :func:`compact_hits_plain`.  The sorted offsets go to the card once per
+    neighbourhood and device as (3, K) (:func:`_device_offsets_soa`) and
+    each key is searched as ``key - base``."""
+    offs, xyz, key, valid, base = _checked("compact_hits_global_cuda", xyz,
+                                           key, valid, base, offsets,
+                                           capacity)
+    out = _launch("liodom_local_map_compact_global", xyz, key, valid, base,
+                  offs, _device_offsets_soa(offs.tobytes(), xyz.device),
+                  capacity)
+    compact_hits_global_cuda.launches += 1
+    return out
+
+
+compact_hits_global_cuda.launches = 0
 
 
 def compact_hits(xyz: torch.Tensor, key: torch.Tensor, valid: torch.Tensor,

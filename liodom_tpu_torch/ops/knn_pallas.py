@@ -8,8 +8,11 @@ Port of ``liodom_tpu/ops/knn_pallas.py``: ``knn_coords_pallas`` (K3),
 (laser_odometry.cc:318-323) runs an exact 5-NN of every edge against the
 matching map, twice a frame; the line fit only reads the neighbours'
 coordinates, so the kernels return those (K3, K4) or the fitted line itself
-(K6).  k is the caller's (``LiodomConfig.knn_k``, 5 by default): the
-kernels are built for every 1 <= k <= ``MAX_K`` and a larger k raises.
+(K6).  k is the caller's (``LiodomConfig.knn_k``, 5 by default), any k
+from 1 to the number of refs: the register walk is built for every 1 <= k
+<= ``MAX_K`` and a larger k takes the run-time-k walk (``ListWalk``, the
+``*_any_k`` launches), whose lists sit in shared memory or, above ~420
+neighbours, in a device scratch (:func:`knn_any_k_shape`).
 The map-sharded step (``parallel/sharded.py``) gathers its neighbours' rows
 itself and merges them across ranks, so K5 returns the indices into the
 caller's map shard.
@@ -67,20 +70,28 @@ _FAR_PICK_D2 = 1.0e6
 TILE_E = 64    # queries per block in csrc/knn_search.cuh
 TILE_M = 512   # refs per staged tile in csrc/knn_search.cuh
 K = 5          # neighbours a search keeps unless the caller asks for k
-MAX_K = 16     # the largest k the kernels are built for (csrc/knn_search.cuh)
+MAX_K = 16     # the largest k of the register walk (csrc/knn_search.cuh)
 SORT_CELL = 2.0  # metres; the spatial sort's cell on the CUDA route
 _CHUNK = 4096    # refs per brute-force chunk of the plain version
 _QBLOCK = 512    # queries per block of the plain version
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SHAPE_SIG = ("liodom_knn_walk_shape", [_INT, _PTR])
+_ANY_K_SHAPE_SIG = ("liodom_knn_any_k_shape", [_INT, _INT, _PTR])
 _SIG = [("liodom_knn_coords", [_PTR] * 6 + [_INT] * 6 + [_PTR]),
         ("liodom_knn_coords_batched", [_PTR] * 6 + [_INT] * 7 + [_PTR]),
-        _SHAPE_SIG]
+        ("liodom_knn_coords_any_k", [_PTR] * 7 + [_INT] * 7 + [_PTR]),
+        _SHAPE_SIG, _ANY_K_SHAPE_SIG]
 _LINES_SIG = [("liodom_knn_lines", [_PTR] * 7 + [_INT] * 7
-               + [ctypes.c_float] * 3 + [_PTR]), _SHAPE_SIG]
+               + [ctypes.c_float] * 3 + [_PTR]),
+              ("liodom_knn_lines_any_k", [_PTR] * 8 + [_INT] * 7
+               + [ctypes.c_float] * 3 + [_PTR]),
+              _SHAPE_SIG, _ANY_K_SHAPE_SIG]
 _INDEX_SIG = [("liodom_knn_index", [_PTR] * 6 + [_INT] * 8 + [_PTR]),
-              _SHAPE_SIG]
+              ("liodom_knn_index_any_k", [_PTR] * 7 + [_INT] * 8 + [_PTR]),
+              _SHAPE_SIG, _ANY_K_SHAPE_SIG]
+_SIGS = {"knn_coords": _SIG, "knn_lines": _LINES_SIG,
+         "knn_index": _INDEX_SIG}
 
 
 def _rows(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -287,13 +298,12 @@ def _check_prepared(q4, r4, flags, qperm, what: str) -> Tuple[int, int, int]:
 
 
 def knn_walk_shape(source: str, n_m: int) -> dict:
-    """The walk of ``csrc/knn_search.cuh`` as the built library of
+    """The register walk of ``csrc/knn_search.cuh`` as the built library of
     ``source`` (``"knn_coords"``, ``"knn_lines"`` or ``"knn_index"``) has
     it: blocks a query tile's cluster, thread groups a block, and a block's
     dynamic shared memory for ``n_m`` ref tiles at k = 5.  Builds the
     library if needed; launches nothing."""
-    lib = kernels.load(source, {"knn_coords": _SIG, "knn_lines": _LINES_SIG,
-                                "knn_index": _INDEX_SIG}[source])
+    lib = kernels.load(source, _SIGS[source])
     out = (ctypes.c_int * 3)()
     kernels.check(lib.liodom_knn_walk_shape(n_m, ctypes.addressof(out)),
                   "liodom_knn_walk_shape")
@@ -301,22 +311,65 @@ def knn_walk_shape(source: str, n_m: int) -> dict:
             "dynamic_smem_bytes": out[2]}
 
 
-def _check_k(k: int, what: str) -> None:
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"{what}: k={k} outside 1..{MAX_K}, the range the "
-                         f"kNN kernels are built for")
+def knn_any_k_shape(source: str, n_m: int, k: int) -> dict:
+    """``ListWalk`` (the ``*_any_k`` launches) as the built library of
+    ``source`` has it for ``n_m`` ref tiles and ``k`` neighbours: threads a
+    block, whether the lists fit shared memory, a block's dynamic shared
+    memory as launched and the scratch bytes a query tile otherwise.
+    Builds the library if needed; launches nothing."""
+    lib = kernels.load(source, _SIGS[source])
+    out = (ctypes.c_int * 4)()
+    kernels.check(lib.liodom_knn_any_k_shape(n_m, k, ctypes.addressof(out)),
+                  "liodom_knn_any_k_shape")
+    return {"threads": out[0], "lists_in_smem": bool(out[1]),
+            "dynamic_smem_bytes": out[2], "scratch_bytes_per_tile": out[3]}
+
+
+def _check_k(k: int, refs: int, what: str) -> None:
+    """Any k from 1 to the number of ref rows the walk sees (the refs
+    padded to whole tiles), as ``torch.topk`` and ``lax.top_k`` take."""
+    if not 1 <= k <= refs:
+        raise ValueError(f"{what}: k={k} outside 1..{refs}, the ref rows")
+
+
+def _any_k(source: str, symbol: str, q4, r4, flags, qperm, k, outs,
+           extra_ints=(), extra_floats=()) -> None:
+    """Launch ``symbol`` of ``source`` (a ``ListWalk`` entry point) on
+    prepared tensors with a leading batch dimension, the lists in shared
+    memory where the library says they fit, else in the device scratch."""
+    b, n_e, n_m = flags.shape
+    shape = knn_any_k_shape(source, n_m, k)
+    scratch = None
+    if not shape["lists_in_smem"]:
+        # one buffer a device, written before it is read, never cleared
+        scratch = kernels.device_scratch(
+            "knn_lists", q4.device,
+            b * n_e * shape["scratch_bytes_per_tile"] // 4, torch.float32,
+            floor=1 << 20)
+    lib = kernels.load(source, _SIGS[source])
+    with torch.cuda.device(q4.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, symbol)(
+            q4.data_ptr(), r4.data_ptr(), flags.data_ptr(), qperm.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            *(t.data_ptr() for t in outs), b, qperm.shape[-1], n_e, n_m,
+            *extra_ints, TILE_E, TILE_M, k, *extra_floats, stream)
+    kernels.check(err, symbol)
 
 
 def knn_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
                qperm: torch.Tensor, k: int = K
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3 on the prepared tensors -> (d2 (E, k), coords (E, k, 3)) in
-    the caller's query order."""
+    the caller's query order; k above ``MAX_K`` launches
+    :func:`knn_launch_any_k`."""
     if flags.ndim != 2:
         raise ValueError(f"knn_launch takes one pair, flags "
                          f"{tuple(flags.shape)}")
     e, n_e, n_m = _check_prepared(q4, r4, flags, qperm, "knn_launch")
-    _check_k(k, "knn_launch")
+    _check_k(k, r4.shape[0], "knn_launch")
+    if k > MAX_K:
+        return knn_launch_any_k(q4, r4, flags, qperm, k)
     out_d = torch.empty((e, k), dtype=torch.float32, device=q4.device)
     out_c = torch.empty((e, k, 3), dtype=torch.float32, device=q4.device)
     lib = kernels.load("knn_coords", _SIG)
@@ -334,16 +387,40 @@ def knn_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
 knn_launch.launches = 0
 
 
+def knn_launch_any_k(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
+                     qperm: torch.Tensor, k: int = K
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on ``ListWalk`` (``liodom_knn_coords_any_k``) at any k, the same
+    contract as :func:`knn_launch`."""
+    if flags.ndim != 2:
+        raise ValueError(f"knn_launch_any_k takes one pair, flags "
+                         f"{tuple(flags.shape)}")
+    e, _, _ = _check_prepared(q4, r4, flags, qperm, "knn_launch_any_k")
+    _check_k(k, r4.shape[0], "knn_launch_any_k")
+    out_d = torch.empty((1, e, k), dtype=torch.float32, device=q4.device)
+    out_c = torch.empty((1, e, k, 3), dtype=torch.float32, device=q4.device)
+    _any_k("knn_coords", "liodom_knn_coords_any_k", q4, r4, flags[None],
+           qperm, k, (out_d, out_c))
+    knn_launch_any_k.launches += 1
+    return out_d[0], out_c[0]
+
+
+knn_launch_any_k.launches = 0
+
+
 def knn_launch_batched(q4: torch.Tensor, r4: torch.Tensor,
                        flags: torch.Tensor, qperm: torch.Tensor, k: int = K
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K4 on tensors from :func:`knn_prepare_batched` -> (d2 (B, E,
-    k), coords (B, E, k, 3)) in each element's query order."""
+    k), coords (B, E, k, 3)) in each element's query order; k above
+    ``MAX_K`` launches :func:`knn_launch_batched_any_k`."""
     if flags.ndim != 3:
         raise ValueError(f"knn_launch_batched takes a batch, flags "
                          f"{tuple(flags.shape)}")
     e, n_e, n_m = _check_prepared(q4, r4, flags, qperm, "knn_launch_batched")
-    _check_k(k, "knn_launch_batched")
+    _check_k(k, r4.shape[1], "knn_launch_batched")
+    if k > MAX_K:
+        return knn_launch_batched_any_k(q4, r4, flags, qperm, k)
     b = flags.shape[0]
     out_d = torch.empty((b, e, k), dtype=torch.float32, device=q4.device)
     out_c = torch.empty((b, e, k, 3), dtype=torch.float32, device=q4.device)
@@ -362,9 +439,33 @@ def knn_launch_batched(q4: torch.Tensor, r4: torch.Tensor,
 knn_launch_batched.launches = 0
 
 
+def knn_launch_batched_any_k(q4: torch.Tensor, r4: torch.Tensor,
+                             flags: torch.Tensor, qperm: torch.Tensor,
+                             k: int = K
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 on ``ListWalk`` at any k, the same contract as
+    :func:`knn_launch_batched`."""
+    if flags.ndim != 3:
+        raise ValueError(f"knn_launch_batched_any_k takes a batch, flags "
+                         f"{tuple(flags.shape)}")
+    e, _, _ = _check_prepared(q4, r4, flags, qperm,
+                              "knn_launch_batched_any_k")
+    _check_k(k, r4.shape[1], "knn_launch_batched_any_k")
+    b = flags.shape[0]
+    out_d = torch.empty((b, e, k), dtype=torch.float32, device=q4.device)
+    out_c = torch.empty((b, e, k, 3), dtype=torch.float32, device=q4.device)
+    _any_k("knn_coords", "liodom_knn_coords_any_k", q4, r4, flags, qperm, k,
+           (out_d, out_c))
+    knn_launch_batched_any_k.launches += 1
+    return out_d, out_c
+
+
+knn_launch_batched_any_k.launches = 0
+
+
 def _check_points(query, qmask, ref, rmask, k: int, batched: bool,
                   what: str) -> None:
-    _check_k(k, what)
+    _check_k(k, ref.shape[-2] + (-ref.shape[-2]) % TILE_M, what)
     if query.dtype != torch.float32 or ref.dtype != torch.float32:
         raise TypeError(f"{what} takes float32 points")
     nd = 3 if batched else 2
@@ -399,8 +500,8 @@ def knn_coords_batched_cuda(query: torch.Tensor, qmask: torch.Tensor,
     (d2 (B, E, k), coords (B, E, k, 3))."""
     _check_points(query, qmask, ref, rmask, k, True,
                   "knn_coords_batched_cuda")
-    return knn_launch_batched(*knn_prepare_batched(
-        query, qmask, ref, rmask, max_radius, ref_presorted), k)
+    return knn_launch_batched(*knn_prepare_batched(query, qmask, ref, rmask, max_radius,
+                                       ref_presorted), k)
 
 
 def knn_coords(query: torch.Tensor, qmask: torch.Tensor, ref: torch.Tensor,
@@ -438,15 +539,16 @@ def knn_lines_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
     """Launch K6 on tensors from :func:`knn_prepare_batched` (flags radius
     ``sqrt(max_sq_dist)``) -> (lpa (B, E, 3), lpb (B, E, 3), valid (B, E))
     in each element's query order; ``valid`` includes the query mask.  The
-    line fit needs k >= 2."""
+    line fit needs k >= 2; k above ``MAX_K`` launches
+    :func:`knn_lines_launch_any_k`."""
     if flags.ndim != 3:
         raise ValueError(f"knn_lines_launch takes a batch, flags "
                          f"{tuple(flags.shape)}")
     e, n_e, n_m = _check_prepared(q4, r4, flags, qperm, "knn_lines_launch")
-    _check_k(k, "knn_lines_launch")
-    if k < 2:
-        raise ValueError(f"knn_lines_launch: k={k}, a line needs 2 "
-                         f"neighbours")
+    _check_lines_k(k, r4.shape[1], "knn_lines_launch")
+    if k > MAX_K:
+        return knn_lines_launch_any_k(q4, r4, flags, qperm, max_sq_dist,
+                                      eig_ratio, min_line_sep, k)
     b = flags.shape[0]
     lpa = torch.empty((b, e, 3), dtype=torch.float32, device=q4.device)
     lpb = torch.empty((b, e, 3), dtype=torch.float32, device=q4.device)
@@ -465,6 +567,40 @@ def knn_lines_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
 
 
 knn_lines_launch.launches = 0
+
+
+def _check_lines_k(k: int, refs: int, what: str) -> None:
+    _check_k(k, refs, what)
+    if k < 2:
+        raise ValueError(f"{what}: k={k}, a line needs 2 neighbours")
+
+
+def knn_lines_launch_any_k(q4: torch.Tensor, r4: torch.Tensor,
+                           flags: torch.Tensor, qperm: torch.Tensor,
+                           max_sq_dist: float, eig_ratio: float,
+                           min_line_sep: float, k: int = K
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """K6 on ``ListWalk`` at any k >= 2, the same contract as
+    :func:`knn_lines_launch`."""
+    if flags.ndim != 3:
+        raise ValueError(f"knn_lines_launch_any_k takes a batch, flags "
+                         f"{tuple(flags.shape)}")
+    e, _, _ = _check_prepared(q4, r4, flags, qperm, "knn_lines_launch_any_k")
+    _check_lines_k(k, r4.shape[1], "knn_lines_launch_any_k")
+    b = flags.shape[0]
+    lpa = torch.empty((b, e, 3), dtype=torch.float32, device=q4.device)
+    lpb = torch.empty((b, e, 3), dtype=torch.float32, device=q4.device)
+    ok = torch.empty((b, e), dtype=torch.bool, device=q4.device)
+    _any_k("knn_lines", "liodom_knn_lines_any_k", q4, r4, flags, qperm, k,
+           (lpa, lpb, ok),
+           extra_floats=(float(max_sq_dist), float(eig_ratio),
+                         float(min_line_sep) * float(min_line_sep)))
+    knn_lines_launch_any_k.launches += 1
+    return lpa, lpb, ok
+
+
+knn_lines_launch_any_k.launches = 0
 
 
 def knn_lines_cuda(query: torch.Tensor, qmask: torch.Tensor,
@@ -557,6 +693,10 @@ def _walk_plain(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
         d2.add_(t)
         keys = torch.where(d2 < _BIG, _index_keys(d2, idx[None, :]),
                            torch.full_like(t, none, dtype=torch.int64))
+        if keys.shape[1] < k:            # fewer candidates than slots
+            keys = torch.cat([keys, torch.full(
+                (TILE_E, k - keys.shape[1]), none, dtype=torch.int64,
+                device=dev)], dim=1)
         best[et * TILE_E:(et + 1) * TILE_E] = torch.topk(
             keys, k, dim=1, largest=False, sorted=True).values
     return (best >> 32).to(torch.int32).view(torch.float32), best & 0xFFFFFFFF
@@ -698,14 +838,16 @@ def knn_index_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
     """Launch K5 on tensors from :func:`knn_prepare_batched` (``m`` refs
     before padding) -> (d2 (B, E, k), idx (B, E, k) int32 into the r4 rows,
     clamped to ``m - 1``) in each element's query order: one kernel
-    launch."""
+    launch; k above ``MAX_K`` launches :func:`knn_index_launch_any_k`."""
     if flags.ndim != 3:
         raise ValueError(f"knn_index_launch takes a batch, flags "
                          f"{tuple(flags.shape)}")
     e, n_e, n_m = _check_prepared(q4, r4, flags, qperm, "knn_index_launch")
-    _check_k(k, "knn_index_launch")
+    _check_k(k, r4.shape[1], "knn_index_launch")
     if not 0 < m <= r4.shape[1]:
         raise ValueError(f"knn_index_launch: {m} refs in {r4.shape[1]} rows")
+    if k > MAX_K:
+        return knn_index_launch_any_k(q4, r4, flags, qperm, m, k)
     b = flags.shape[0]
     dev = q4.device
     out_d = torch.empty((b, e, k), dtype=torch.float32, device=dev)
@@ -723,6 +865,32 @@ def knn_index_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
 
 
 knn_index_launch.launches = 0
+
+
+def knn_index_launch_any_k(q4: torch.Tensor, r4: torch.Tensor,
+                           flags: torch.Tensor, qperm: torch.Tensor, m: int,
+                           k: int = K
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 on ``ListWalk`` at any k, the same contract as
+    :func:`knn_index_launch`."""
+    if flags.ndim != 3:
+        raise ValueError(f"knn_index_launch_any_k takes a batch, flags "
+                         f"{tuple(flags.shape)}")
+    e, _, _ = _check_prepared(q4, r4, flags, qperm, "knn_index_launch_any_k")
+    _check_k(k, r4.shape[1], "knn_index_launch_any_k")
+    if not 0 < m <= r4.shape[1]:
+        raise ValueError(f"knn_index_launch_any_k: {m} refs in "
+                         f"{r4.shape[1]} rows")
+    b = flags.shape[0]
+    out_d = torch.empty((b, e, k), dtype=torch.float32, device=q4.device)
+    out_i = torch.empty((b, e, k), dtype=torch.int32, device=q4.device)
+    _any_k("knn_index", "liodom_knn_index_any_k", q4, r4, flags, qperm, k,
+           (out_d, out_i), extra_ints=(m,))
+    knn_index_launch_any_k.launches += 1
+    return out_d, out_i
+
+
+knn_index_launch_any_k.launches = 0
 
 
 def knn_index_cuda(query: torch.Tensor, qmask: torch.Tensor,

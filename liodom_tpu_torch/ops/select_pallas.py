@@ -13,7 +13,9 @@ Both compare values and never compute with them, so they are bit-exact with
 each other and with the TPU kernel for the same smoothness plane.  The JAX
 package lays out at most 128 slots a ring in its kernel and takes
 ``select_edges_xla`` above that; the CUDA kernel takes any slot count whose
-lists fit a block's shared memory (:func:`select_smem_bytes`).
+lists fit a block's shared memory (:func:`select_smem_bytes`), and a ring
+too wide for that takes the same kernel with its column arrays in device
+memory (:func:`select_edges_global_cuda`): any width, as JAX.
 
 The kernel walks each region's columns in (value desc, column asc) order
 instead of repeating an arg-max: :func:`select_walk` is that algorithm in
@@ -40,7 +42,11 @@ _WARP = 32             # entries a step of the kernel's walk
 
 _SIG = [("liodom_select_edges", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
          + [ctypes.c_float] * 2 + [ctypes.c_void_p]),
-        ("liodom_select_shape", [ctypes.c_int] * 3 + [ctypes.c_void_p])]
+        ("liodom_select_edges_global", [ctypes.c_void_p] * 7
+         + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p]),
+        ("liodom_select_shape", [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+        ("liodom_select_global_shape", [ctypes.c_int] * 3
+         + [ctypes.c_void_p])]
 
 
 def f32(x: float) -> float:
@@ -257,54 +263,120 @@ def select_edges_plain(img: RingImage, smooth: torch.Tensor,
     return EdgeCloud(pts.reshape(-1, 3), bval.reshape(-1))
 
 
-def select_edges_cuda(img: RingImage, smooth: torch.Tensor,
-                      cfg: LiodomConfig) -> EdgeCloud:
-    """Launch K2 on CUDA tensors; same contract and slot layout as
-    :func:`select_edges_plain`, any number of slots a ring.  The kernel
-    derives the reach plane's gap flags from the ring image itself, so the
-    whole stage is one launch."""
+def _check_cuda(img: RingImage, smooth: torch.Tensor, what: str):
     xyz, count = img.xyz, img.count
     if not (xyz.is_cuda and count.device == xyz.device
             and smooth.device == xyz.device):
-        raise ValueError("select_edges_cuda needs all tensors on one CUDA "
-                         "device")
+        raise ValueError(f"{what} needs all tensors on one CUDA device")
     if (xyz.dtype != torch.float32 or smooth.dtype != torch.float32
             or count.dtype != torch.int32):
-        raise TypeError("select_edges_cuda takes float32 xyz and smoothness "
-                        "and int32 count")
+        raise TypeError(f"{what} takes float32 xyz and smoothness and int32 "
+                        f"count")
     r, w = xyz.shape[0], xyz.shape[1]
     if (xyz.ndim != 3 or xyz.shape[2] != 3 or smooth.shape != (r, w)
             or count.shape != (r,)):
-        raise ValueError(f"select_edges_cuda shapes: xyz {tuple(xyz.shape)}, "
-                         f"smooth {tuple(smooth.shape)}, "
-                         f"count {tuple(count.shape)}")
+        raise ValueError(f"{what} shapes: xyz {tuple(xyz.shape)}, smooth "
+                         f"{tuple(smooth.shape)}, count {tuple(count.shape)}")
     if not (xyz.is_contiguous() and smooth.is_contiguous()
             and count.is_contiguous()):
-        raise ValueError("select_edges_cuda needs contiguous tensors")
+        raise ValueError(f"{what} needs contiguous tensors")
+
+
+def _select_launch(symbol: str, img: RingImage, smooth: torch.Tensor,
+                   cfg: LiodomConfig, scratch=()
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of K2's ``symbol`` (``scratch``: the global path's) ->
+    the slots (bidx (R, S) i32, bval (R, S) i32, pts (R, S, 3))."""
+    xyz, count = img.xyz, img.count
+    r, w = xyz.shape[0], xyz.shape[1]
     n_regions, max_picks = cfg.scan_regions, cfg.max_edges_per_region
     s = n_regions * max_picks
-    smem = select_smem_bytes(w, n_regions, max_picks)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"ring width {w} with {n_regions} x {max_picks} "
-                         f"slots needs {smem} bytes of the kernel's shared "
-                         f"memory, more than 227 KB")
     bidx = torch.empty((r, s), dtype=torch.int32, device=xyz.device)
     bval = torch.empty((r, s), dtype=torch.int32, device=xyz.device)
     pts = torch.empty((r, s, 3), dtype=torch.float32, device=xyz.device)
     lib = kernels.load("select", _SIG)
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.liodom_select_edges(
+        err = getattr(lib, symbol)(
             smooth.data_ptr(), count.data_ptr(), xyz.data_ptr(),
-            bidx.data_ptr(), bval.data_ptr(), pts.data_ptr(), r, w,
-            n_regions, max_picks, cfg.min_points_per_scan,
-            f32(cfg.smoothness_threshold), f32(cfg.neighbor_gap_sq), stream)
-    kernels.check(err, "liodom_select_edges")
-    select_edges_cuda.launches += 1
+            bidx.data_ptr(), bval.data_ptr(), pts.data_ptr(),
+            *(t.data_ptr() for t in scratch), r, w, n_regions, max_picks,
+            cfg.min_points_per_scan, f32(cfg.smoothness_threshold),
+            f32(cfg.neighbor_gap_sq), stream)
+    kernels.check(err, symbol)
+    return bidx, bval, pts
+
+
+def _edges(slots) -> EdgeCloud:
+    _, bval, pts = slots
     return EdgeCloud(pts.reshape(-1, 3), (bval != 0).reshape(-1))
 
 
+def select_edges_cuda(img: RingImage, smooth: torch.Tensor,
+                      cfg: LiodomConfig) -> EdgeCloud:
+    """Launch K2 on CUDA tensors; same contract and slot layout as
+    :func:`select_edges_plain`, any number of slots a ring.  The kernel
+    derives the reach plane's gap flags from the ring image itself, so the
+    whole stage is one launch.  A ring whose arrays need more than a
+    block's shared memory (:func:`select_smem_bytes`) launches
+    :func:`select_edges_global_cuda`."""
+    _check_cuda(img, smooth, "select_edges_cuda")
+    if select_smem_bytes(img.xyz.shape[1], cfg.scan_regions,
+                         cfg.max_edges_per_region) > _SMEM_LIMIT:
+        return select_edges_global_cuda(img, smooth, cfg)
+    out = _edges(_select_launch("liodom_select_edges", img, smooth, cfg))
+    select_edges_cuda.launches += 1
+    return out
+
+
 select_edges_cuda.launches = 0
+
+
+def select_global_shape(width: int, n_regions: int, max_picks: int) -> dict:
+    """K2's global path as the built library lays it out for a ring width
+    and slot layout: whether the lists and slots go to the device scratch,
+    the columns of a region's values a block's shared memory holds, that
+    shared memory in bytes and the scratch's bytes a ring.  Builds the
+    library if needed; launches nothing."""
+    lib = kernels.load("select", _SIG)
+    out = (ctypes.c_longlong * 4)()
+    kernels.check(lib.liodom_select_global_shape(
+        width, n_regions, max_picks, ctypes.addressof(out)),
+        "liodom_select_global_shape")
+    return {"lists_in_scratch": bool(out[0]), "values_in_smem": out[1],
+            "dynamic_smem_bytes": out[2], "scratch_bytes_per_ring": out[3]}
+
+
+def select_slots_global(img: RingImage, smooth: torch.Tensor,
+                        cfg: LiodomConfig
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of K2's device-memory path -> its slots (bidx (R, S)
+    i32, bval (R, S) i32, pts (R, S, 3)), :func:`select_plain`'s layout;
+    counts nothing (:func:`select_edges_global_cuda` is the route)."""
+    _check_cuda(img, smooth, "select_slots_global")
+    r, w = img.xyz.shape[0], img.xyz.shape[1]
+    per_ring = select_global_shape(w, cfg.scan_regions,
+                                   cfg.max_edges_per_region)
+    # one buffer a device, written before it is read, never cleared
+    scratch = kernels.device_scratch(
+        "select", img.xyz.device, r * per_ring["scratch_bytes_per_ring"],
+        torch.uint8, floor=1 << 20)
+    return _select_launch("liodom_select_edges_global", img, smooth, cfg,
+                          (scratch,))
+
+
+def select_edges_global_cuda(img: RingImage, smooth: torch.Tensor,
+                             cfg: LiodomConfig) -> EdgeCloud:
+    """K2 with each ring's column arrays in a device scratch
+    (``liodom_select_edges_global``), at any ring width up to 2^24 - 1 and
+    any slot count; the same contract, slots and picks as
+    :func:`select_edges_cuda`, one launch."""
+    out = _edges(select_slots_global(img, smooth, cfg))
+    select_edges_global_cuda.launches += 1
+    return out
+
+
+select_edges_global_cuda.launches = 0
 
 
 def select_shape(width: int, n_regions: int, max_picks: int) -> dict:

@@ -192,3 +192,65 @@ def test_tiled_schedule_matches_plain_and_jax(threads, rows_per_thread):
             assert int(got[2]) > 1024       # a truncating cut
         if cap == 64:
             assert int(got[2]) == 0         # no target key in the map
+
+
+@functools.lru_cache(maxsize=1)
+def _wide_jax_map():
+    """A 2,048-row JAX hash map at the default 40 / 50 m cells over points
+    spread 12 km wide, so that a neighbourhood of 141 x 141 cells holds
+    some rows and not others."""
+    jcfg = JMapConfig(map_capacity=2048)
+    rng = np.random.default_rng(23)
+    pts = (rng.uniform(-6000, 6000, (1000, 3))
+           * np.array([1, 1, 0.01])).astype(np.float32)
+    valid = rng.random(1000) > 0.1
+    pose = JPose(jnp.asarray([1.0, 0, 0, 0], jnp.float32),
+                 jnp.zeros(3, jnp.float32))
+    return jcfg, JG.update_map(JG.init_map(2048), jnp.asarray(pts),
+                               jnp.asarray(valid), pose, jcfg)
+
+
+@pytest.mark.parametrize("capacity", [None, 64])
+def test_get_local_map_matches_jax_above_the_shared_memory_targets(capacity):
+    """``cells_xy=70``: 141^2 XY keys plus the z column, past the
+    ``MAX_TARGETS`` the kernel holds in shared memory (the card takes the
+    device-memory path there); the plain version, its membership compared
+    a chunk of rows at a time, against JAX bit for bit."""
+    jcfg, jm = _wide_jax_map()
+    cfg = MapConfig(map_capacity=2048)
+    assert len(G.local_map_offsets(cfg, cells_xy=70)) > K7.MAX_TARGETS
+    tm = convert.map_state_from_numpy([np.asarray(a) for a in jm],
+                                      device="cpu")
+    pos = np.asarray([130.0, -90.0, 0.4], np.float32)
+    jx, jv, jn = JG.get_local_map(jm, jnp.asarray(pos), jcfg, cells_xy=70,
+                                  capacity=capacity)
+    tx, tv, tn = G.get_local_map(tm, torch.from_numpy(pos), cfg, cells_xy=70,
+                                 capacity=capacity)
+    assert 64 < int(tn) == int(jn) < int(tm.valid.sum())
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+
+
+@pytest.mark.parametrize("chunk", [1, 100, 27 * 1000, 1 << 24])
+def test_chunked_membership_is_the_whole_compare(chunk):
+    """``_membership`` a chunk of (row, target) pairs at a time (from one
+    row a chunk to the whole map at once) is the unchunked broadcast
+    compare, bit for bit, at 27 and 174 targets on 10,007 rows with hits,
+    misses, invalid rows and a shifted base."""
+    rng = np.random.default_rng(chunk % 97)
+    cfg = MapConfig(voxel_xysize=20.0, voxel_zsize=25.0)
+    rows = 10007
+    for kw in ({}, {"cells_xy": 6, "cells_z": 3}):
+        offs = G.local_map_offsets(cfg, **kw)
+        key = np.where(rng.random((rows, 1)) < 0.5,
+                       offs[rng.integers(0, len(offs), rows)] + 3,
+                       rng.integers(-40, 40, (rows, 3)))
+        key = torch.from_numpy(key.astype(np.int32))
+        valid = torch.from_numpy(rng.random(rows) < 0.8)
+        base = torch.tensor([3, 3, 3], dtype=torch.int32)
+        targets = base[None, :] + torch.from_numpy(offs)
+        whole = torch.any(torch.all(key[:, None, :] == targets[None], -1),
+                          -1) & valid
+        got = K7._membership(key, valid, base, offs, chunk=chunk)
+        assert torch.equal(got, whole)
+        assert 0 < int(got.sum()) < int(valid.sum())

@@ -101,6 +101,86 @@ def test_select_kernel_at_168_slots_bit_exact(dev):
     assert int(got.valid.sum()) > 1000
 
 
+def _wide_planes(dev, rings, width, seed=3):
+    """Rings of ``width`` columns sampled every 5 cm along gentle curves,
+    ~12 % of the gaps broken, counts near the width, and a smoothness
+    plane quantised to 1/8, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    s = np.cumsum(np.where(rng.random((rings, width)) < 0.12, 0.4, 0.05),
+                  axis=1)
+    off = np.arange(rings)[:, None]
+    xyz = np.stack([10.0 + np.cos(s * 0.01 + off), s,
+                    0.1 * np.sin(s * 0.3 + off)], -1).astype(np.float32)
+    count = (width - rng.integers(0, 2000, rings)).astype(np.int32)
+    count[5] = 20                    # below min_points
+    xyz[np.arange(width)[None, :] >= count[:, None]] = 0.0
+    sm = (np.round(rng.random((rings, width)) * 8.0) / 8.0).astype(np.float32)
+    return (RingImage(torch.from_numpy(xyz).to(dev),
+                      torch.from_numpy(count).to(dev)),
+            torch.from_numpy(sm).to(dev))
+
+
+@pytest.mark.parametrize("width,picks", [(49152, 10), (38741, 52)])
+def test_select_kernel_on_rings_too_wide_for_shared_memory(dev, width,
+                                                           picks):
+    """K2 where its arrays exceed a block's 227 KB (64 rings at 88 and 424
+    slots): the wrapper takes the device-memory path, one launch, bit for
+    bit against select_plain."""
+    cfg = LiodomConfig(edges_per_region=picks, ring_width=width)
+    assert SEL.select_smem_bytes(width, cfg.scan_regions,
+                                 cfg.max_edges_per_region) > 232448
+    img, sm = _wide_planes(dev, 64, width)
+    before = (SEL.select_edges_cuda.launches,
+              SEL.select_edges_global_cuda.launches)
+    got = SEL.select_edges_cuda(img, sm, cfg)
+    assert (SEL.select_edges_cuda.launches,
+            SEL.select_edges_global_cuda.launches) == (before[0],
+                                                       before[1] + 1)
+    want = SEL.select_edges_plain(img, sm, cfg)
+    assert torch.equal(got.valid, want.valid)
+    assert torch.equal(got.xyz, want.xyz)
+    assert int(got.valid.sum()) > 0.8 * 63 * cfg.scan_regions * (picks + 1)
+
+
+@pytest.mark.parametrize("picks,where", [(289, "values"), (329, "lists")])
+def test_select_global_path_with_values_or_lists_in_scratch(dev, picks,
+                                                            where):
+    """K2's device-memory path at 64 rings x 49,152 columns in each of its
+    layouts: at 8 x 290 slots a region's values leave shared memory for the
+    device scratch, at 8 x 330 the lists and slots do (handed to rank 0
+    through global memory); bit for bit against select_plain."""
+    width = 49152
+    cfg = LiodomConfig(edges_per_region=picks, ring_width=width)
+    lay = SEL.select_global_shape(width, cfg.scan_regions,
+                                  cfg.max_edges_per_region)
+    img, sm = _wide_planes(dev, 64, width, seed=4)
+    total = torch.clamp(img.count - 10, min=0)
+    longest = int((total - total // cfg.scan_regions
+                   * (cfg.scan_regions - 1)).max())
+    assert lay["lists_in_scratch"] == (where == "lists")
+    assert (lay["values_in_smem"] < longest) == (where == "values")
+    bidx, bval, pts = SEL.select_slots_global(img, sm, cfg)
+    reach = SEL._reach_plane(img.xyz, cfg.neighbor_gap_sq)
+    pidx, pval = SEL.select_plain(sm, reach, img.count, cfg)
+    assert torch.equal(bidx, pidx) and torch.equal(bval != 0, pval)
+    want = SEL.select_edges_plain(img, sm, cfg)
+    assert torch.equal(pts.reshape(-1, 3), want.xyz)
+    assert int(pval.sum()) > 0.8 * 63 * cfg.scan_regions * (picks + 1)
+
+
+def test_select_global_path_at_the_bench_shape(dev):
+    """K2's device-memory path called directly on a ring the shared-memory
+    kernel takes (88 and 168 slots): bit for bit the same edges."""
+    cfg, imgs = _images(1)
+    img = RingImage(imgs[0].xyz.to(dev), imgs[0].count.to(dev))
+    sm = SM.smoothness_cuda(img.xyz, img.count)
+    for c in (cfg, cfg.replace(edges_per_region=20)):
+        got = SEL.select_edges_global_cuda(img, sm, c)
+        want = SEL.select_edges_cuda(img, sm, c)
+        assert torch.equal(got.valid, want.valid)
+        assert torch.equal(got.xyz, want.xyz)
+
+
 def _tie_prep(dev, radius):
     lanes = [tie_scene(s, 3000, 20000) for s in range(2)]
     q, qm, r, rm = (torch.from_numpy(np.stack([ln[i] for ln in lanes]))
@@ -136,6 +216,70 @@ def test_knn_kernels_at_k_bit_exact(dev, k):
     d5_o, i5_o = KNN.knn_index_launch_plain(*prep5, m, k=k)
     assert d5.shape == (2, 3000, k)
     assert torch.equal(d5, d5_o) and torch.equal(i5, i5_o)
+
+
+@pytest.mark.parametrize("k", [1, 5, 16, 17, 64, 512])
+def test_knn_any_k_walk_bit_exact(dev, k):
+    """The run-time-k walk (ListWalk) of K3, K4, K5 and K6 on the tie
+    lattice (two pairs), its lists in shared memory and, at k = 512, in the
+    device scratch: d2, coordinates, indices and endpoints bit for bit
+    against the keyed (d2, index) selection, K6's gate only at the ratio
+    boundary; the launches take it above MAX_K."""
+    prep, m = _tie_prep(dev, 1.0)
+    want = KNN.knn_launch_plain(*prep, k=k)
+    shape = KNN.knn_any_k_shape("knn_coords", prep[2].shape[-1], k)
+    assert shape["lists_in_smem"] == (k < 512)
+    got = KNN.knn_launch_batched_any_k(*prep, k=k)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    solo = tuple(t[0] for t in prep)
+    got = KNN.knn_launch_any_k(*solo, k=k)
+    assert torch.equal(got[0], want[0][0]) and torch.equal(got[1], want[1][0])
+    before = (KNN.knn_launch.launches, KNN.knn_launch_any_k.launches)
+    KNN.knn_launch(*solo, k=k)
+    after = (KNN.knn_launch.launches, KNN.knn_launch_any_k.launches)
+    assert after == ((before[0], before[1] + 1) if k > KNN.MAX_K
+                     else (before[0] + 1, before[1]))
+    if k >= 2:
+        got = KNN.knn_lines_launch_any_k(*prep, 1.0, 3.0, 0.01, k=k)
+        lines = KNN.knn_lines_launch_plain(*prep, 1.0, 3.0, 0.01, k=k)
+        assert torch.equal(got[0], lines[0]) and torch.equal(got[1], lines[1])
+        zm = want[1] - want[1].mean(dim=-2, keepdim=True)
+        eigs = NB.sym3_eigenvalues(torch.einsum("...ki,...kj->...ij", zm,
+                                                zm))
+        at_ratio = ((eigs[..., 2] - 3.0 * eigs[..., 1]).abs()
+                    <= 1e-4 * eigs[..., 2].abs())
+        assert not bool(((got[2] != lines[2]) & ~at_ratio).any())
+    prep5, m = _tie_prep(dev, None)
+    d5, i5 = KNN.knn_index_launch_any_k(*prep5, m, k=k)
+    d5_o, i5_o = KNN.knn_index_launch_plain(*prep5, m, k=k)
+    assert torch.equal(d5, d5_o) and torch.equal(i5, i5_o)
+
+
+@pytest.mark.parametrize("k", [420, 421])
+def test_knn_any_k_walk_at_the_shared_memory_boundary(dev, k):
+    """ListWalk at 128 ref tiles of the tie lattice (two pairs): k = 420 is
+    the last whose lists fit a block's 227 KB beside the staging buffers,
+    the ranked flags and their count, 421 the first in the device scratch.
+    K4, K5 and K6 launch at both, bit for bit against the keyed (d2, index)
+    selection; the kernels have no static shared memory to add."""
+    lanes = [tie_scene(s, 1000, 128 * KNN.TILE_M) for s in range(2)]
+    q, qm, r, rm = (torch.from_numpy(np.stack([ln[i] for ln in lanes]))
+                    .to(dev) for i in range(4))
+    prep = KNN.knn_prepare_batched(q, qm, r, rm, 1.0)
+    assert prep[2].shape[-1] == 128
+    shape = KNN.knn_any_k_shape("knn_coords", 128, k)
+    assert shape["lists_in_smem"] == (k == 420)
+    assert shape["dynamic_smem_bytes"] <= 232448
+    got = KNN.knn_launch_batched(*prep, k=k)
+    want = KNN.knn_launch_plain(*prep, k=k)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    m = r.shape[1]
+    got = KNN.knn_index_launch(*prep, m, k=k)
+    want = KNN.knn_index_launch_plain(*prep, m, k=k)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = KNN.knn_lines_launch(*prep, 1.0, 3.0, 0.01, k=k)
+    want = KNN.knn_lines_launch_plain(*prep, 1.0, 3.0, 0.01, k=k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_knn_index_is_one_kernel_launch(dev):
@@ -368,13 +512,48 @@ def test_local_map_compact_kernel_any_neighbourhood(dev):
         assert _k7_equal(sub, base, o, 16384) > 0
         assert _k7_equal(sub, base, o, 1024) > 1024
         assert _k7_equal(empty, base, o, 1024) == 0
-    with pytest.raises(ValueError, match=f"at most {K7.MAX_TARGETS}"):
-        K7.compact_hits_cuda(m.xyz, m.key, m.valid, base,
-                             np.zeros((K7.MAX_TARGETS + 1, 3), np.int32), 16)
     wide = np.zeros((K7.MAX_TARGETS, 3), np.int32)   # the most it takes
     wide[:len(offs)] = offs
     head = G.MapState(*(t[:4096] if t.ndim else t for t in m))
     assert _k7_equal(head, base, wide, 16384) > 0
+    # above it, the targets in device memory: MAX_TARGETS + 1 of
+    # cells_xy=70's and all 60,027 of cells_xy=122's, around the map's
+    # base and one 69 cells off it
+    cell = int(mcfg.voxel_xysize)          # the keys' XY step
+    shift = torch.tensor([69 * cell, 0, 0], dtype=torch.int32, device=dev)
+    many = G.local_map_offsets(mcfg, cells_xy=122)
+    assert len(many) > 60_000
+    for o in (G.local_map_offsets(mcfg, cells_xy=70)[:K7.MAX_TARGETS + 1],
+              many):
+        before = (K7.compact_hits_cuda.launches,
+                  K7.compact_hits_global_cuda.launches)
+        for b in (base, base + shift):
+            for cap in (16384, 1024):
+                assert _k7_equal(m, b, o, cap) > 1024
+        assert (K7.compact_hits_cuda.launches,
+                K7.compact_hits_global_cuda.launches) == (before[0],
+                                                          before[1] + 4)
+    # a block 71 cells off: part of the map hits
+    n = _k7_equal(m, base + shift * 71 // 69,
+                  G.local_map_offsets(mcfg, cells_xy=70), 16384)
+    assert 0 < n < int(m.valid.sum())
+
+
+def test_local_map_compact_global_path_at_any_target_count(dev):
+    """K7's device-memory path called directly where the shared-memory
+    path also runs (27 and 174 targets, no target, one row short of a
+    tile): bit for bit the plain version."""
+    mcfg, m = _map_on(dev, capacity=131072)
+    base = G.cell_keys(torch.zeros(3, device=dev), mcfg)
+    for offs in (G.local_map_offsets(mcfg), np.zeros((0, 3), np.int32),
+                 G.local_map_offsets(mcfg, cells_xy=6, cells_z=3)):
+        for cap in (0, 1024, 16384):
+            for rows in (m.xyz.shape[0], 2047):
+                args = (m.xyz[:rows], m.key[:rows], m.valid[:rows], base,
+                        offs, cap)
+                got = K7.compact_hits_global_cuda(*args)
+                want = K7.compact_hits_plain(*args)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _probe_equal(tab, code, active):

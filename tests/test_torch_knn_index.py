@@ -19,12 +19,15 @@ wrapper ``knn_pallas`` :144), and ``neighbors.knn`` / ``knn_auto``.
   ``csrc/knn_index.cu``: without a radius nothing is sorted and the indices
   address the caller's ref; with one, they come back through the ref
   permutation.  Either gives the plain version's answer.
-* Other k: the plain K3, K6 and K5 at k = 3 and 8 against
+* Other k: the plain K3, K6 and K5 at k = 3, 8, 17 and 32 against
   ``knn_coords_pallas`` / ``knn_lines_pallas`` / ``knn_pallas`` in
-  interpret mode, at the bars above; the CUDA wrappers refuse k > 16
-  (``MAX_K``) with a ``ValueError`` naming the limit; and a 3-frame
-  ``image_step`` course at ``knn_k=3``, the port on the CPU against JAX
-  within 1 cm and 1e-3 rad with equal edge counts.
+  interpret mode, at the bars above; each of the four CUDA wrappers at k =
+  17 and 32 with its launches replaced by their plain versions
+  (``knn_launch_plain`` and kin, counting): k above ``MAX_K`` reaches the
+  ``*_any_k`` launch, k = 16 the register walk's, and the answer is the
+  plain version's; and 3-frame ``image_step`` courses at ``knn_k=3`` and
+  ``knn_k=20``, the port on the CPU against JAX within 1 cm and 1e-3 rad
+  with equal edge counts.
 """
 
 import jax.numpy as jnp
@@ -193,7 +196,7 @@ def test_knn_auto_takes_the_plain_version_on_the_cpu():
         N.knn_auto(q.to("meta"), qm.to("meta"), r.to("meta"), rm.to("meta"))
 
 
-@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("k", [3, 8, 17, 32])
 def test_index_plain_at_k_matches_pallas_interpret(k):
     q, qm, r, rm = _scene(7, e=300, m=3000)
     dj, ij = (np.asarray(a) for a in JK.knn_pallas(
@@ -208,7 +211,7 @@ def test_index_plain_at_k_matches_pallas_interpret(k):
     assert (dt[~qm] >= 1e29).all() and (dj[~qm] >= 1e29).all()
 
 
-@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("k", [3, 8, 17, 32])
 def test_coords_plain_at_k_matches_pallas_interpret(k):
     q, qm, r, rm = _scene(8)
     d_j, c_j = JK.knn_coords_pallas(*map(jnp.asarray, (q, qm, r, rm)), k=k,
@@ -219,7 +222,7 @@ def test_coords_plain_at_k_matches_pallas_interpret(k):
                qm)
 
 
-@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("k", [3, 8, 17, 32])
 def test_lines_plain_at_k_matches_pallas_interpret(k):
     q, qm, r, rm = _line_map()
     want = JK.knn_lines_pallas(*map(jnp.asarray, (q, qm, r, rm)), k=k,
@@ -241,22 +244,97 @@ def test_lines_plain_at_k_matches_pallas_interpret(k):
                                    rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("entry", ["coords", "coords_batched", "lines",
-                                   "index"])
-def test_cuda_wrappers_refuse_k_above_the_limit(entry):
-    q, qm, r, rm = (torch.from_numpy(a) for a in _scene(9, e=64, m=512))
-    fn = {"coords": K.knn_coords_cuda, "lines": K.knn_lines_cuda,
-          "index": K.knn_index_cuda,
-          "coords_batched": K.knn_coords_batched_cuda}[entry]
-    args = ((q[None], qm[None], r[None], rm[None])
-            if entry == "coords_batched" else (q, qm, r, rm))
-    with pytest.raises(ValueError, match=f"1..{K.MAX_K}"):
-        fn(*args, k=K.MAX_K + 1)
+def _counting(plain, solo=False):
+    """A stand-in for a launch: ``plain`` on the same prepared tensors (on a
+    batch of one for a solo launch), counting its calls."""
+    def launch(q4, r4, flags, qperm, *rest):
+        launch.launches += 1
+        if solo:
+            return tuple(t[0] for t in plain(q4[None], r4[None], flags[None],
+                                              qperm[None], *rest))
+        return plain(q4, r4, flags, qperm, *rest)
+    launch.launches = 0
+    return launch
 
 
-def test_image_step_at_knn_k_3_tracks_jax():
-    jcfg = JConfig(local_map_size=5, ring_width=2048, knn_k=3)
-    cfg = LiodomConfig(local_map_size=5, ring_width=2048, knn_k=3)
+# entry: (wrapper, the register walk's library, any-k launch, plain
+# launch, solo launch)
+ENTRIES = {"coords": (K.knn_coords_cuda, "knn_coords", "knn_launch_any_k",
+                      K.knn_launch_plain, True),
+           "coords_batched": (K.knn_coords_batched_cuda, "knn_coords",
+                              "knn_launch_batched_any_k", K.knn_launch_plain,
+                              False),
+           "lines": (K.knn_lines_cuda, "knn_lines",
+                     "knn_lines_launch_any_k", K.knn_lines_launch_plain,
+                     False),
+           "index": (K.knn_index_cuda, "knn_index",
+                     "knn_index_launch_any_k", K.knn_index_launch_plain,
+                     False)}
+
+
+class _Reached(Exception):
+    """A launch asked for its kernel library."""
+
+
+@pytest.mark.parametrize("k", [17, 32])
+@pytest.mark.parametrize("entry", list(ENTRIES))
+def test_cuda_wrappers_take_the_any_k_walk_above_the_limit(entry, k,
+                                                           monkeypatch):
+    """Each CUDA wrapper through its real launch, on CPU tensors: the
+    any-k launch replaced by a counting plain version, the launches' CUDA
+    device check by one that takes CPU tensors, and the kernel libraries
+    by a stand-in that stops the call.  k above MAX_K reaches the any-k
+    launch and never the register walk's library, k = MAX_K the register
+    walk's library and never the any-k launch, and the answer is the plain
+    version's."""
+    wrapper, source, new, plain, solo = ENTRIES[entry]
+    lst = _counting(plain, solo)
+    monkeypatch.setattr(K, new, lst)
+    monkeypatch.setattr(K, "_check_prepared",
+                        lambda q4, r4, flags, qperm, what: (
+                            qperm.shape[-1], *flags.shape[-2:]))
+    asked = []
+
+    def load(name, signatures):
+        asked.append(name)
+        raise _Reached(name)
+
+    monkeypatch.setattr(K.kernels, "load", load)
+    q, qm, r, rm = (torch.from_numpy(a) for a in _scene(9, e=300, m=3000))
+    batched = entry == "coords_batched"
+    args = (q[None], qm[None], r[None], rm[None]) if batched else (q, qm, r,
+                                                                   rm)
+    got = wrapper(*args, k=k)
+    assert (asked, lst.launches) == ([], 1)
+    with pytest.raises(_Reached):
+        wrapper(*args, k=K.MAX_K)
+    assert (asked, lst.launches) == ([source], 1)
+    if entry == "lines":
+        want = K.knn_lines_plain(q, qm, r, rm, k)
+        ok = got[2] & want[2]
+        assert int(ok.sum()) > 20
+        assert torch.equal(got[2], want[2])
+        assert torch.equal(got[0][ok], want[0][ok])
+        assert torch.equal(got[1][ok], want[1][ok])
+        return
+    if entry == "index":
+        d_p, i_p = K.knn_index_plain(q, qm, r, rm, k)
+        d_g, i_g = got
+        assert torch.equal(i_g[d_p < 1e29], i_p[d_p < 1e29])
+    else:
+        d_p, c_p = K.knn_coords_plain(q, qm, r, rm, k)
+        d_g, c_g = (t[0] for t in got) if batched else got
+        fin = d_p < 1e29
+        assert torch.equal(c_g[fin], c_p[fin])
+    assert d_g.shape == (300, k)
+    assert torch.equal(d_g, d_p)
+
+
+def _course_tracks_jax(knn_k):
+    """3 frames of ``image_step`` at ``knn_k`` on the CPU against JAX: edge
+    counts equal, poses within 1 cm and 1e-3 rad."""
+    jcfg = JConfig(local_map_size=5, ring_width=2048, knn_k=knn_k)
+    cfg = LiodomConfig(local_map_size=5, ring_width=2048, knn_k=knn_k)
     world = BoxWorld(seed=5)
     pos, rots, _ = drive_trajectory_6dof(3, speed=1.0, yaw_rate=0.03)
     jstate = JP.init_state(jcfg)
@@ -275,3 +353,12 @@ def test_image_step_at_knn_k_3_tracks_jax():
                                     - np.asarray(jpose.t))) < 0.01
         assert _quat_angle(pose.q.numpy(), np.asarray(jpose.q)) < 1e-3
     assert float(np.linalg.norm(pose.t.numpy())) > 0.3      # it moved
+
+
+def test_image_step_at_knn_k_3_tracks_jax():
+    _course_tracks_jax(3)
+
+
+def test_image_step_at_knn_k_20_tracks_jax():
+    """Above the register walk's MAX_K: the CPU path takes any k, as JAX."""
+    _course_tracks_jax(20)

@@ -17,6 +17,10 @@ JAX kernel's 128 slots a ring.
 * The port's ``select_edges`` on the CPU against JAX ``select_edges_pallas``
   at S = 168, where the JAX package takes ``select_edges_xla``: bidx, bval
   and the edge points bit for bit, both fed the same smoothness plane.
+* Rings too wide for a block's shared memory (2 x 49,152 columns at S =
+  88, 2 x 38,741 at S = 424, made from a seed): the port's
+  ``select_edges`` against JAX ``select_edges`` bit for bit, and the walk
+  against ``select_plain``.
 """
 
 import functools
@@ -28,10 +32,11 @@ import torch
 
 from liodom_tpu.core.config import LiodomConfig as JConfig
 from liodom_tpu.core.frame import RingImage as JRing
+from liodom_tpu.ops import features as JF
 from liodom_tpu.ops.select_pallas import select_edges_pallas
 
 from liodom_tpu_torch.core.config import LiodomConfig
-from liodom_tpu_torch.core.frame import RawScan
+from liodom_tpu_torch.core.frame import RawScan, RingImage
 from liodom_tpu_torch.core.synth import BoxWorld, drive_trajectory, yaw_matrix
 from liodom_tpu_torch.ops import features as F
 from liodom_tpu_torch.ops import select_pallas as SEL
@@ -176,3 +181,52 @@ def test_select_edges_at_168_slots_matches_jax():
                              axis=1)
     pts = np.where(bval.numpy()[..., None], pts, 0.0).reshape(-1, 3)
     np.testing.assert_array_equal(pts, np.asarray(want.xyz))
+
+
+def _wide_rings(seed, width):
+    """Two rings of ``width`` columns sampled every 5 cm along gentle
+    curves with ~12 % of the gaps broken (so a pick suppresses up to 5
+    neighbours a side), counts near the width, and a smoothness plane
+    quantised to 1/8 (many exact ties), all from ``seed``."""
+    rng = np.random.default_rng(seed)
+    xyz = np.zeros((2, width, 3), np.float32)
+    for r in range(2):
+        s = np.cumsum(np.where(rng.random(width) < 0.12, 0.4, 0.05))
+        xyz[r, :, 0] = 10.0 + np.cos(s * 0.01 + r)
+        xyz[r, :, 1] = s
+        xyz[r, :, 2] = 0.1 * np.sin(s * 0.3 + r)
+    count = np.array([width, width - 977], np.int32)
+    xyz[1, count[1]:] = 0.0
+    sm = np.round(rng.random((2, width)) * 8.0) / 8.0
+    return xyz, count, sm.astype(np.float32)
+
+
+@pytest.mark.parametrize("width,picks", [(49152, 10), (38741, 52)])
+def test_select_edges_on_rings_too_wide_for_shared_memory_matches_jax(
+        width, picks):
+    """Rings whose arrays exceed a block's 227 KB (the card takes K2's
+    device-memory path there): 88 slots at 49,152 columns and 424 at
+    38,741.  The port's ``select_edges`` on the CPU against JAX's
+    (``select_edges_xla`` off the TPU), edge points and validity bit for
+    bit, and the kernel's walk (``select_walk``) against ``select_plain``
+    slot for slot."""
+    cfg = LiodomConfig(edges_per_region=picks, ring_width=width)
+    jcfg = JConfig(edges_per_region=picks, ring_width=width)
+    n_regions, max_picks = cfg.scan_regions, cfg.max_edges_per_region
+    assert n_regions * max_picks == {10: 88, 52: 424}[picks]
+    assert SEL.select_smem_bytes(width, n_regions, max_picks) > 232448
+    xyz, count, sm = _wide_rings(width, width)
+    want = JF.select_edges(JRing(jnp.asarray(xyz), jnp.asarray(count)),
+                           jnp.asarray(sm), jcfg)
+    img = RingImage(torch.from_numpy(xyz), torch.from_numpy(count))
+    got = F.select_edges(img, torch.from_numpy(sm), cfg)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(got.xyz.numpy(), np.asarray(want.xyz))
+    assert int(got.valid.sum()) > 0.8 * 2 * n_regions * max_picks
+    reach = SEL._reach_plane(img.xyz, cfg.neighbor_gap_sq)
+    want_i, want_v = SEL.select_plain(torch.from_numpy(sm), reach,
+                                      img.count, cfg)
+    got_i, got_v, stats = SEL.select_walk(torch.from_numpy(sm), reach,
+                                          img.count, cfg)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    assert stats["overflow"] == 0
