@@ -246,15 +246,18 @@ Phases, each printing one JSON line:
    ``knn_index_launch_plain``, one kernel a call
    under the profiler, its cluster blocks and thread groups beside its
    ptxas usage; K3, K4, K5 and K6 at k = 3, 8, 16 (the register walk,
-   built for every 1 <= k <= 16), 17, 32, 64 and 512 (ListWalk, its lists
-   in shared memory, at 512 in device memory) bit for bit against
+   built for every 1 <= k <= 16), 17, 20, 32, 64 and 512 (ListWalk, its
+   split over a cluster, its lists in shared memory, at 512 in device
+   memory) bit for bit against
    ``knn_launch_plain`` / ``knn_index_launch_plain`` /
    ``knn_lines_launch_plain`` on the bench inputs (K6's gate as above),
    with ptxas registers and spills at k = 5 and 8 and of ListWalk's
    kernels (no static shared memory); ListWalk's own entry points at k =
    1, 5 and 16, bit for bit, and K4, K5 and K6 at 128 ref tiles of a tie
-   lattice at k = 420 (the last whose lists fit shared memory) and 421
-   (the first in device memory), bit for bit.  The lifted
+   lattice at the last k whose block's lists fit its shared memory and
+   the first in device memory (both found from
+   ``liodom_knn_any_k_shape``), bit for bit; the K3'-K6' rows carry the
+   split built, K3''s times and bounds at k = 5-512.  The lifted
    limits (``lifted_limits`` line), each drive with its counters set to 0
    just before and read just after: ``image_step`` at ``knn_k=20`` over 20
    bench frames (K3 on ListWalk twice a frame; ATE reported, not held),
@@ -368,12 +371,13 @@ CHUNK = 12                  # chained_image_step frames a call (bench.py:147)
 K6_OPS_PER_QUERY = 160      # csrc/knn_lines.cu's epilogue, counted by hand
 # the kNN kernels at k other than 5: the register walk to 16, ListWalk
 # above (its lists in device memory at 512)
-OTHER_K = (3, 8, 16, 17, 32, 64, 512)
+OTHER_K = (3, 8, 16, 17, 20, 32, 64, 512)
 ANY_K = 20                  # knn_k of the drives on ListWalk
-# ListWalk's shared-memory boundary: at 128 ref tiles, k = 420 is the last
-# whose lists fit a block's 227 KB (16 KB of buffers, 512 bytes a
-# neighbour, 4 bytes a ref tile and the count)
-LIST_EDGE_TILES, LIST_EDGE = 128, 420
+# ListWalk's shared-memory boundary is held at 128 ref tiles: the last k
+# whose block's lists fit its 227 KB (16 KB of buffers, 512 bytes a
+# neighbour and thread group, the filled counts, 4 bytes a ref tile and
+# the count) and the first past it, both found from the library's shape
+LIST_EDGE_TILES = 128
 N_ANY_K = 6                 # frames of each drive past a limit
 # K2 past a block's shared memory: (columns, edges_per_region): 8 x 11 and
 # 8 x 53 slots a ring
@@ -3240,10 +3244,10 @@ def main() -> int:
         any_k_entry[name] = same
         check(same, f"ListWalk's entry points ({name}) differ from the "
               f"plain versions")
-    # the shared-memory boundary at 128 ref tiles of the tie lattice: k =
-    # LIST_EDGE the last whose lists fit beside the staging buffers and the
-    # ranked flags, LIST_EDGE + 1 the first in device memory; each launch
-    # takes ListWalk, bit for bit
+    # the shared-memory boundary at 128 ref tiles of the tie lattice: the
+    # last k whose block's lists fit beside the staging buffers, the filled
+    # counts and the ranked flags, and the first in device memory; each
+    # launch takes ListWalk, bit for bit
     for kern in ("knn_coords", "knn_index", "knn_lines"):
         st = usage_of(usage.get(kern), f"{kern}_any_k_kernel").get(
             "static_smem_bytes")
@@ -3257,7 +3261,8 @@ def main() -> int:
     check(prep_e[2].shape[-1] == LIST_EDGE_TILES,
           f"the boundary lattice has {prep_e[2].shape[-1]} ref tiles")
     m_e = LIST_EDGE_TILES * KNN.TILE_M
-    for kk in (LIST_EDGE, LIST_EDGE + 1):
+    edge = KNN.knn_any_k_list_edge("knn_coords", LIST_EDGE_TILES)
+    for kk in (edge, edge + 1):
         shape_e = KNN.knn_any_k_shape("knn_coords", LIST_EDGE_TILES, kk)
         before = (KNN.knn_launch_batched_any_k.launches,
                   KNN.knn_index_launch_any_k.launches,
@@ -3278,7 +3283,7 @@ def main() -> int:
         any_k_entry[name] = {"equal": same, "any_k_launches": took,
                              **shape_e}
         check(same and took == (1, 1, 1)
-              and shape_e["lists_in_smem"] == (kk == LIST_EDGE)
+              and shape_e["lists_in_smem"] == (kk == edge)
               and shape_e["dynamic_smem_bytes"] <= 232448,
               f"ListWalk at {name}: {any_k_entry[name]}")
     any_k = any_k_drives(cfg, ccfg, bimgs, bench_b[LANES], gt_pos, mesh,
@@ -3461,9 +3466,14 @@ def main() -> int:
                                  20) for kk in (5, 16)})
     a3_plain = cuda_ms(lambda: KNN.knn_coords_plain(
         query, qvalid, map_xyz, map_valid, kw), 3, 1)
-    a3_bound = bound(q4.numel() * 4 + r4.numel() * 4 + flags.numel() * 4
-                     + e_q * 4 + e_q * kw * 4 * 4,
+    # the bound at each k: the larger of the flagged pairs' operations and
+    # the bytes, the k outputs a query (16 bytes each) among them
+    def a3_bound_at(kk):
+        return bound(q4.numel() * 4 + r4.numel() * 4 + flags.numel() * 4
+                     + e_q * 4 + e_q * kk * 4 * 4,
                      flagged * KNN.TILE_E * KNN.TILE_M * 8)
+
+    a3_bound = a3_bound_at(kw)
     a4 = (lambda: KNN.knn_launch_batched_any_k(*prep_b, k=kw))
     a4_err = err(a4()[0], KNN.knn_launch_plain(*prep_b, k=kw)[0])
     a4_ms = cuda_ms(a4, 20)
@@ -3607,6 +3617,8 @@ def main() -> int:
          "bound_ms": a3_bound[0], "bound_by": a3_bound[1],
          "library_ms": None, "k": kw,
          "ms_at_k": {str(kk): v for kk, v in sorted(a3_ms_at.items())},
+         "bound_ms_at_k": {str(kk): list(a3_bound_at(kk))
+                           for kk in sorted(a3_ms_at)},
          "shape": KNN.knn_any_k_shape("knn_coords", n_m, kw),
          "shape_k512": KNN.knn_any_k_shape("knn_coords", n_m, 512),
          "ptxas": usage_of(usage.get("knn_coords"),
@@ -3618,6 +3630,8 @@ def main() -> int:
          "max_abs_err": a4_err, "ms": a4_ms, "plain_ms": a4_plain,
          "bound_ms": a4_bound[0], "bound_by": a4_bound[1],
          "library_ms": None, "k": kw, "batch": LANES,
+         "shape": KNN.knn_any_k_shape("knn_coords", prep_b[2].shape[-1],
+                                      kw),
          "ptxas": usage_of(usage.get("knn_coords"),
                            "knn_coords_any_k_kernel")},
         {"name": "knn_index_any_k", "route": "cuda",
@@ -3627,6 +3641,7 @@ def main() -> int:
          "max_abs_err": a5_err, "ms": a5_ms, "plain_ms": a5_plain,
          "bound_ms": a5_bound[0], "bound_by": a5_bound[1],
          "library_ms": None, "k": kw,
+         "shape": KNN.knn_any_k_shape("knn_index", prep5[2].shape[-1], kw),
          "ptxas": usage_of(usage.get("knn_index"),
                            "knn_index_any_k_kernel")},
         {"name": "knn_lines_any_k", "route": "cuda",
@@ -3636,6 +3651,7 @@ def main() -> int:
          "max_abs_err": a6_err, "ms": a6_ms, "plain_ms": a6_plain,
          "bound_ms": a6_bound[0], "bound_by": a6_bound[1],
          "library_ms": None, "k": kw,
+         "shape": KNN.knn_any_k_shape("knn_lines", n_m, kw),
          "ptxas": usage_of(usage.get("knn_lines"),
                            "knn_lines_any_k_kernel")},
         {"name": "local_map_compact_global", "route": "cuda",

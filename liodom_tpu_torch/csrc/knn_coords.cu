@@ -36,9 +36,9 @@
 // that element's offset, so a batch element is bit-identical to a K3 launch
 // on that element alone.  The kernel is a template on k; the entry points
 // dispatch the caller's k to its instantiation.  Above k = 16 the wrapper
-// calls liodom_knn_coords_any_k: ListWalk (knn_search.cuh), one block a
-// query tile, the lists in shared or device memory, the same answer and
-// epilogue; its busiest query tile's block sets its time.
+// calls liodom_knn_coords_any_k: ListWalk (knn_search.cuh), the same split
+// over a cluster, partial lists in shared or device memory kept by merging
+// 8-ref batches, one keyed merge into the same answer and epilogue.
 
 #include <cuda_runtime.h>
 
@@ -105,9 +105,9 @@ int launch_coords(const void* q4, const void* r4, const void* flags,
   }));
 }
 
-// K3 and K4 on ListWalk, for any k: the same epilogue over the list in
-// memory.
-__global__ void __launch_bounds__(ListWalk::kThreads)
+// K3 and K4 on ListWalk, for any k: the same epilogue, slot by slot over
+// the keyed merge of the partial lists.
+__global__ void __launch_bounds__(AnyKWalk::kThreads)
 knn_coords_any_k_kernel(const float4* __restrict__ q4,
                         const float4* __restrict__ r4,
                         const int* __restrict__ flags,
@@ -122,27 +122,26 @@ knn_coords_any_k_kernel(const float4* __restrict__ q4,
   out_d += b * n_query * k;
   out_c += b * n_query * k * 3;
 
-  const int et = blockIdx.x;
-  const int pos = et * kTileE + threadIdx.x;
+  const int et = blockIdx.x / AnyKWalk::kClusterBlocks;
+  const int pos = et * kTileE + threadIdx.x % kTileE;
   const float4 q = q4[pos];
-  float* ld;
-  int* li;
-  ListWalk::search(q, r4, flags + static_cast<size_t>(et) * n_m, n_m, k,
-                   tile_lists(scratch, k, n_e), ld, li);
-  if (pos >= n_query) return;
-
-  const size_t dst = static_cast<size_t>(qperm[pos]) * k;
-  const bool valid = q.w != 0.0f;
-  for (int s = 0; s < k; ++s) {
-    const float bd = ld[s * kTileE];
-    const float4 r = neighbour(r4, li[s * kTileE]);
-    float d = bd > kFarPickD2 ? kBig : bd;
-    d = valid ? fmaxf(d, 0.0f) : kBig;
-    out_d[dst + s] = d;
-    out_c[(dst + s) * 3 + 0] = r.x;
-    out_c[(dst + s) * 3 + 1] = r.y;
-    out_c[(dst + s) * 3 + 2] = r.z;
+  AnyKWalk::Lists lists;
+  if (AnyKWalk::search(q, r4, flags + static_cast<size_t>(et) * n_m, n_m, k,
+                       scratch, lists) &&
+      pos < n_query) {
+    const size_t dst = static_cast<size_t>(qperm[pos]) * k;
+    const bool valid = q.w != 0.0f;
+    AnyKWalk::merged(lists, [&](int s, float bd, int bi) {
+      const float4 r = neighbour(r4, bi);
+      float d = bd > kFarPickD2 ? kBig : bd;
+      d = valid ? fmaxf(d, 0.0f) : kBig;
+      out_d[dst + s] = d;
+      out_c[(dst + s) * 3 + 0] = r.x;
+      out_c[(dst + s) * 3 + 1] = r.y;
+      out_c[(dst + s) * 3 + 2] = r.z;
+    });
   }
+  AnyKWalk::finish();
 }
 
 }  // namespace
@@ -175,8 +174,8 @@ extern "C" int liodom_knn_coords_batched(const void* q4, const void* r4,
 
 // K3 (batch 1) and K4 at any k >= 1 on ListWalk, laid out as above.
 // scratch: nullptr to keep the lists in shared memory (refused where they
-// do not fit: liodom_knn_any_k_shape), else batch * n_e * 2 k 64 words of
-// device memory for them.
+// do not fit: liodom_knn_any_k_shape), else batch * n_e times the shape's
+// scratch bytes a query tile of device memory for them.
 extern "C" int liodom_knn_coords_any_k(const void* q4, const void* r4,
                                        const void* flags, const void* qperm,
                                        void* scratch, void* out_d,
@@ -184,10 +183,10 @@ extern "C" int liodom_knn_coords_any_k(const void* q4, const void* r4,
                                        int n_e, int n_m, int tile_e,
                                        int tile_m, int k, void* stream) {
   if (tile_e != kTileE || tile_m != kTileM || batch > 65535 || k < 1 ||
-      (scratch == nullptr && !ListWalk::lists_fit(n_m, k)))
+      (scratch == nullptr && !AnyKWalk::lists_fit(n_m, k)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_e <= 0 || batch <= 0) return static_cast<int>(cudaSuccess);
-  return static_cast<int>(ListWalk::launch(
+  return static_cast<int>(AnyKWalk::launch(
       knn_coords_any_k_kernel, n_e, batch, n_m, k, scratch == nullptr, stream,
       static_cast<const float4*>(q4), static_cast<const float4*>(r4),
       static_cast<const int*>(flags), static_cast<const int*>(qperm),
@@ -196,9 +195,9 @@ extern "C" int liodom_knn_coords_any_k(const void* q4, const void* r4,
 }
 
 // ListWalk as built for n_m ref tiles and k neighbours (knn_search.cuh:
-// ListWalk::shape).
+// ListWalk::shape): out[0..5].
 extern "C" int liodom_knn_any_k_shape(int n_m, int k, int* out) {
-  return ListWalk::shape(n_m, k, out);
+  return AnyKWalk::shape(n_m, k, out);
 }
 
 // The walk as built (knn_search.cuh): out[0] blocks a cluster, out[1]

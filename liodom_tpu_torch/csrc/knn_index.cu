@@ -97,8 +97,9 @@ knn_index_kernel(const float4* __restrict__ q4, const float4* __restrict__ r4,
   }
 }
 
-// K5 on ListWalk, for any k: the same epilogue over the list in memory.
-__global__ void __launch_bounds__(ListWalk::kThreads)
+// K5 on ListWalk, for any k: the same epilogue, slot by slot over the keyed
+// merge of the partial lists.
+__global__ void __launch_bounds__(AnyKWalk::kThreads)
 knn_index_any_k_kernel(const float4* __restrict__ q4,
                        const float4* __restrict__ r4,
                        const int* __restrict__ flags,
@@ -113,24 +114,22 @@ knn_index_any_k_kernel(const float4* __restrict__ q4,
   out_d += b * n_query * k;
   out_i += b * n_query * k;
 
-  const int et = blockIdx.x;
-  const int pos = et * kTileE + threadIdx.x;
+  const int et = blockIdx.x / AnyKWalk::kClusterBlocks;
+  const int pos = et * kTileE + threadIdx.x % kTileE;
   const float4 q = q4[pos];
-  float* ld;
-  int* li;
-  ListWalk::search(q, r4, flags + static_cast<size_t>(et) * n_m, n_m, k,
-                   tile_lists(scratch, k, n_e), ld, li);
-  if (pos >= n_query) return;
-
-  const size_t dst = static_cast<size_t>(qperm[pos]) * k;
-  const bool valid = q.w != 0.0f;
-  for (int s = 0; s < k; ++s) {
-    const float bd = ld[s * kTileE];
-    const int bi = li[s * kTileE];
-    const float d = bd > kFarPickD2 ? kBig : bd;
-    out_d[dst + s] = valid ? fmaxf(d, 0.0f) : kBig;
-    out_i[dst + s] = bi == kNone ? 0 : min(bi, m - 1);
+  AnyKWalk::Lists lists;
+  if (AnyKWalk::search(q, r4, flags + static_cast<size_t>(et) * n_m, n_m, k,
+                       scratch, lists) &&
+      pos < n_query) {
+    const size_t dst = static_cast<size_t>(qperm[pos]) * k;
+    const bool valid = q.w != 0.0f;
+    AnyKWalk::merged(lists, [&](int s, float bd, int bi) {
+      const float d = bd > kFarPickD2 ? kBig : bd;
+      out_d[dst + s] = valid ? fmaxf(d, 0.0f) : kBig;
+      out_i[dst + s] = bi == kNone ? 0 : min(bi, m - 1);
+    });
   }
+  AnyKWalk::finish();
 }
 
 }  // namespace
@@ -165,8 +164,8 @@ extern "C" int liodom_knn_index(const void* q4, const void* r4,
 
 // K5 at any k >= 1 on ListWalk, laid out as liodom_knn_index.  scratch:
 // nullptr to keep the lists in shared memory (refused where they do not
-// fit: liodom_knn_any_k_shape), else batch * n_e * 2 k 64 words of device
-// memory for them.
+// fit: liodom_knn_any_k_shape), else batch * n_e times the shape's scratch
+// bytes a query tile of device memory for them.
 extern "C" int liodom_knn_index_any_k(const void* q4, const void* r4,
                                       const void* flags, const void* qperm,
                                       void* scratch, void* out_d,
@@ -175,11 +174,11 @@ extern "C" int liodom_knn_index_any_k(const void* q4, const void* r4,
                                       int tile_m, int k, void* stream) {
   if (tile_e != kTileE || tile_m != kTileM || batch > 65535 || m < 1 ||
       n_query > n_e * kTileE || k < 1 ||
-      (scratch == nullptr && !ListWalk::lists_fit(n_m, k)))
+      (scratch == nullptr && !AnyKWalk::lists_fit(n_m, k)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_e <= 0 || batch <= 0 || n_query <= 0)
     return static_cast<int>(cudaSuccess);
-  return static_cast<int>(ListWalk::launch(
+  return static_cast<int>(AnyKWalk::launch(
       knn_index_any_k_kernel, n_e, batch, n_m, k, scratch == nullptr, stream,
       static_cast<const float4*>(q4), static_cast<const float4*>(r4),
       static_cast<const int*>(flags), static_cast<const int*>(qperm),
@@ -189,7 +188,7 @@ extern "C" int liodom_knn_index_any_k(const void* q4, const void* r4,
 
 // ListWalk as built for n_m ref tiles and k neighbours.
 extern "C" int liodom_knn_any_k_shape(int n_m, int k, int* out) {
-  return ListWalk::shape(n_m, k, out);
+  return AnyKWalk::shape(n_m, k, out);
 }
 
 // K5's walk as built: out[0] blocks a cluster, out[1] thread groups a

@@ -131,51 +131,36 @@ knn_lines_kernel(const float4* __restrict__ q4, const float4* __restrict__ r4,
   out_ok[dst] = ok;
 }
 
-// K6 on ListWalk, for any k >= 2: the neighbours read from r4 by the
-// indices of the list in memory, the sums in neighbour order, then the
-// chain of knn_lines_kernel above, operation for operation.
-__global__ void __launch_bounds__(ListWalk::kThreads)
-knn_lines_any_k_kernel(const float4* __restrict__ q4,
-                       const float4* __restrict__ r4,
-                       const int* __restrict__ flags,
-                       const int* __restrict__ qperm, int n_query, int n_e,
-                       int n_m, int k, float* scratch, float max_sq_dist,
-                       float eig_ratio, float min_sep_sq,
-                       float* __restrict__ out_a, float* __restrict__ out_b,
-                       bool* __restrict__ out_ok) {
-  const size_t b = blockIdx.y;
-  q4 += b * n_e * kTileE;
-  r4 += b * n_m * kTileM;
-  flags += b * n_e * n_m;
-  qperm += b * n_query;
-  out_a += b * n_query * 3;
-  out_b += b * n_query * 3;
-  out_ok += b * n_query;
-
-  const int et = blockIdx.x;
-  const int pos = et * kTileE + threadIdx.x;
-  const float4 q = q4[pos];
-  float* ld;
-  int* li;
-  ListWalk::search(q, r4, flags + static_cast<size_t>(et) * n_m, n_m, k,
-                   tile_lists(scratch, k, n_e), ld, li);
-  if (pos >= n_query) return;
-
-  const float4 n0 = neighbour(r4, li[0]);
-  const float4 n1 = neighbour(r4, li[kTileE]);
-  float mx = n0.x, my = n0.y, mz = n0.z;
-  for (int s = 1; s < k; ++s) {
-    const float4 r = neighbour(r4, li[s * kTileE]);
-    mx = mx + r.x;
-    my = my + r.y;
-    mz = mz + r.z;
-  }
+// K6's line fit and gates on ListWalk's merged answer, written at the
+// caller's query index dst_query.
+__device__ __forceinline__ void lines_epilogue(
+    const float4 q, const float4* __restrict__ r4,
+    const AnyKWalk::Lists& lists, int k, int dst_query, float max_sq_dist,
+    float eig_ratio, float min_sep_sq, float* __restrict__ out_a,
+    float* __restrict__ out_b, bool* __restrict__ out_ok) {
+  float4 n0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), n1 = n0;
+  float mx = 0.0f, my = 0.0f, mz = 0.0f, last = kBig;
+  AnyKWalk::merged(lists, [&](int s, float bd, int bi) {
+    const float4 r = neighbour(r4, bi);
+    if (s == 0) {
+      n0 = r;
+      mx = r.x;
+      my = r.y;
+      mz = r.z;
+    } else {
+      mx = mx + r.x;
+      my = my + r.y;
+      mz = mz + r.z;
+    }
+    if (s == 1) n1 = r;
+    last = bd;                           // ends as slot k - 1's d2
+  });
   mx = mx / static_cast<float>(k);
   my = my / static_cast<float>(k);
   mz = mz / static_cast<float>(k);
   float a00 = 0.0f, a01 = 0.0f, a02 = 0.0f, a11 = 0.0f, a12 = 0.0f, a22 = 0.0f;
-  for (int s = 0; s < k; ++s) {
-    const float4 r = neighbour(r4, li[s * kTileE]);
+  AnyKWalk::merged(lists, [&](int, float, int bi) {
+    const float4 r = neighbour(r4, bi);
     const float cx = r.x - mx, cy = r.y - my, cz = r.z - mz;
     a00 = a00 + cx * cx;
     a01 = a01 + cx * cy;
@@ -183,7 +168,7 @@ knn_lines_any_k_kernel(const float4* __restrict__ q4,
     a11 = a11 + cy * cy;
     a12 = a12 + cy * cz;
     a22 = a22 + cz * cz;
-  }
+  });
 
   const float p1 = (a01 * a01 + a02 * a02) + a12 * a12;
   const float qm = ((a00 + a11) + a22) / 3.0f;
@@ -208,10 +193,10 @@ knn_lines_any_k_kernel(const float4* __restrict__ q4,
 
   const float sx = n0.x - n1.x, sy = n0.y - n1.y, sz = n0.z - n1.z;
   const float sep_sq = (sx * sx + sy * sy) + sz * sz;
-  const bool ok = (q.w != 0.0f) && (ld[(k - 1) * kTileE] < max_sq_dist)
+  const bool ok = (q.w != 0.0f) && (last < max_sq_dist)
                   && (e_max > eig_ratio * e_mid) && (sep_sq > min_sep_sq);
 
-  const size_t dst = static_cast<size_t>(qperm[pos]);
+  const size_t dst = static_cast<size_t>(dst_query);
   out_a[dst * 3 + 0] = n0.x;
   out_a[dst * 3 + 1] = n0.y;
   out_a[dst * 3 + 2] = n0.z;
@@ -219,6 +204,40 @@ knn_lines_any_k_kernel(const float4* __restrict__ q4,
   out_b[dst * 3 + 1] = n1.y;
   out_b[dst * 3 + 2] = n1.z;
   out_ok[dst] = ok;
+}
+
+// K6 on ListWalk, for any k >= 2: the neighbours read from r4 by the
+// indices of the keyed merge (its first pass the mean, the endpoints and
+// the k-th d2, its second the covariance, each sum in neighbour order),
+// then the chain of knn_lines_kernel above, operation for operation.
+__global__ void __launch_bounds__(AnyKWalk::kThreads)
+knn_lines_any_k_kernel(const float4* __restrict__ q4,
+                       const float4* __restrict__ r4,
+                       const int* __restrict__ flags,
+                       const int* __restrict__ qperm, int n_query, int n_e,
+                       int n_m, int k, float* scratch, float max_sq_dist,
+                       float eig_ratio, float min_sep_sq,
+                       float* __restrict__ out_a, float* __restrict__ out_b,
+                       bool* __restrict__ out_ok) {
+  const size_t b = blockIdx.y;
+  q4 += b * n_e * kTileE;
+  r4 += b * n_m * kTileM;
+  flags += b * n_e * n_m;
+  qperm += b * n_query;
+  out_a += b * n_query * 3;
+  out_b += b * n_query * 3;
+  out_ok += b * n_query;
+
+  const int et = blockIdx.x / AnyKWalk::kClusterBlocks;
+  const int pos = et * kTileE + threadIdx.x % kTileE;
+  const float4 q = q4[pos];
+  AnyKWalk::Lists lists;
+  if (AnyKWalk::search(q, r4, flags + static_cast<size_t>(et) * n_m, n_m, k,
+                       scratch, lists) &&
+      pos < n_query)
+    lines_epilogue(q, r4, lists, k, qperm[pos], max_sq_dist, eig_ratio,
+                   min_sep_sq, out_a, out_b, out_ok);
+  AnyKWalk::finish();
 }
 
 }  // namespace
@@ -258,8 +277,8 @@ extern "C" int liodom_knn_walk_shape(int n_m, int* out) {
 
 // K6 at any k >= 2 on ListWalk, laid out as liodom_knn_lines.  scratch:
 // nullptr to keep the lists in shared memory (refused where they do not
-// fit: liodom_knn_any_k_shape), else batch * n_e * 2 k 64 words of device
-// memory for them.
+// fit: liodom_knn_any_k_shape), else batch * n_e times the shape's scratch
+// bytes a query tile of device memory for them.
 extern "C" int liodom_knn_lines_any_k(const void* q4, const void* r4,
                                       const void* flags, const void* qperm,
                                       void* scratch, void* out_a, void* out_b,
@@ -269,10 +288,10 @@ extern "C" int liodom_knn_lines_any_k(const void* q4, const void* r4,
                                       float eig_ratio, float min_sep_sq,
                                       void* stream) {
   if (tile_e != kTileE || tile_m != kTileM || batch > 65535 || k < 2 ||
-      (scratch == nullptr && !ListWalk::lists_fit(n_m, k)))
+      (scratch == nullptr && !AnyKWalk::lists_fit(n_m, k)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_e <= 0 || batch <= 0) return static_cast<int>(cudaSuccess);
-  return static_cast<int>(ListWalk::launch(
+  return static_cast<int>(AnyKWalk::launch(
       knn_lines_any_k_kernel, n_e, batch, n_m, k, scratch == nullptr, stream,
       static_cast<const float4*>(q4), static_cast<const float4*>(r4),
       static_cast<const int*>(flags), static_cast<const int*>(qperm),
@@ -283,5 +302,5 @@ extern "C" int liodom_knn_lines_any_k(const void* q4, const void* r4,
 
 // ListWalk as built for n_m ref tiles and k neighbours.
 extern "C" int liodom_knn_any_k_shape(int n_m, int k, int* out) {
-  return ListWalk::shape(n_m, k, out);
+  return AnyKWalk::shape(n_m, k, out);
 }

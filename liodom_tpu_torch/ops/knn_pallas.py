@@ -11,8 +11,10 @@ coordinates, so the kernels return those (K3, K4) or the fitted line itself
 (K6).  k is the caller's (``LiodomConfig.knn_k``, 5 by default), any k
 from 1 to the number of refs: the register walk is built for every 1 <= k
 <= ``MAX_K`` and a larger k takes the run-time-k walk (``ListWalk``, the
-``*_any_k`` launches), whose lists sit in shared memory or, above ~420
-neighbours, in a device scratch (:func:`knn_any_k_shape`).
+``*_any_k`` launches: the same split over a cluster, partial lists kept
+by merging 8-ref batches, one keyed merge), whose lists sit in shared
+memory or, above ~210 neighbours, in a device scratch
+(:func:`knn_any_k_shape`).
 The map-sharded step (``parallel/sharded.py``) gathers its neighbours' rows
 itself and merges them across ranks, so K5 returns the indices into the
 caller's map shard.
@@ -314,15 +316,37 @@ def knn_walk_shape(source: str, n_m: int) -> dict:
 def knn_any_k_shape(source: str, n_m: int, k: int) -> dict:
     """``ListWalk`` (the ``*_any_k`` launches) as the built library of
     ``source`` has it for ``n_m`` ref tiles and ``k`` neighbours: threads a
-    block, whether the lists fit shared memory, a block's dynamic shared
-    memory as launched and the scratch bytes a query tile otherwise.
-    Builds the library if needed; launches nothing."""
+    block, blocks a query tile's cluster, thread groups a block, whether a
+    block's lists fit its shared memory, a block's dynamic shared memory as
+    launched, and otherwise the scratch bytes a query tile (a list for each
+    of the cluster's blocks and groups).  Builds the library if needed;
+    launches nothing."""
     lib = kernels.load(source, _SIGS[source])
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 6)()
     kernels.check(lib.liodom_knn_any_k_shape(n_m, k, ctypes.addressof(out)),
                   "liodom_knn_any_k_shape")
-    return {"threads": out[0], "lists_in_smem": bool(out[1]),
-            "dynamic_smem_bytes": out[2], "scratch_bytes_per_tile": out[3]}
+    return {"threads": out[0], "cluster_blocks": out[4],
+            "thread_groups_per_block": out[5],
+            "lists_in_smem": bool(out[1]), "dynamic_smem_bytes": out[2],
+            "scratch_bytes_per_tile": out[3]}
+
+
+def knn_any_k_list_edge(source: str, n_m: int) -> int:
+    """The largest k whose ``ListWalk`` lists fit a block's shared memory
+    at ``n_m`` ref tiles, as the built library of ``source`` reports it
+    (k + 1 is the first in the device scratch).  Launches nothing."""
+    fits, past = 1, 1 << 16
+    if (not knn_any_k_shape(source, n_m, fits)["lists_in_smem"]
+            or knn_any_k_shape(source, n_m, past)["lists_in_smem"]):
+        raise RuntimeError(f"ListWalk's boundary at {n_m} ref tiles is not "
+                           f"between k = {fits} and {past}")
+    while past - fits > 1:
+        mid = (fits + past) // 2
+        if knn_any_k_shape(source, n_m, mid)["lists_in_smem"]:
+            fits = mid
+        else:
+            past = mid
+    return fits
 
 
 def _check_k(k: int, refs: int, what: str) -> None:

@@ -4,7 +4,8 @@ against each other and against an earlier walk, on the same inputs, in one
 process.
 
     python3 scripts/knn_walk_experiment.py [--earlier DIR]
-        [--splits 8x4,16x4,...] [--index-splits 8x4,16x2,...] [--out FILE]
+        [--splits 8x4,16x4,...] [--index-splits 8x4,16x2,...]
+        [--list-splits 8x1,4x2,...] [--any-k-ks 5,17,64,512] [--out FILE]
 
 Builds ``csrc/knn_coords.cu``, ``csrc/knn_lines.cu`` and
 ``csrc/knn_index.cu`` of this checkout as they are (``shipped``; the
@@ -14,7 +15,10 @@ groups a block: a copy of the sources under ``kernels/build/experiment/``
 whose ``knn_search.cuh`` has ``kCluster = S`` and ``kGroups = G`` written
 in, K3/K4/K6 only, the report checked), once for each split of
 ``--index-splits`` (the same with ``knn_index.cu``'s ``kIndexCluster`` and
-``kIndexGroups``, K5 only) and, with ``--earlier`` (and ``--also
+``kIndexGroups``, K5 only), once for each split of ``--list-splits``
+(``knn_search.cuh``'s ``kListCluster`` and ``kListGroups``: the run-time-k
+walk ``ListWalk`` of all three sources, each build's
+``liodom_knn_any_k_shape`` checked) and, with ``--earlier`` (and ``--also
 LABEL=DIR``), those of other ``csrc`` directories (for example an earlier
 commit's, unpacked by ``git archive``; an earlier K5 with its separate
 merge kernel and partial lists is called through its own entry point),
@@ -31,8 +35,17 @@ on every input must be ``torch.equal`` to the shipped build's, the shipped
 K3/K4 to ``knn_launch_plain`` and the shipped K5 to
 ``knn_index_launch_plain`` (every row) and ``knn_index_plain`` (every
 valid query).  Then each build's kernels time by CUDA events over 50
-launches, the builds in turns (forward, then backward).  Prints one JSON
-object (and writes it to ``--out``); exits 1 if any output differs.
+launches, the builds in turns (forward, then backward).
+
+The ``*_any_k`` entry points (``ListWalk``) of every build are held and
+timed the same way: K3' on the bench frame at each k of ``--any-k-ks``
+(its lists in shared memory, at 512 in the device scratch, each build's
+scratch sized by its own shape call), K4' (B = 4), K5' (without a radius)
+and K6' at k = 17, each output ``torch.equal`` to its plain version
+(``knn_launch_plain``, ``knn_index_launch_plain``,
+``knn_lines_launch_plain``'s endpoints) on the bench and tie inputs.
+Prints one JSON object (and writes it to ``--out``); exits 1 if any
+output differs.
 """
 
 from __future__ import annotations
@@ -67,6 +80,7 @@ from liodom_tpu_torch.parallel.sharded import init_batch_state  # noqa: E402
 COORDS_SOURCES = ("knn_coords", "knn_lines")
 SOURCES = COORDS_SOURCES + ("knn_index",)
 REPS = 50
+ANY_K = 17        # K4', K5' and K6' on ListWalk
 # an earlier K5 (two kernels, partial lists in device memory): its entry
 # point and split count
 _OLD_INDEX_SIG = [("liodom_knn_index", [KNN._PTR] * 8 + [KNN._INT] * 9
@@ -74,17 +88,20 @@ _OLD_INDEX_SIG = [("liodom_knn_index", [KNN._PTR] * 8 + [KNN._INT] * 9
 _OLD_INDEX_SPLITS = 16
 
 
-def split_csrc(src: Path, out: Path, split: str, index: bool = False
-               ) -> Path:
+def split_csrc(src: Path, out: Path, split: str, index: bool = False,
+               listwalk: bool = False) -> Path:
     """A copy of the ``.cu`` and ``.cuh`` sources of ``src`` in ``out``,
     with the walk's split ``SxG`` written into ``knn_search.cuh``'s
-    ``kCluster`` and ``kGroups`` (K3/K4/K6), or with ``index`` into
-    ``knn_index.cu``'s ``kIndexCluster`` and ``kIndexGroups`` (K5)."""
+    ``kCluster`` and ``kGroups`` (K3/K4/K6), with ``index`` into
+    ``knn_index.cu``'s ``kIndexCluster`` and ``kIndexGroups`` (K5), or with
+    ``listwalk`` into ``knn_search.cuh``'s ``kListCluster`` and
+    ``kListGroups`` (ListWalk)."""
     out.mkdir(parents=True, exist_ok=True)
     for f in list(src.glob("*.cu")) + list(src.glob("*.cuh")):
         shutil.copy(f, out / f.name)
     name_file = "knn_index.cu" if index else "knn_search.cuh"
     names = (("kIndexCluster", "kIndexGroups") if index
+             else ("kListCluster", "kListGroups") if listwalk
              else ("kCluster", "kGroups"))
     text = (out / name_file).read_text()
     for name, value in zip(names, split.split("x")):
@@ -207,6 +224,73 @@ def index(lib, q4, r4, flags, qperm, m):
     return out_d, out_i
 
 
+def any_k_shape(lib, n_m: int, k: int) -> list:
+    """A build's ``liodom_knn_any_k_shape`` (an earlier ListWalk fills the
+    first 4 of the 6 ints)."""
+    out = (ctypes.c_int * 6)()
+    kernels.check(lib.liodom_knn_any_k_shape(n_m, k, ctypes.addressof(out)),
+                  "liodom_knn_any_k_shape")
+    return list(out)
+
+
+_SCRATCH = {}   # a build's list scratch, kept across calls
+
+
+def _any_k(lib, label, symbol, q4, r4, flags, qperm, k, outs,
+           extra_ints=(), extra_floats=()) -> None:
+    """``symbol`` of one build on prepared tensors with a batch dimension,
+    as ``knn_pallas._any_k`` calls it, the scratch sized by the build."""
+    b, n_e, n_m = flags.shape
+    shape = any_k_shape(lib, n_m, k)
+    scratch = None
+    if not shape[1]:
+        n = b * n_e * shape[3] // 4
+        buf = _SCRATCH.get(label)
+        if buf is None or buf.numel() < n:
+            buf = _SCRATCH[label] = torch.empty(n, device=q4.device)
+        scratch = buf.data_ptr()
+    err = getattr(lib, symbol)(
+        q4.data_ptr(), r4.data_ptr(), flags.data_ptr(), qperm.data_ptr(),
+        scratch, *(t.data_ptr() for t in outs), b, qperm.shape[-1], n_e,
+        n_m, *extra_ints, KNN.TILE_E, KNN.TILE_M, k, *extra_floats,
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, symbol)
+
+
+def coords_any_k(lib, label, q4, r4, flags, qperm, k):
+    """K3' (flags 2-D) or K4' (3-D) of one build."""
+    lead = flags.shape[:-2]
+    e = qperm.shape[-1]
+    out_d = torch.empty(lead + (e, k), device=q4.device)
+    out_c = torch.empty(lead + (e, k, 3), device=q4.device)
+    _any_k(lib, label, "liodom_knn_coords_any_k", q4, r4,
+           flags if flags.ndim == 3 else flags[None], qperm, k,
+           (out_d, out_c))
+    return out_d, out_c
+
+
+def lines_any_k(lib, label, q4, r4, flags, qperm, gates, k):
+    """K6' of one build on a batch of prepared pairs."""
+    b, e = flags.shape[0], qperm.shape[-1]
+    lpa = torch.empty((b, e, 3), device=q4.device)
+    lpb = torch.empty((b, e, 3), device=q4.device)
+    ok = torch.empty((b, e), dtype=torch.bool, device=q4.device)
+    _any_k(lib, label, "liodom_knn_lines_any_k", q4, r4, flags, qperm, k,
+           (lpa, lpb, ok), extra_floats=(float(gates[0]), float(gates[1]),
+                                         float(gates[2]) ** 2))
+    return lpa, lpb, ok
+
+
+def index_any_k(lib, label, q4, r4, flags, qperm, m, k):
+    """K5' of one build on a batch of prepared pairs."""
+    b, e = flags.shape[0], qperm.shape[-1]
+    out_d = torch.empty((b, e, k), device=q4.device)
+    out_i = torch.empty((b, e, k), dtype=torch.int32, device=q4.device)
+    _any_k(lib, label, "liodom_knn_index_any_k", q4, r4, flags, qperm, k,
+           (out_d, out_i), extra_ints=(m,))
+    return out_d, out_i
+
+
 def bench_inputs(cfg, dev, radius):
     """K3's (lane 0) and K4's (lanes 0-3) prepared inputs at the bench
     drive's last frame, as chip_smoke.py's kernels phase builds them, and
@@ -281,6 +365,10 @@ def main() -> int:
                          "x thread groups a block (empty: none)")
     ap.add_argument("--index-splits", default="8x4,16x2,4x2,8x1",
                     help="other splits of K5 to build (empty: none)")
+    ap.add_argument("--list-splits", default="",
+                    help="other splits of ListWalk to build (empty: none)")
+    ap.add_argument("--any-k-ks", default="5,17,64,512",
+                    help="the k of K3' on ListWalk")
     ap.add_argument("--out", type=Path,
                     help="also write the JSON object to this file")
     args = ap.parse_args()
@@ -291,6 +379,8 @@ def main() -> int:
     smi = CS.nvidia_smi_line()
     splits = [sg for sg in args.splits.split(",") if sg]
     index_splits = [sg for sg in args.index_splits.split(",") if sg]
+    list_splits = [sg for sg in args.list_splits.split(",") if sg]
+    any_ks = [int(x) for x in args.any_k_ks.split(",") if x]
     out_dir = kernels.BUILD_DIR / "experiment"
     variants = {"shipped": kernels.CSRC}
     for sg in splits:
@@ -300,6 +390,9 @@ def main() -> int:
         variants[f"k5 {sg}"] = (split_csrc(
             kernels.CSRC, out_dir / f"csrc-k5-{sg}", sg, index=True),
             ("knn_index",))
+    for sg in list_splits:
+        variants[f"list {sg}"] = split_csrc(
+            kernels.CSRC, out_dir / f"csrc-list-{sg}", sg, listwalk=True)
     if args.earlier is not None:
         variants["earlier"] = args.earlier
     for spec in args.also:
@@ -318,6 +411,11 @@ def main() -> int:
                                  f"{walk_shape(lib)}")
     if shipped["knn_coords"] in splits or f"k5 {shipped['knn_index']}" in libs:
         raise SystemExit(f"a split asked for is the shipped one {shipped}")
+    for sg in list_splits:
+        for name, (lib, _) in libs[f"list {sg}"].items():
+            got = "x".join(map(str, any_k_shape(lib, 1, ANY_K)[4:6]))
+            if got != sg:
+                raise SystemExit(f"list {sg} {name}: the build reports {got}")
 
     cfg = LiodomConfig(local_map_size=5)
     radius = cfg.knn_max_sq_dist ** 0.5
@@ -387,6 +485,56 @@ def main() -> int:
             ix = libs[label]["knn_index"][0]
             t.setdefault("k5", []).append(
                 CS.cuda_ms(lambda: index(ix, *prep5, m5), REPS))
+    # ListWalk: every build's *_any_k outputs against the plain versions,
+    # then timed in turns
+    any_k = {label: {} for label in libs if set(SOURCES) <= set(libs[label])}
+    for label in any_k:
+        co = libs[label]["knn_coords"][0]
+        li = libs[label]["knn_lines"][0]
+        ix = libs[label]["knn_index"][0]
+        cases = {}
+        for kk in any_ks:
+            for name in ("bench_k3", "tie_scene"):
+                p = inputs[name]
+                cases[f"k3 {name} k={kk}"] = (
+                    coords_any_k(co, label, *p, kk),
+                    KNN.knn_launch_plain(*p, k=kk))
+        for name in (f"bench_b{CS.LANES}", f"tie_scene_b{CS.LANES}"):
+            p = inputs[name]
+            cases[f"k4 {name} k={ANY_K}"] = (
+                coords_any_k(co, label, *p, ANY_K),
+                KNN.knn_launch_plain(*p, k=ANY_K))
+            cases[f"k6 {name} k={ANY_K}"] = (
+                lines_any_k(li, label, *p, gates, ANY_K)[:2],
+                KNN.knn_lines_launch_plain(*p, *gates, k=ANY_K)[:2])
+        for name, (p, m, _) in inputs5.items():
+            cases[f"k5 {name} k={ANY_K}"] = (
+                index_any_k(ix, label, *p, m, ANY_K),
+                KNN.knn_index_launch_plain(*p, m, k=ANY_K))
+        for name, (got, want) in cases.items():
+            ok = all(torch.equal(a, b) for a, b in zip(got, want))
+            equal[f"{label} any_k vs plain, {name}"] = ok
+            failed += [] if ok else [f"{label} any_k {name}"]
+    torch.cuda.synchronize()
+    any_k_order = list(any_k) + list(any_k)[::-1]
+    for label in any_k_order:
+        t = any_k[label]
+        co = libs[label]["knn_coords"][0]
+        li = libs[label]["knn_lines"][0]
+        ix = libs[label]["knn_index"][0]
+        for kk in any_ks:
+            t.setdefault(f"k3 k={kk}", []).append(CS.cuda_ms(
+                lambda: coords_any_k(co, label, *prep, kk),
+                2 if kk > 100 else 20))
+        t.setdefault(f"k4 k={ANY_K}", []).append(CS.cuda_ms(
+            lambda: coords_any_k(co, label, *prep_b, ANY_K), 20))
+        t.setdefault(f"k5 k={ANY_K}", []).append(CS.cuda_ms(
+            lambda: index_any_k(ix, label, *prep5, m5, ANY_K), 20))
+        t.setdefault(f"k6 k={ANY_K}", []).append(CS.cuda_ms(
+            lambda: lines_any_k(li, label, *prep_l, gates, ANY_K), 20))
+    any_k_shapes = {label: {f"k={kk}": any_k_shape(
+        libs[label]["knn_coords"][0], prep[2].shape[-1], kk)
+        for kk in any_ks} for label in any_k}
     per_tile = {name: p[2].sum(-1).float() for name, p in inputs.items()}
     per_tile["bench_k5"] = prep5[2].sum(-1).float()
     res = {"nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
@@ -400,6 +548,11 @@ def main() -> int:
                {n: int(t.max()) for n, t in per_tile.items()},
            "flagged_tiles_per_query_tile_mean":
                {n: float(t.mean()) for n, t in per_tile.items()},
+           "any_k_turns": any_k_order, "any_k_ms": any_k,
+           "any_k_ms_mean": {label: {k: float(np.mean(v))
+                                     for k, v in t.items()}
+                             for label, t in any_k.items()},
+           "any_k_shape": any_k_shapes,
            "ptxas": {label: {n: u for n, (_, u) in v.items()}
                      for label, v in libs.items()},
            "torch_equal": equal, "failed": failed}

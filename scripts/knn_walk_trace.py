@@ -12,8 +12,8 @@ back through an added ``liodom_knn_trace`` entry point; the search itself
 is untouched) and builds it for each split ``SxG`` as
 ``scripts/knn_walk_experiment.py`` does.  The timeline is put in at four
 lines of code of ``search`` in ``knn_search.cuh`` (``_PATCHES``), each of
-which must appear there once, exactly as written: the script stops if
-one does not.  On the bench drive's last frame
+which must appear once in the register walk's part of the header (before
+``ListWalk``), exactly as written: the script stops if one does not.  On the bench drive's last frame
 (K3 on lane 0, K4 on lanes 0-3 at B = 4, as ``chip_smoke.py``'s kernels
 phase builds them) it runs each build 5 times, then once traced, and
 prints one JSON object (and writes it to ``--out``): per launch the span,
@@ -74,6 +74,8 @@ __device__ __forceinline__ unsigned long long trace_now() {
     }
 """),
 )
+# where the register walk's part of knn_search.cuh ends
+_LIST_WALK = "// The walk at any k (the *_any_k entry points;"
 _READ = """
 extern "C" int liodom_knn_trace(void* host, int n) {
   return static_cast<int>(cudaMemcpyFromSymbol(
@@ -83,16 +85,20 @@ extern "C" int liodom_knn_trace(void* host, int n) {
 
 
 def traced_sources(out: Path) -> Path:
-    """The traced copy of the walk and of K3/K4's source under ``out``."""
+    """The traced copy of the walk and of K3/K4's source under ``out``
+    (the anchors are looked for in the register walk's part of the header,
+    before the run-time-k walk ``ListWalk``, which repeats some)."""
     out.mkdir(parents=True, exist_ok=True)
-    head = (kernels.CSRC / "knn_search.cuh").read_text()
+    text_all = (kernels.CSRC / "knn_search.cuh").read_text()
+    cut = text_all.index(_LIST_WALK)
+    head, rest = text_all[:cut], text_all[cut:]
     for n, (anchor, text) in enumerate(_PATCHES):
         if head.count(anchor) != 1:
             raise SystemExit(f"knn_walk_trace: anchor not found once: "
                              f"{anchor!r}")
         last = n == len(_PATCHES) - 1
         head = head.replace(anchor, text + anchor if last else anchor + text)
-    (out / "knn_search.cuh").write_text(head)
+    (out / "knn_search.cuh").write_text(head + rest)
     shutil.copy(kernels.CSRC / "knn_coords.cu", out / "knn_coords.cu")
     with open(out / "knn_coords.cu", "a") as f:
         f.write(_READ)

@@ -218,7 +218,7 @@ def test_knn_kernels_at_k_bit_exact(dev, k):
     assert torch.equal(d5, d5_o) and torch.equal(i5, i5_o)
 
 
-@pytest.mark.parametrize("k", [1, 5, 16, 17, 64, 512])
+@pytest.mark.parametrize("k", [1, 5, 16, 17, 20, 32, 64, 512])
 def test_knn_any_k_walk_bit_exact(dev, k):
     """The run-time-k walk (ListWalk) of K3, K4, K5 and K6 on the tie
     lattice (two pairs), its lists in shared memory and, at k = 512, in the
@@ -255,21 +255,26 @@ def test_knn_any_k_walk_bit_exact(dev, k):
     assert torch.equal(d5, d5_o) and torch.equal(i5, i5_o)
 
 
-@pytest.mark.parametrize("k", [420, 421])
-def test_knn_any_k_walk_at_the_shared_memory_boundary(dev, k):
-    """ListWalk at 128 ref tiles of the tie lattice (two pairs): k = 420 is
-    the last whose lists fit a block's 227 KB beside the staging buffers,
-    the ranked flags and their count, 421 the first in the device scratch.
-    K4, K5 and K6 launch at both, bit for bit against the keyed (d2, index)
-    selection; the kernels have no static shared memory to add."""
+@pytest.mark.parametrize("side", ["fits", "past"])
+def test_knn_any_k_walk_at_the_shared_memory_boundary(dev, side):
+    """ListWalk at 128 ref tiles of the tie lattice (two pairs), at the
+    last k whose block's lists fit its 227 KB beside the staging buffers,
+    the filled counts, the ranked flags and their count, and at the first
+    k in the device scratch (found from the shape the library reports).
+    K4, K5 and K6 launch at both, bit for bit against the keyed (d2,
+    index) selection; the kernels have no static shared memory to add."""
+    k = KNN.knn_any_k_list_edge("knn_coords", 128) + (side == "past")
     lanes = [tie_scene(s, 1000, 128 * KNN.TILE_M) for s in range(2)]
     q, qm, r, rm = (torch.from_numpy(np.stack([ln[i] for ln in lanes]))
                     .to(dev) for i in range(4))
     prep = KNN.knn_prepare_batched(q, qm, r, rm, 1.0)
     assert prep[2].shape[-1] == 128
     shape = KNN.knn_any_k_shape("knn_coords", 128, k)
-    assert shape["lists_in_smem"] == (k == 420)
+    assert shape["lists_in_smem"] == (side == "fits")
     assert shape["dynamic_smem_bytes"] <= 232448
+    assert shape["scratch_bytes_per_tile"] == (
+        shape["cluster_blocks"] * shape["thread_groups_per_block"]
+        * 8 * k * KNN.TILE_E)
     got = KNN.knn_launch_batched(*prep, k=k)
     want = KNN.knn_launch_plain(*prep, k=k)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
