@@ -382,12 +382,22 @@ N_ANY_K = 6                 # frames of each drive past a limit
 # K2 past a block's shared memory: (columns, edges_per_region): 8 x 11 and
 # 8 x 53 slots a ring
 WIDE_RINGS = ((49152, 10), (38741, 52))
-# its layouts at 49,152 columns: 8 x 290 slots leave shared memory too
-# little room for a region's values, which go to the device scratch; at
-# 8 x 330 the lists and slots go there, handed to rank 0 through global
+# its layouts at 49,152 columns, (edges_per_region, what leaves shared
+# memory): 8 x 290 slots leave too little room for a region's order keys,
+# which each radix pass then reads from the plane; at 8 x 330 the lists
+# and slots go to the device scratch, handed to rank 0 through global
 # memory
-SCRATCH_RINGS = ((49152, 289, "values"), (49152, 329, "lists"))
+SCRATCH_RINGS = ((289, "values"), (329, "lists"))
+# K2' before its top-L redesign at WIDE_RINGS, ms (NVIDIA H100 80GB HBM3,
+# 700.00 W; scripts/select_walk_experiment.py --earlier, that build in
+# turns with this one; PERF.md, Findings)
+K2W_EARLIER_MS = {(49152, 88): 5.3244527816772464,
+                  (38741, 424): 3.4925535202026365}
 CELLS_XY_WIDE = 70          # K7 past it: 141^2 XY keys plus the z column
+# K7' before its fenced search at CELLS_XY_WIDE, ms (NVIDIA H100 80GB HBM3,
+# 700.00 W; scripts/map_kernels_experiment.py --earlier, that build in
+# turns with this one; PERF.md, Findings)
+K7W_EARLIER_MS = 0.01892032027244568
 # one dependent step of K2's walk: a shared-memory load and a warp vote,
 # ~30 cycles at the H100's 1.98 GHz boost clock (published latency)
 WALK_STEP_S = 30 / 1.98e9
@@ -480,6 +490,27 @@ def ptxas_usage(log: str) -> dict:
                 out[name].update(registers=int(m.group(1)),
                                  static_smem_bytes=int(smem.group(1))
                                  if smem else 0)
+    return out
+
+
+def sass_of(so: Path, pattern: str) -> list:
+    """The SASS instructions of the kernel whose name holds ``pattern`` in
+    a built library, by ``cuobjdump`` beside ``nvcc``: no addresses,
+    encodings or the anonymous namespace's per-file tag, so two builds of
+    one kernel compare equal; [] where ``cuobjdump`` is missing."""
+    dumper = Path(kernels.nvcc_path()).with_name("cuobjdump")
+    if not dumper.exists():
+        return []
+    dump = subprocess.run([str(dumper), "-sass", str(so)], capture_output=True,
+                          text=True).stdout
+    out, inside = [], False
+    for ln in dump.splitlines():
+        if "Function :" in ln:
+            inside = pattern in ln
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", ln)
+        if inside and m:
+            out.append(re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", m.group(1)))
     return out
 
 
@@ -1980,12 +2011,13 @@ def any_k_drives(cfg, ccfg, bimgs, lanes_b, gt_pos, mesh, check) -> dict:
     return out
 
 
-def wide_planes(dev, rings: int, width: int, seed: int):
+def wide_planes(dev, rings: int, width: int, seed: int, counts=()):
     """Rings of ``width`` columns sampled every 5 cm along gentle curves
     (~12 % of the gaps broken, so a pick suppresses up to 5 neighbours a
     side), counts within 2,000 of the width and one ring below
-    ``min_points``, and a smoothness plane quantised to 1/8 (many exact
-    ties), all from ``seed``: (RingImage, smoothness) on ``dev``."""
+    ``min_points``, the first rings' counts ``counts`` where given, and a
+    smoothness plane quantised to 1/8 (many exact ties), all from
+    ``seed``: (RingImage, smoothness) on ``dev``."""
     rng = np.random.default_rng(seed)
     s = np.cumsum(np.where(rng.random((rings, width)) < 0.12, 0.4, 0.05),
                   axis=1)
@@ -1994,6 +2026,7 @@ def wide_planes(dev, rings: int, width: int, seed: int):
                     0.1 * np.sin(s * 0.3 + off)], -1).astype(np.float32)
     count = (width - rng.integers(0, 2000, rings)).astype(np.int32)
     count[5] = 20
+    count[:len(counts)] = counts
     xyz[np.arange(width)[None, :] >= count[:, None]] = 0.0
     sm = (np.round(rng.random((rings, width)) * 8.0) / 8.0).astype(np.float32)
     return (RingImage(torch.from_numpy(xyz).to(dev),
@@ -2001,29 +2034,89 @@ def wide_planes(dev, rings: int, width: int, seed: int):
             torch.from_numpy(sm).to(dev))
 
 
-def select_bound(img, cfg, bval):
-    """(bound_ms, bound_by) of K2 on ``img``: it reads the smoothness plane,
-    the counts and the image (gap flags), writes the slots; 8 operations a
-    column for the gaps, 2 compares a scanned column (per ring and region,
-    the picks made plus the failing one, at most max_picks, passes over
-    the region)."""
+def region_lengths(count, cfg):
+    """(R, n_regions) int64: each region's columns on rings of ``count``
+    points (0 on a ring below ``min_points``), as select_plain cuts them:
+    total = count - 10 in sectors of total // n_regions, the last taking
+    the rest."""
+    n = cfg.scan_regions
+    total = torch.clamp(count.long() - 10, min=0)
+    lens = (total // n)[:, None].repeat(1, n)
+    lens[:, -1] = total - total // n * (n - 1)
+    return torch.where((count >= cfg.min_points_per_scan)[:, None], lens, 0)
+
+
+def select_bound(img, sm, cfg, bval):
+    """(bound_ms, bound_by) of K2 on ``img``: what the function needs. It
+    reads the counts, each active region's smoothness, and the points
+    within 5 columns of a list entry (the first min(L, len) columns of a
+    region's (value desc, column asc) order, the only columns whose reach
+    the walk can ask for; the picks' points are among them), and writes
+    the slots; 8 operations a column for the gaps of those points, 2
+    compares a scanned column (per ring and region, the picks made plus
+    the failing one, at most max_picks, passes over the region)."""
     r, w = img.xyz.shape[:2]
-    slots = cfg.scan_regions * cfg.max_edges_per_region
-    bval = bval.reshape(r, cfg.scan_regions, cfg.max_edges_per_region)
-    passes = torch.clamp(bval.sum(-1) + 1, max=cfg.max_edges_per_region)
-    region_len = torch.clamp(img.count - 10, min=0) // cfg.scan_regions
-    scanned = int((passes * region_len[:, None]).sum())
-    return bound(r * w * 4 + r * 4 + img.xyz.numel() * 4
-                 + r * slots * (4 + 4 + 12), 8 * r * w + 2 * scanned)
+    n, mp = cfg.scan_regions, cfg.max_edges_per_region
+    dev = sm.device
+    lens = region_lengths(img.count, cfg)
+    starts = 5 + torch.cumsum(lens, 1) - lens
+    cols = torch.arange(w, device=dev)[None, :]
+    region = torch.full((r, w), n, dtype=torch.int64, device=dev)
+    for j in range(n):
+        inside = (cols >= starts[:, j:j + 1]) & (
+            cols < starts[:, j:j + 1] + lens[:, j:j + 1])
+        region = torch.where(inside, j, region)
+    # each region's (key, column) order in one sort of the ring: region,
+    # then key (ascending as the value descends), then column
+    order = torch.sort((region << 56) | (SEL.order_keys(sm) << 24) | cols,
+                       dim=1).values
+    j = order >> 56
+    inside = j < n
+    jj = torch.clamp(j, max=n - 1)
+    rank = (torch.arange(w, device=dev)[None, :]
+            - (torch.cumsum(lens, 1) - lens).gather(1, jj))
+    cap = torch.clamp(lens, max=SEL.walk_list_len(mp)).gather(1, jj)
+    entry = order & 0xFFFFFF
+    listed = inside & (rank < cap)
+    need = torch.zeros((r, w + 10), dtype=torch.bool, device=dev)
+    rows = torch.arange(r, device=dev)[:, None].expand(r, w)[listed]
+    at = entry[listed]
+    for d in range(11):                 # columns at - 5 .. at + 5
+        need[rows, at + d] = True
+    points = int(need[:, 5:w + 5].sum())
+    slots = n * mp
+    bval = bval.reshape(r, n, mp)
+    passes = torch.clamp(bval.sum(-1) + 1, max=mp)
+    scanned = int((passes * lens).sum())
+    return bound(r * 4 + int(lens.sum()) * 4 + points * 12
+                 + r * slots * (4 + 4 + 12), 8 * points + 2 * scanned)
+
+
+def select_global_equal(img, sm, cfg):
+    """(equal, edges): K2's device-memory path on ``img`` against
+    select_plain, bidx, bval and the points bit for bit."""
+    bidx, bval, pts = SEL.select_slots_global(img, sm, cfg)
+    reach = SEL._reach_plane(img.xyz, cfg.neighbor_gap_sq)
+    pidx, pval = SEL.select_plain(sm, reach, img.count, cfg)
+    w = img.xyz.shape[1]
+    want = torch.gather(img.xyz, 1, torch.clamp(pidx, 0, w - 1).long()[
+        :, :, None].expand(-1, -1, 3))
+    want = torch.where(pval[:, :, None], want, torch.zeros_like(want))
+    same = (torch.equal(bidx, pidx) and torch.equal(bval != 0, pval)
+            and torch.equal(pts.reshape(want.shape), want))
+    return same, int(pval.sum())
 
 
 def select_wide_phase(cfg, img, sm, raws, poses, dev, check) -> dict:
     """K2 where a ring's arrays exceed a block's shared memory
     (WIDE_RINGS on 64 seeded rings): ``select_smem_bytes`` above 227 KB,
     the wrapper's launch on the device-memory path, bidx, bval and the
-    points ``torch.equal`` to ``select_plain``, timed beside it; the same
-    at SCRATCH_RINGS, each layout of that path taken (a region's values,
-    then the lists and slots, in the device scratch); that path
+    points ``torch.equal`` to ``select_plain``, timed beside it and the
+    earlier design's time; the same at SCRATCH_RINGS, each layout of that
+    path taken (a region's order keys read from the plane, then the lists
+    and slots in the device scratch); on 16 rings, either side of each
+    layout boundary, found from ``select_global_shape``, and regions no
+    longer than their list (counts from min_points to 10 + 8 L); that path
     called directly on the bench frame (88 and 168 slots) equal to the
     shared-memory kernel; and ``image_step`` at ring width 49,152 over the
     main drive's first N_ANY_K raw scans (K2 on that path once a frame):
@@ -2050,42 +2143,90 @@ def select_wide_phase(cfg, img, sm, raws, poses, dev, check) -> dict:
         check(same and took == 1,
               f"K2 at {w} columns, {c.scan_regions * c.max_edges_per_region}"
               f" slots: equal {same}, device-memory launches {took}")
-        b = select_bound(wimg, c, pval)
-        out[f"rings64x{w}_slots{c.scan_regions * c.max_edges_per_region}"] = {
+        b = select_bound(wimg, wsm, c, pval)
+        s_ = c.scan_regions * c.max_edges_per_region
+        ms = cuda_ms(lambda: SEL.select_edges_cuda(wimg, wsm, c), 10)
+        out[f"rings64x{w}_slots{s_}"] = {
             "smem_bytes_needed": smem, "bit_exact": same,
             "n_edges": int(pval.sum()),
             **SEL.select_global_shape(w, c.scan_regions,
                                       c.max_edges_per_region),
-            "ms": cuda_ms(lambda: SEL.select_edges_cuda(wimg, wsm, c), 10),
+            "ms": ms, "earlier_ms": K2W_EARLIER_MS[(w, s_)],
             "plain_ms": cuda_ms(lambda: SEL.select_edges_plain(wimg, wsm, c),
                                 2, 1),
-            "bound_ms": b[0], "bound_by": b[1]}
-    for seed, (w, picks, where) in enumerate(SCRATCH_RINGS, len(WIDE_RINGS)):
+            "bound_ms": b[0], "bound_by": b[1], "share_of_bound": b[0] / ms}
+    # the layouts at 49,152 columns: SCRATCH_RINGS on 64 rings, timed; on
+    # 16 rings, either side of each boundary found from the library's shape
+    # (the last picks a region whose keys shared memory holds, and the last
+    # whose lists it holds), and regions no longer than their list
+    w = 49152
+    regions = cfg.scan_regions
+    shapes = {mp: SEL.select_global_shape(w, regions, mp)
+              for mp in range(1, 400)}
+    planes = {64: wide_planes(dev, 64, w, len(WIDE_RINGS)),
+              16: wide_planes(dev, 16, w, len(WIDE_RINGS) + 1)}
+
+    def longest_region(rings):
+        return int(region_lengths(planes[rings][0].count, cfg).max())
+
+    keys_edge = min(mp for mp, lay in shapes.items()
+                    if lay["keys_in_smem"] < longest_region(16)) - 1
+    lists_edge = min(mp for mp, lay in shapes.items()
+                     if lay["lists_in_scratch"]) - 1
+    cases = [(64, picks, where) for picks, where in SCRATCH_RINGS]
+    cases += [(16, keys_edge - 1, "keys_edge"), (16, keys_edge, "values"),
+              (16, lists_edge - 1, "lists_edge"), (16, lists_edge, "lists")]
+    for rings, picks, where in cases:
+        wimg, wsm = planes[rings]
+        longest = longest_region(rings)
         c = cfg.replace(edges_per_region=picks, ring_width=w)
-        wimg, wsm = wide_planes(dev, 64, w, seed)
-        lay = SEL.select_global_shape(w, c.scan_regions,
-                                      c.max_edges_per_region)
-        total = torch.clamp(wimg.count - 10, min=0)
-        longest = int((total - total // c.scan_regions
-                       * (c.scan_regions - 1)).max())
-        in_scratch = {"values": lay["values_in_smem"] < longest,
+        mp = c.max_edges_per_region
+        lay = shapes[mp]
+        in_scratch = {"values": lay["keys_in_smem"] < longest,
                       "lists": lay["lists_in_scratch"]}
-        bidx, bval, pts = SEL.select_slots_global(wimg, wsm, c)
-        reach = SEL._reach_plane(wimg.xyz, c.neighbor_gap_sq)
-        pidx, pval = SEL.select_plain(wsm, reach, wimg.count, c)
-        pedges = SEL.select_edges_plain(wimg, wsm, c)
-        same = (torch.equal(bidx, pidx) and torch.equal(bval != 0, pval)
-                and torch.equal(pts.reshape(-1, 3), pedges.xyz))
-        s_ = c.scan_regions * c.max_edges_per_region
-        out[f"rings64x{w}_slots{s_}_{where}_in_scratch"] = {
-            **lay, "longest_region": longest, "bit_exact": same,
-            "n_edges": int(pval.sum())}
-        check(in_scratch[where] and not in_scratch["lists" if where ==
-                                                   "values" else "values"],
-              f"K2 at {w} columns, {s_} slots: layout {lay}, longest "
-              f"region {longest}")
-        check(same, f"K2 at {w} columns, {s_} slots, {where} in the "
-              "scratch: not equal to select_plain")
+        want_in = {"values": where == "values", "lists": where == "lists"}
+        if where == "lists_edge":       # past the keys' edge: either
+            want_in["values"] = in_scratch["values"]
+        same, n_edges = select_global_equal(wimg, wsm, c)
+        s_ = regions * mp
+        name = (f"rings{rings}x{w}_slots{s_}_{where}_in_scratch"
+                if where in ("values", "lists") else
+                f"rings{rings}x{w}_slots{s_}_{where}")
+        out[name] = {**lay, "longest_region": longest, "bit_exact": same,
+                     "n_edges": n_edges}
+        if rings == 64:
+            out[name]["ms"] = cuda_ms(
+                lambda: SEL.select_slots_global(wimg, wsm, c), 5)
+        check(in_scratch == want_in,
+              f"K2 at {w} columns, {s_} slots ({where}): layout {lay}, "
+              f"longest region {longest}")
+        check(same and n_edges > 0,
+              f"K2 at {w} columns, {s_} slots ({where}): not equal to "
+              "select_plain")
+    out["layout_edges"] = {"keys_in_smem_last_max_picks": keys_edge,
+                           "lists_in_smem_last_max_picks": lists_edge,
+                           "longest_region_16_rings": longest_region(16)}
+    # regions no longer than their list (the radix select skipped, every
+    # entry ranked): at 8 x 330 slots, L = 3,635, rings whose counts lie
+    # between min_points and 10 + 8 L, at and either side of both
+    c = cfg.replace(edges_per_region=SCRATCH_RINGS[1][0], ring_width=w)
+    lo, top = c.min_points_per_scan, 10 + regions * SEL.walk_list_len(
+        c.max_edges_per_region)
+    counts = (lo - 1, lo, lo + 37, (lo + top) // 2, top - 1, top, top + 1)
+    wimg, wsm = wide_planes(dev, 16, w, len(WIDE_RINGS) + 2, counts)
+    lens = region_lengths(wimg.count, c)
+    lens = lens[lens > 0]
+    short = int((lens < SEL.walk_list_len(c.max_edges_per_region)).sum())
+    exact = int((lens == SEL.walk_list_len(c.max_edges_per_region)).sum())
+    same, n_edges = select_global_equal(wimg, wsm, c)
+    check(short > 0 and exact > 0 and same and n_edges > 0,
+          f"K2 at {w} columns, {regions * c.max_edges_per_region} slots, "
+          f"regions no longer than L ({short} shorter, {exact} of L): equal "
+          f"{same}, {n_edges} edges")
+    out[f"rings16x{w}_slots{regions * c.max_edges_per_region}_short_regions"] = {
+        "counts": list(counts), "regions_shorter_than_list": short,
+        "regions_of_list_length": exact, "bit_exact": same,
+        "n_edges": n_edges}
     for c in (cfg, cfg.replace(edges_per_region=20)):
         got = SEL.select_edges_global_cuda(img, sm, c)
         want = SEL.select_edges_cuda(img, sm, c)
@@ -2128,7 +2269,8 @@ def compact_wide_phase(kmap, kbase, imgs, ccfg, check):
     at the bench capacity and at 1,024 (a truncating cut), rows, validity
     and ``n_hits`` ``torch.equal`` to ``compact_hits_plain`` (the wrapper
     takes the device-memory path); that path called directly at 75 and 174
-    targets; and N_ANY_K frames of ``combined_image_step`` at that
+    targets and either side of its first fence-stride change (the targets
+    nearest the base); and N_ANY_K frames of ``combined_image_step`` at that
     ``cells_xy``, every refresh's local map equal to the plain version's
     on the frame's map and pose."""
     offs = G.local_map_offsets(MCFG, cells_xy=CELLS_XY_WIDE)
@@ -2154,7 +2296,32 @@ def compact_wide_phase(kmap, kbase, imgs, ccfg, check):
         check(same, f"K7's device-memory path at {len(o)} targets")
         out[f"entry_targets{len(o)}"] = {"n_hits": int(got[2]),
                                          "bit_exact": same}
+    # either side of the first fence-stride change (1 to 2), found from the
+    # library's fence, the targets nearest the base so that some rows hit
+    near = offs[np.argsort(np.abs(offs).sum(1), kind="stable")]
+    edge = next(n for n in range(1, len(offs))
+                if K7.compact_shape(kmap.xyz.shape[0], n + 1)[
+                    "fence_stride"] > 1)
+    for n in (edge, edge + 1):
+        o = near[:n]
+        got = K7.compact_hits_global_cuda(*m, kbase, o, cap)
+        want = K7.compact_hits_plain(*m, kbase, o, cap)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        shape = K7.compact_shape(kmap.xyz.shape[0], n)
+        check(same and int(got[2]) > 0
+              and shape["fence_stride"] == K7.fence_stride(n),
+              f"K7's device-memory path at {n} targets (fence {shape}): "
+              f"equal {same}, {int(got[2])} hits")
+        out[f"stride_edge_targets{n}"] = {
+            "n_hits": int(got[2]), "bit_exact": same,
+            "fence_stride": shape["fence_stride"],
+            "fence_entries": shape["fence_entries"]}
+    check(out[f"stride_edge_targets{edge}"]["fence_stride"] == 1
+          and out[f"stride_edge_targets{edge + 1}"]["fence_stride"] == 2,
+          "K7's fence stride does not change at the edge")
     occupied = int(kmap.valid.sum())
+    out["fence"] = {k_: v for k_, v in K7.compact_shape(
+        kmap.xyz.shape[0], len(offs)).items() if k_.startswith("fence")}
     out["ms"] = cuda_ms(lambda: K7.compact_hits_cuda(*m, kbase, offs, cap),
                         50)
     out["plain_ms"] = cuda_ms(
@@ -2166,7 +2333,9 @@ def compact_wide_phase(kmap, kbase, imgs, ccfg, check):
     b = bound(kmap.xyz.shape[0] + occupied * 12
               + min(out[f"cap{cap}"]["n_hits"], cap) * 12 + cap * 13 + 4,
               occupied * steps * 3)
-    out.update(bound_ms=b[0], bound_by=b[1], occupied=occupied)
+    out.update(bound_ms=b[0], bound_by=b[1], occupied=occupied,
+               share_of_bound=b[0] / out["ms"],
+               earlier_ms=K7W_EARLIER_MS)
     # the combined step at that neighbourhood
     wide = MCFG.replace(cells_xy=CELLS_XY_WIDE)
     torch.cuda.synchronize()
@@ -3366,7 +3535,7 @@ def main() -> int:
 
     k2_ms = cuda_ms(lambda: SEL.select_edges_cuda(img, sm_k, cfg), 50)
     k2_plain = cuda_ms(lambda: SEL.select_edges_plain(img, sm_k, cfg), 3, 1)
-    k2_bound = select_bound(img, cfg, ec_k.valid)
+    k2_bound = select_bound(img, sm_k, cfg, ec_k.valid)
     # the longest ring's chain of dependent walk steps, one shared-memory
     # step each
     k2_latency_ms = max(w_stats["steps"]) * WALK_STEP_S * 1e3
@@ -3505,7 +3674,7 @@ def main() -> int:
                        ("sharded", "knn_index_any_k"),
                        ("lines", "knn_lines_any_k"))}
     wide_rings = {k_: v for k_, v in select_wide.items()
-                  if k_.startswith("rings64x") and "_in_scratch" not in k_}
+                  if k_.startswith("rings64x") and "bound_ms" in v}
     k2w_main = wide_rings[f"rings64x{WIDE_RINGS[0][0]}_slots"
                           f"{cfg.scan_regions * (WIDE_RINGS[0][1] + 1)}"]
 
@@ -3665,6 +3834,9 @@ def main() -> int:
          "bound_by": compact_wide["bound_by"], "library_ms": None,
          "targets": compact_wide["targets"],
          "n_hits": compact_wide[f"cap{cap}"]["n_hits"],
+         "earlier_ms": compact_wide["earlier_ms"],
+         "share_of_bound": compact_wide["share_of_bound"],
+         "fence": compact_wide["fence"],
          "ptxas": usage_of(usage.get("local_map_compact"),
                            "compact_kernelILb0E")},
         {"name": "select_edges_global", "route": "cuda",
@@ -3674,10 +3846,15 @@ def main() -> int:
          "max_abs_err": 0.0 if k2w_main["bit_exact"] else float("nan"),
          "ms": k2w_main["ms"], "plain_ms": k2w_main["plain_ms"],
          "bound_ms": k2w_main["bound_ms"], "bound_by": k2w_main["bound_by"],
-         "library_ms": None, "rings": wide_rings,
+         "library_ms": None, "earlier_ms": k2w_main["earlier_ms"],
+         "share_of_bound": k2w_main["share_of_bound"],
+         "layout": {k_: k2w_main[k_] for k_ in (
+             "lists_in_scratch", "keys_in_smem", "dynamic_smem_bytes",
+             "scratch_bytes_per_ring", "radix_bits")},
+         "rings": wide_rings,
          "bench_ms": select_wide["bench_ms"],
          "bench_smem_path_ms": select_wide["bench_smem_path_ms"],
-         "ptxas": usage_of(usage.get("select"), "select_kernelILb0E")},
+         "ptxas": usage_of(usage.get("select"), "select_global_kernel")},
     ]
 
     # ---- 20. where a frame's device time goes ----------------------------

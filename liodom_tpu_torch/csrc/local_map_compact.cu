@@ -54,10 +54,18 @@
 // device memory, the offsets sorted by (x, y, z) as three int32 arrays,
 // and each key searched as key - base (mod 2^32) among them: key == base +
 // offset exactly when key - base == offset, the int32 comparison of
-// get_local_map.  Nothing is staged; the binary searches read the sorted
-// offsets through L1/L2 (at 19,883 targets, 233 KiB of them), one more
-// step a doubling of K.  Everything else (the look-back, the placement,
-// the zero-fill, the status words) is the kernel above.
+// get_local_map.  A search wholly in device memory was a chain of
+// ceil(log2 K) + 1 dependent trips through L1/L2 (16 at 19,883 targets,
+// 233 KiB of offsets; 0.0162 ms against K7's 0.0103 on the H100), so the
+// search is fenced: the launch picks a stride s, the smallest power of two
+// for which ceil(K / s) fence entries (every s-th sorted offset) fit
+// kFenceBytes of shared memory; the wrapper keeps the fence in device
+// memory ahead of the offsets, each block stages it in shared memory as
+// K7 stages the targets, and each key takes the branch-free search among
+// the fence there, then log2 s steps inside its s-entry segment in device
+// memory (one or two lines of each array, the same lines for a key's
+// every step), then the one compare.  Everything else (the look-back, the
+// placement, the zero-fill, the status words) is the kernel above.
 
 #include <cuda_runtime.h>
 
@@ -70,11 +78,27 @@ constexpr int kTile = kThreads * kSpan;
 constexpr int kBatch = 4;                      // rows whose loads fly together
 constexpr int kFixedBytes = 256;               // warp sums and the offset
 constexpr long long kMaxSmem = 232448;         // a block's shared memory
+// the global path's fence: at most this many bytes of shared memory, 12 an
+// entry (several blocks stay resident on an SM)
+constexpr long long kFenceBytes = 32768;
 constexpr unsigned long long kAggregate = 1;   // a status word's kinds
 constexpr unsigned long long kInclusive = 2;
 
 __host__ __device__ constexpr long long smem_bytes(long long n_targets) {
   return kFixedBytes + n_targets * 12;
+}
+
+// the global path's fence stride for K targets: the smallest power of two
+// s with ceil(K / s) entries in kFenceBytes, as log2 s
+__host__ __device__ inline int fence_shift(long long n_targets) {
+  int shift = 0;
+  while (((n_targets + (1LL << shift) - 1) >> shift) * 12 > kFenceBytes)
+    ++shift;
+  return shift;
+}
+
+__host__ __device__ inline int fence_count(long long n_targets, int shift) {
+  return static_cast<int>((n_targets + (1LL << shift) - 1) >> shift);
 }
 
 __device__ __forceinline__ unsigned long long ld_relaxed(
@@ -171,9 +195,79 @@ __device__ __forceinline__ unsigned targets_hit(
   return hit;
 }
 
+// Membership of kBatch keys (already shifted by -base) on the global path:
+// g, the fence entries below each key, by targets_hit's search among the
+// `fence` entries in shared memory; the key's lower bound is then past
+// target (g - 1) s and at most g s, found by log2 s fixed steps among the
+// `count` offsets in device memory (every index past g s holds a larger
+// offset, so only the end of the array bounds a step), the kBatch searches
+// interleaved; then one compare each.  s == 1: the fence is the offsets.
+__device__ __forceinline__ unsigned targets_hit_fenced(
+    const int* __restrict__ fx, const int* __restrict__ fy,
+    const int* __restrict__ fz, int fence, const int* __restrict__ tx,
+    const int* __restrict__ ty, const int* __restrict__ tz, int count,
+    int shift, const int (&x)[kBatch], const int (&y)[kBatch],
+    const int (&z)[kBatch]) {
+  int g[kBatch];
+#pragma unroll
+  for (int q = 0; q < kBatch; ++q) g[q] = 0;       // fence entries below
+  for (int step = fence > 0 ? 1 << (31 - __clz(fence)) : 0; step > 0;
+       step >>= 1) {
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int m = g[q] + step - 1;
+      const int mm = m < fence ? m : fence - 1;
+      const int a = fx[mm], b = fy[mm], c = fz[mm];
+      const bool below =
+          (a < x[q]) |
+          ((a == x[q]) & ((b < y[q]) | ((b == y[q]) & (c < z[q]))));
+      g[q] += (m < fence && below) ? step : 0;
+    }
+  }
+  unsigned hit = 0;
+  if (shift == 0) {
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int m = g[q] < fence ? g[q] : 0;
+      hit |= (g[q] < fence && fx[m] == x[q] && fy[m] == y[q] &&
+              fz[m] == z[q])
+                 ? 1u << q
+                 : 0u;
+    }
+    return hit;
+  }
+  int pos[kBatch];                                 // the last offset below
+#pragma unroll
+  for (int q = 0; q < kBatch; ++q) pos[q] = (g[q] - 1) << shift;
+  for (int step = 1 << (shift - 1); step > 0; step >>= 1) {
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int m = pos[q] + step;
+      const int mm = g[q] > 0 && m < count ? m : 0;
+      const int a = __ldg(tx + mm), b = __ldg(ty + mm), c = __ldg(tz + mm);
+      const bool below =
+          (a < x[q]) |
+          ((a == x[q]) & ((b < y[q]) | ((b == y[q]) & (c < z[q]))));
+      pos[q] = (g[q] > 0 && m < count && below) ? m : pos[q];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kBatch; ++q) {
+    const int lb = g[q] > 0 ? pos[q] + 1 : 0;      // the lower bound
+    const int m = lb < count ? lb : 0;
+    hit |= (lb < count && __ldg(tx + m) == x[q] && __ldg(ty + m) == y[q] &&
+            __ldg(tz + m) == z[q])
+               ? 1u << q
+               : 0u;
+  }
+  return hit;
+}
+
 // kSmemTargets: the targets base + offset in shared memory, offs (K, 3);
-// else offs (3, K), the offsets alone in device memory, and the keys
-// searched as key - base.
+// else offs (3, F + K): the fence (every s-th sorted offset, F = ceil(K /
+// s), fence_shift), then the offsets alone, each row's x, y and z
+// contiguous, the fence staged in shared memory and the keys searched as
+// key - base.
 template <bool kSmemTargets>
 __global__ void __launch_bounds__(kThreads)
 compact_kernel(const float* __restrict__ xyz, const int* __restrict__ key,
@@ -190,10 +284,12 @@ compact_kernel(const float* __restrict__ xyz, const int* __restrict__ key,
   int* s_tx = smem + kFixedBytes / 4;    // the targets' x, y and z,
   int* s_ty = s_tx + n_targets;          // sorted by (x, y, z)
   int* s_tz = s_ty + n_targets;
-  if constexpr (!kSmemTargets) {         // the offsets' x, y, z in memory
-    s_tx = const_cast<int*>(offs);
-    s_ty = s_tx + n_targets;
-    s_tz = s_ty + n_targets;
+  int shift = 0, fence = 0;              // the global path's fence
+  if constexpr (!kSmemTargets) {
+    shift = fence_shift(n_targets);
+    fence = fence_count(n_targets, shift);
+    s_ty = s_tx + fence;
+    s_tz = s_ty + fence;
   }
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -222,6 +318,8 @@ compact_kernel(const float* __restrict__ xyz, const int* __restrict__ key,
     sx = 0u - static_cast<unsigned>(base[0]);
     sy = 0u - static_cast<unsigned>(base[1]);
     sz = 0u - static_cast<unsigned>(base[2]);
+    for (int t = tid; t < 3 * fence; t += kThreads) s_tx[t] = __ldg(offs + t);
+    __syncthreads();
   }
   unsigned hits = 0;
   while (todo != 0) {
@@ -240,8 +338,15 @@ compact_kernel(const float* __restrict__ xyz, const int* __restrict__ key,
         kz[q] = static_cast<int>(static_cast<unsigned>(kz[q]) + sz);
       }
     }
-    const unsigned found =
-        targets_hit(s_tx, s_ty, s_tz, n_targets, kx, ky, kz);
+    unsigned found;
+    if constexpr (kSmemTargets) {
+      found = targets_hit(s_tx, s_ty, s_tz, n_targets, kx, ky, kz);
+    } else {
+      const int* t = offs + 3 * fence;   // the offsets past the fence
+      found = targets_hit_fenced(s_tx, s_ty, s_tz, fence, t, t + n_targets,
+                                 t + 2 * n_targets, n_targets, shift, kx, ky,
+                                 kz);
+    }
 #pragma unroll
     for (int q = 0; q < kBatch; ++q)
       if (j[q] >= 0 && ((found >> q) & 1u)) hits |= 1u << j[q];
@@ -379,10 +484,12 @@ extern "C" int liodom_local_map_compact(const void* xyz, const void* key,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same with the targets in device memory, any K >= 0: offsets (3, K)
-// i32, the x, y and z of the offsets sorted by (x, y, z), each row of
-// length K (the base is not added); everything else as above.  A block's
-// shared memory is kFixedBytes.
+// The same with the targets in device memory, any K >= 0: offsets (3 F +
+// 3 K,) i32 (liodom_local_map_fence: F fence entries of stride s), the
+// fence's x, y and z rows of length F (every s-th sorted offset), then the
+// x, y and z of the offsets sorted by (x, y, z), rows of length K (the
+// base is not added); everything else as above.  A block's shared memory
+// is kFixedBytes plus the fence's 12 F.
 extern "C" int liodom_local_map_compact_global(
     const void* xyz, const void* key, const void* valid, const void* base,
     const void* offsets, int n_targets, int rows, int cap, void* state,
@@ -393,7 +500,15 @@ extern "C" int liodom_local_map_compact_global(
         reinterpret_cast<unsigned long long>(out_valid)) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = rows > 0 ? (rows + kTile - 1) / kTile : 1;
-  compact_kernel<false><<<tiles, kThreads, kFixedBytes,
+  const int smem = static_cast<int>(
+      kFixedBytes + 12LL * fence_count(n_targets, fence_shift(n_targets)));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        compact_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  compact_kernel<false><<<tiles, kThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xyz), static_cast<const int*>(key),
       static_cast<const unsigned char*>(valid), static_cast<const int*>(base),
@@ -413,5 +528,16 @@ extern "C" int liodom_local_map_compact_shape(int rows, int n_targets,
   out[2] = kSpan;
   out[3] = static_cast<int>(smem_bytes(n_targets));
   out[4] = static_cast<int>((kMaxSmem - kFixedBytes) / 12);
+  return 0;
+}
+
+// The global path's fence for K targets: out[0] the stride s, out[1] the
+// fence entries F = ceil(K / s), out[2] a block's dynamic shared memory in
+// bytes.
+extern "C" int liodom_local_map_fence(int n_targets, int* out) {
+  const int shift = fence_shift(n_targets < 0 ? 0 : n_targets);
+  out[0] = 1 << shift;
+  out[1] = fence_count(n_targets < 0 ? 0 : n_targets, shift);
+  out[2] = static_cast<int>(kFixedBytes + 12LL * out[1]);
   return 0;
 }

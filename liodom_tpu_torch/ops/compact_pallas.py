@@ -14,10 +14,12 @@ launches ``csrc/local_map_compact.cu`` (a block a tile counts its hits,
 finds its offset by a look-back over the tiles before and places them;
 :func:`compact_hits_tiled` models its schedule) with the targets in shared
 memory, or above :data:`MAX_TARGETS` of them with the targets in device
-memory (:func:`compact_hits_global_cuda`); a CPU tensor takes
-:func:`compact_hits_plain` (membership as a broadcast compare over chunks
-of rows, ranks by ``cumsum``, a scatter).  All move values and compare
-integers, so they are bit-exact with each other.
+memory (:func:`compact_hits_global_cuda`, whose search is fenced: every
+s-th sorted offset staged in shared memory, :func:`compact_hits_fenced`
+models it); a CPU tensor takes :func:`compact_hits_plain` (membership as a
+broadcast compare over chunks of rows, ranks by ``cumsum``, a scatter).
+All move values and compare integers, so they are bit-exact with each
+other.
 Neither synchronises with the host: no ``nonzero``, no data-dependent shape.
 """
 
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +41,11 @@ SMEM_LIMIT = 232448     # a block's shared memory on Hopper (227 KB)
 # targets the kernel holds in shared memory, 12 bytes each beside 256
 MAX_TARGETS = (SMEM_LIMIT - 256) // 12
 
+# the models' fence: at most this many bytes of a block's shared memory,
+# 12 an entry, as csrc/local_map_compact.cu's kFenceBytes (the launches
+# take the built library's stride, liodom_local_map_fence)
+FENCE_BYTES = 32768
+
 # (rows x targets) compares a chunk of the plain membership
 MEMBERSHIP_CHUNK = 1 << 24
 
@@ -47,7 +54,8 @@ _SIG = [("liodom_local_map_compact", [ctypes.c_void_p] * 5
         ("liodom_local_map_compact_global", [ctypes.c_void_p] * 5
          + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5),
         ("liodom_local_map_compact_shape", [ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p])]
+                                            ctypes.c_void_p]),
+        ("liodom_local_map_fence", [ctypes.c_int, ctypes.c_void_p])]
 
 
 def compact_rows_plain(xyz: torch.Tensor, hit: torch.Tensor, capacity: int
@@ -126,6 +134,90 @@ def compact_hits_tiled(xyz: torch.Tensor, key: torch.Tensor,
     return out, out_valid, n_hits
 
 
+def fence_stride(n_targets: int) -> int:
+    """The models' fence stride for ``n_targets`` targets: the smallest
+    power of two s for which ceil(K / s) fence entries of 12 bytes fit
+    :data:`FENCE_BYTES` (``csrc/local_map_compact.cu`` ``fence_shift``;
+    the launches take :func:`_library_fence`'s)."""
+    s = 1
+    while -(-n_targets // s) * 12 > FENCE_BYTES:
+        s *= 2
+    return s
+
+
+def _sorted_offsets(offsets: np.ndarray) -> np.ndarray:
+    """(K, 3) int32 offsets sorted by (x, y, z)."""
+    offs = np.asarray(offsets, np.int32).reshape(-1, 3)
+    return offs[np.lexsort((offs[:, 2], offs[:, 1], offs[:, 0]))]
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values wrapped to int32, as the card's int32 sums wrap."""
+    return ((x + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def _lex_below(t: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(t < k) in (x, y, z) order, rows of (..., 3) int32."""
+    a, b, c = t.unbind(-1)
+    x, y, z = k.unbind(-1)
+    return (a < x) | ((a == x) & ((b < y) | ((b == y) & (c < z))))
+
+
+def fenced_membership(key: torch.Tensor, valid: torch.Tensor,
+                      base: torch.Tensor, offsets: np.ndarray,
+                      stride: int) -> torch.Tensor:
+    """(C,) bool, each row searched as the global path searches it: its key
+    shifted by ``-base`` (wrapping int32), then g = the fence entries
+    (every ``stride``-th sorted offset) below it by a fixed-step binary
+    search, then log2 ``stride`` fixed steps among the sorted offsets from
+    entry (g - 1) ``stride``, bounded only by the array's end, then the
+    compare at the lower bound."""
+    if stride < 1 or stride & (stride - 1):
+        raise ValueError(f"fence stride {stride} is not a power of two")
+    offs = torch.from_numpy(_sorted_offsets(offsets)).to(key.device)
+    count = offs.shape[0]
+    if count == 0:
+        return torch.zeros_like(valid)
+    fence = offs[::stride]
+    n_f = fence.shape[0]
+    k = _wrap32(key.to(torch.int64) - base.to(torch.int64)[None, :])
+    g = torch.zeros(key.shape[0], dtype=torch.int64, device=key.device)
+    step = 1 << (n_f.bit_length() - 1) if n_f > 0 else 0
+    while step > 0:
+        m = g + step - 1
+        below = _lex_below(fence[torch.clamp(m, max=max(n_f - 1, 0))], k)
+        g = torch.where((m < n_f) & below, g + step, g)
+        step //= 2
+    pos = (g - 1) * stride
+    step = stride // 2
+    while step > 0:
+        m = pos + step
+        ok = (g > 0) & (m < count)
+        below = _lex_below(offs[torch.where(ok, m, 0)], k)
+        pos = torch.where(ok & below, m, pos)
+        step //= 2
+    lb = torch.where(g > 0, pos + 1, 0)
+    hit = (lb < count) & torch.all(
+        offs[torch.where(lb < count, lb, 0)] == k, dim=-1)
+    return hit & valid
+
+
+def compact_hits_fenced(xyz: torch.Tensor, key: torch.Tensor,
+                        valid: torch.Tensor, base: torch.Tensor,
+                        offsets: np.ndarray, capacity: int,
+                        stride: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7's global path as torch ops, a model of
+    ``liodom_local_map_compact_global``: membership by the fenced search
+    (:func:`fenced_membership`, at ``stride``, by default the launch's
+    :func:`fence_stride`), then :func:`compact_rows_plain`.  Same contract
+    as :func:`compact_hits_plain`."""
+    offs = np.asarray(offsets, np.int32).reshape(-1, 3)
+    s = fence_stride(len(offs)) if stride is None else stride
+    return compact_rows_plain(
+        xyz, fenced_membership(key, valid, base, offs, s), capacity)
+
+
 @functools.lru_cache(maxsize=None)
 def _device_offsets(data: bytes, device: torch.device) -> torch.Tensor:
     """The (K, 3) int32 offsets of ``data`` sorted by (x, y, z), the
@@ -134,19 +226,28 @@ def _device_offsets(data: bytes, device: torch.device) -> torch.Tensor:
     life of the process (a captured CUDA graph holds their address), from
     pinned memory without waiting, so no step synchronises with the host
     for them."""
-    offs = np.frombuffer(data, np.int32).reshape(-1, 3)
-    offs = offs[np.lexsort((offs[:, 2], offs[:, 1], offs[:, 0]))]
-    host = torch.from_numpy(np.ascontiguousarray(offs))
-    if not len(offs):
-        return host.to(device)
-    return host.pin_memory().to(device, non_blocking=True)
+    offs = _sorted_offsets(np.frombuffer(data, np.int32))
+    return _pinned_to(np.ascontiguousarray(offs), device)
+
+
+def _pinned_to(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``host`` on ``device``, from pinned memory without waiting (an empty
+    array by a plain copy)."""
+    t = torch.from_numpy(host)
+    if not host.size:
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 @functools.lru_cache(maxsize=None)
-def _device_offsets_soa(data: bytes, device: torch.device) -> torch.Tensor:
-    """:func:`_device_offsets` as (3, K): the sorted offsets' x, y and z
-    each contiguous, kept alike."""
-    return _device_offsets(data, device).t().contiguous()
+def _device_fenced_offsets(data: bytes, stride: int,
+                           device: torch.device) -> torch.Tensor:
+    """The global path's targets on ``device``: (3 F + 3 K,) int32, the
+    fence (every ``stride``-th sorted offset, F of them) as x, y and z
+    rows, then the sorted offsets as x, y and z rows; kept alike."""
+    offs = _sorted_offsets(np.frombuffer(data, np.int32))
+    rows = np.concatenate([offs[::stride].T.reshape(-1), offs.T.reshape(-1)])
+    return _pinned_to(np.ascontiguousarray(rows, np.int32), device)
 
 
 def _lookback_state(device: torch.device, tiles: int) -> torch.Tensor:
@@ -160,14 +261,29 @@ def _lookback_state(device: torch.device, tiles: int) -> torch.Tensor:
                                   torch.int64, floor=257, zeroed=True)
 
 
+@functools.lru_cache(maxsize=None)
+def _library_fence(n_targets: int) -> Tuple[int, int, int]:
+    """(stride, entries, shared-memory bytes) of the global path's fence
+    for ``n_targets`` targets, as the built library lays it out
+    (``liodom_local_map_fence``): the stride the wrapper lays the buffer
+    out at is the one the kernel searches at."""
+    lib = kernels.load("local_map_compact", _SIG)
+    fence = (ctypes.c_int * 3)()
+    lib.liodom_local_map_fence(n_targets, fence)
+    return fence[0], fence[1], fence[2]
+
+
 def compact_shape(rows: int, n_targets: int) -> dict:
     """K7's launch as the built library sets it for ``rows`` rows and
-    ``n_targets`` targets (CUDA only)."""
+    ``n_targets`` targets (CUDA only); ``fence_*`` the global path's."""
+    lib = kernels.load("local_map_compact", _SIG)
     out = (ctypes.c_int * 5)()
-    kernels.load("local_map_compact", _SIG).liodom_local_map_compact_shape(
-        rows, n_targets, out)
+    lib.liodom_local_map_compact_shape(rows, n_targets, out)
+    fence = _library_fence(n_targets)
     return {"tiles": out[0], "threads": out[1], "rows_per_thread": out[2],
-            "smem_bytes": out[3], "max_targets": out[4]}
+            "smem_bytes": out[3], "max_targets": out[4],
+            "fence_stride": fence[0], "fence_entries": fence[1],
+            "fence_smem_bytes": fence[2]}
 
 
 def _checked(what, xyz, key, valid, base, offsets, capacity):
@@ -246,14 +362,18 @@ def compact_hits_global_cuda(xyz: torch.Tensor, key: torch.Tensor,
                                         torch.Tensor]:
     """K7 with its targets in device memory (``liodom_local_map_compact_
     global``), any number of them; same contract as
-    :func:`compact_hits_plain`.  The sorted offsets go to the card once per
-    neighbourhood and device as (3, K) (:func:`_device_offsets_soa`) and
-    each key is searched as ``key - base``."""
+    :func:`compact_hits_plain`.  The fence and the sorted offsets go to the
+    card once per neighbourhood and device (:func:`_device_fenced_offsets`
+    at the library's stride, :func:`_library_fence`) and each key is
+    searched as ``key - base`` (:func:`compact_hits_fenced` models the
+    search)."""
     offs, xyz, key, valid, base = _checked("compact_hits_global_cuda", xyz,
                                            key, valid, base, offsets,
                                            capacity)
     out = _launch("liodom_local_map_compact_global", xyz, key, valid, base,
-                  offs, _device_offsets_soa(offs.tobytes(), xyz.device),
+                  offs, _device_fenced_offsets(
+                      offs.tobytes(), _library_fence(len(offs))[0],
+                      xyz.device),
                   capacity)
     compact_hits_global_cuda.launches += 1
     return out

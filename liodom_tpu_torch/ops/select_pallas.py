@@ -22,7 +22,10 @@ instead of repeating an arg-max: :func:`select_walk` is that algorithm in
 plain code (the top ``L = 11 * max_picks + 5`` columns of every region,
 then the ordered walk in windows of 32 entries, one warp step a window and
 a round of its resolution), the tests' model of the kernel and the count
-of its dependent steps.
+of its dependent steps.  The device-memory path builds those lists by a
+top-L selection instead of ranking every column
+(:func:`select_lists_topl` models it: order keys, a radix select of the
+L-th key, the ties at it taken in column order, a sorting network).
 """
 
 from __future__ import annotations
@@ -39,6 +42,11 @@ from liodom_tpu_torch.core.frame import EdgeCloud, RingImage
 
 _SMEM_LIMIT = 232448   # a block's shared memory on the card, 227 KB
 _WARP = 32             # entries a step of the kernel's walk
+# bits a digit of the device-memory path's radix select (csrc/select.cu
+# kRadixBits), and the most entries a list it orders by counting (one a
+# thread, kThreads; longer ones by the network)
+RADIX_BITS = 8
+COUNT_MAX = 256
 
 _SIG = [("liodom_select_edges", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
          + [ctypes.c_float] * 2 + [ctypes.c_void_p]),
@@ -142,9 +150,114 @@ def select_smem_bytes(width: int, n_regions: int, max_picks: int) -> int:
     return 8 * lists + 4 * n_regions * max_picks + 5 * width + 10
 
 
+def order_keys(values: torch.Tensor) -> torch.Tensor:
+    """int64 keys in [0, 2^32) whose ascending order is the descending order
+    of ``values`` (float32) as the kernel folds them: NaN as -inf, -0.0 as
+    +0.0.  With ``u`` the folded float's bits, ``asc = ~u`` for a negative
+    value and ``u | 2^31`` otherwise (ascending with the value), and the
+    key is ``~asc``: equal keys are equal values."""
+    v = torch.where(torch.isnan(values), float("-inf"), values)
+    v = torch.where(v == 0, torch.zeros_like(v), v).to(torch.float32)
+    u = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    asc = torch.where(u >= 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    return ~asc & 0xFFFFFFFF
+
+
+def sort_network(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (n,) sorted ascending by the kernel's network: a bitonic sort
+    of the next power of two p >= n written with ascending comparators only
+    (each stage's first step compares i with its mirror in the 2^s block,
+    the rest i with i + j), every comparator whose upper index is n or more
+    skipped.  The padding would be +inf at the top, which no such
+    comparator moves, so the skip is exact and no padding is stored."""
+    x = x.clone()
+    n = x.numel()
+    p = 1
+    while p < n:
+        p *= 2
+    c = torch.arange(p // 2, dtype=torch.int64)
+    k = 2
+    while k <= p:
+        j = k // 2
+        while j > 0:
+            off = c & (j - 1)
+            lo = 2 * c - off
+            hi = lo + (k - 1 - 2 * off if j == k // 2 else j)
+            keep = hi < n
+            a, b = x[lo[keep]], x[hi[keep]]
+            x[lo[keep]] = torch.minimum(a, b)
+            x[hi[keep]] = torch.maximum(a, b)
+            j //= 2
+        k *= 2
+    return x
+
+
+def select_lists_topl(values: torch.Tensor, cap: int,
+                      radix_bits: int = RADIX_BITS) -> torch.Tensor:
+    """One region's list as ``csrc/select.cu``'s device-memory path builds
+    it: the positions (int64, 0 .. len - 1) of the first min(cap, len)
+    entries of its (value desc, column asc) order, in that order, from the
+    region's float32 ``values``.
+
+    The kernel's steps: :func:`order_keys`; where cap < len, a radix select
+    of the cap-th smallest key, most significant digit of ``radix_bits``
+    first (a histogram of the digit over the keys that share the digits
+    found so far, the digit whose counts reach the rank left), stopping
+    early once every key with the prefix found is wanted; the keys below
+    that prefix kept, then the lowest positions among those equal to it, up
+    to the count left, by a prefix count in column order; the keys below,
+    placed in any order (the kernel's atomics; here a seeded shuffle), as
+    ``key << 32 | position`` ordered by counting (each entry's place is
+    the count of entries below it) while the list has at most
+    :data:`COUNT_MAX` entries, else through :func:`sort_network`; then the
+    ties, which follow them in column order already (where every key with
+    the prefix is wanted, all of them are ordered)."""
+    keys = order_keys(values)
+    n_all = keys.numel()
+    n = min(cap, n_all)
+    if n <= 0:
+        return torch.zeros(0, dtype=torch.int64)
+    prefix, mask, k = 0, 0, n
+    take_all = n == n_all
+    hi = 32
+    while not take_all and hi > 0:
+        lo = max(0, hi - radix_bits)
+        ones = (1 << (hi - lo)) - 1
+        digits = (keys[(keys & mask) == prefix] >> lo) & ones
+        hist = torch.bincount(digits, minlength=ones + 1)
+        excl = torch.cumsum(hist, 0) - hist
+        d = int(torch.nonzero((excl < k) & (k <= excl + hist))[0, 0])
+        k -= int(excl[d])
+        prefix |= d << lo
+        mask |= ones << lo
+        take_all = k == int(hist[d])
+        hi = lo
+    masked = keys & mask
+    eq = masked == prefix
+    below = masked < prefix
+    ties = torch.zeros(0, dtype=torch.int64)
+    if take_all:
+        below = below | eq
+    else:                 # the first k equal to t, in column order, last
+        ties = torch.nonzero(eq & (torch.cumsum(eq, 0) <= k))[:, 0]
+    pos = torch.nonzero(below)[:, 0]
+    assert pos.numel() + ties.numel() == n
+    gen = torch.Generator().manual_seed(n)
+    pos = pos[torch.randperm(pos.numel(), generator=gen)]
+    # the kernel's unsigned (key << 32 | position), offset by 2^63 to fit
+    # int64 in the same order
+    comp = ((keys[pos] - (1 << 31)) << 32) | pos
+    if n <= COUNT_MAX:      # each entry's place: the entries below it
+        place = (comp[None, :] < comp[:, None]).sum(1)
+        ordered = torch.empty_like(comp).index_put_((place,), comp)
+    else:
+        ordered = sort_network(comp)
+    return torch.cat([ordered & 0xFFFFFFFF, ties])
+
+
 def select_walk(smooth: torch.Tensor, reach: torch.Tensor,
                 count: torch.Tensor, cfg: LiodomConfig,
-                list_len: Optional[int] = None):
+                list_len: Optional[int] = None, lists: str = "sorted"):
     """The kernel's algorithm in plain code, a model for checks: per ring
     and region, the region's columns ranked by (value desc, column asc)
     (-0.0 as +0.0, NaN as -inf) and cut to the first ``list_len`` (default
@@ -156,6 +269,8 @@ def select_walk(smooth: torch.Tensor, reach: torch.Tensor,
     first below the threshold is a pick, up to the picks left; a conflict
     is dropped and the rest resolved again; a failing candidate ends the
     region.  A pick marks itself and the neighbours its reach bits allow.
+    ``lists``: "sorted" cuts each region's sorted order; "topl" builds the
+    lists as the device-memory path does (:func:`select_lists_topl`).
 
     Returns ``(bidx (R, S) i32, bval (R, S) bool, stats)``: the slots as
     :func:`select_plain` lays them out, and ``stats`` with per ring
@@ -168,6 +283,9 @@ def select_walk(smooth: torch.Tensor, reach: torch.Tensor,
     n_regions, max_picks = cfg.scan_regions, cfg.max_edges_per_region
     cap = walk_list_len(max_picks) if list_len is None else list_len
     thr = f32(cfg.smoothness_threshold)
+    if lists not in ("sorted", "topl"):
+        raise ValueError(f"select_walk: lists {lists!r}")
+    raw = smooth.cpu()
     sm = torch.where(torch.isnan(smooth), float("-inf"), smooth) + 0.0
     sm = torch.where(sm == 0, torch.zeros_like(sm), sm).tolist()
     reach = reach.tolist()
@@ -198,9 +316,13 @@ def select_walk(smooth: torch.Tensor, reach: torch.Tensor,
             start = 5 + sector * j
             end = min(5 + (total if j == n_regions - 1
                            else sector * (j + 1)), w)
-            order = sorted(range(start, max(end, start)),
-                           key=lambda c: (-row[c], c))
-            lst = order[:cap]
+            n_region = max(end - start, 0)
+            if lists == "topl":
+                lst = (select_lists_topl(raw[ring, start:start + n_region],
+                                         cap) + start).tolist()
+            else:
+                lst = sorted(range(start, start + n_region),
+                             key=lambda c: (-row[c], c))[:cap]
             picks, pos, ended = 0, 0, False
             while not ended and picks < max_picks and pos < len(lst):
                 win = lst[pos:pos + _WARP]
@@ -242,7 +364,7 @@ def select_walk(smooth: torch.Tensor, reach: torch.Tensor,
                     rem = [i for i in cands if i > conflict[0]]
                 visited[ring] = max(visited[ring], pos + last + 1)
                 pos += _WARP
-            if (not ended and picks < max_picks and len(order) > cap):
+            if (not ended and picks < max_picks and n_region > cap):
                 overflow += 1
     dev = smooth.device
     stats = {"steps": steps, "visited": visited, "overflow": overflow}
@@ -335,16 +457,19 @@ select_edges_cuda.launches = 0
 def select_global_shape(width: int, n_regions: int, max_picks: int) -> dict:
     """K2's global path as the built library lays it out for a ring width
     and slot layout: whether the lists and slots go to the device scratch,
-    the columns of a region's values a block's shared memory holds, that
-    shared memory in bytes and the scratch's bytes a ring.  Builds the
-    library if needed; launches nothing."""
+    the columns of a region whose order keys a block's shared memory holds
+    (a longer region's are read from the plane at each radix pass), that
+    shared memory in bytes, the scratch's bytes a ring, the radix digit's
+    bits and the blocks of a ring's cluster.  Builds the library if
+    needed; launches nothing."""
     lib = kernels.load("select", _SIG)
-    out = (ctypes.c_longlong * 4)()
+    out = (ctypes.c_longlong * 6)()
     kernels.check(lib.liodom_select_global_shape(
         width, n_regions, max_picks, ctypes.addressof(out)),
         "liodom_select_global_shape")
-    return {"lists_in_scratch": bool(out[0]), "values_in_smem": out[1],
-            "dynamic_smem_bytes": out[2], "scratch_bytes_per_ring": out[3]}
+    return {"lists_in_scratch": bool(out[0]), "keys_in_smem": out[1],
+            "dynamic_smem_bytes": out[2], "scratch_bytes_per_ring": out[3],
+            "radix_bits": out[4], "cluster_blocks": out[5]}
 
 
 def select_slots_global(img: RingImage, smooth: torch.Tensor,

@@ -4,11 +4,13 @@ and K7 (``csrc/local_map_compact.cu``): the shipped kernels against
 earlier builds, on the same inputs, in one process.
 
     python3 scripts/map_kernels_experiment.py [--earlier DIR]
-        [--also LABEL=DIR] [--out FILE]
+        [--also LABEL=DIR] [--fence-bytes 8192,...] [--out FILE]
 
 Builds both sources of this checkout (``shipped``) and, with ``--earlier``
 (and ``--also``), of other ``csrc`` directories (for example an earlier
-commit's, unpacked by ``git archive``), one ``nvcc`` each, all together,
+commit's, unpacked by ``git archive``) and, with ``--fence-bytes``, of
+copies of this checkout's with another ``kFenceBytes`` written into
+``local_map_compact.cu`` (``fenceN``), one ``nvcc`` each, all together,
 into ``kernels/build/experiment/``, with a pointer chase that measures one
 dependent L2 trip.  A build whose library exports
 ``liodom_local_map_compact_shape`` / ``liodom_probe_insert_shape`` is
@@ -28,8 +30,21 @@ the time of each build's call (the probe's includes its 4 MB table copy,
 timed alone beside it) by CUDA events over 100 launches on the bench
 inputs, the builds in turns (forward, then backward), and the chase:
 cycles and ns a dependent ``ld.global.cg`` over a 4 MB ring of 128-byte
-lines in a random order, L2-resident after a warm pass.  Prints one JSON
-object (and writes it to ``--out``); exits 1 if any output differs.
+lines in a random order, L2-resident after a warm pass; and whether each
+build's K7 shared-memory kernel is the ``--earlier`` build's instruction
+for instruction (``cuobjdump -sass``).
+
+K7's device-memory path (``liodom_local_map_compact_global``) on the same
+map: at ``cells_xy`` = ``chip_smoke.CELLS_XY_WIDE`` (19,883 targets) at
+capacities 16,384 and 1,024, at 75 and 174 targets and either side of the
+first fence-stride change (the targets nearest the base).  A build that
+exports ``liodom_local_map_fence`` is given the fence ahead of the sorted
+offsets at its own stride (``liodom_local_map_fence``), one without the
+sorted offsets alone as (3, K).  The shipped
+build must equal the plain version, every other build the shipped one;
+then each build's time at 19,883, 174 and 75 targets, in turns.  Prints
+one JSON object (and writes it to ``--out``); exits 1 if any output
+differs.
 """
 
 from __future__ import annotations
@@ -84,6 +99,26 @@ _OLD_PROBE = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
               + [ctypes.c_void_p] * 5)
 
 
+_FENCE_LINE = "constexpr long long kFenceBytes = "
+
+
+def fence_copy(n_bytes: int, out_dir: Path) -> Path:
+    """A copy of this checkout's two mapping sources with ``kFenceBytes`` =
+    n_bytes, in its own directory; stops if the constant's line is not
+    there once."""
+    src = (kernels.CSRC / "local_map_compact.cu").read_text()
+    lines = [ln for ln in src.splitlines() if ln.startswith(_FENCE_LINE)]
+    if len(lines) != 1:
+        raise SystemExit("map_kernels_experiment: kFenceBytes not found once")
+    d = out_dir / f"fence{n_bytes}"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "local_map_compact.cu").write_text(
+        src.replace(lines[0], f"{_FENCE_LINE}{n_bytes};"))
+    (d / "probe_insert.cu").write_text(
+        (kernels.CSRC / "probe_insert.cu").read_text())
+    return d
+
+
 def build(variants: dict, out_dir: Path):
     """({label: {"k7": CDLL, "probe": CDLL, "new_k7": bool, "new_probe":
     bool, "ptxas": {...}}}, chase CDLL)."""
@@ -125,6 +160,11 @@ def build(variants: dict, out_dir: Path):
             new = hasattr(lib, "liodom_local_map_compact_shape")
             sigs = K7._SIG if new else [("liodom_local_map_compact",
                                          _OLD_K7)]
+            libs[label]["k7_global"] = (
+                "fenced" if hasattr(lib, "liodom_local_map_fence") else
+                "soa" if hasattr(lib, "liodom_local_map_compact_global")
+                else None)
+            sigs = [(sym, a) for sym, a in sigs if hasattr(lib, sym)]
         else:
             new = hasattr(lib, "liodom_probe_insert_shape")
             sigs = PI._SIG if new else [("liodom_probe_insert", _OLD_PROBE)]
@@ -171,6 +211,51 @@ def k7_call(build_: dict, xyz, key, valid, base, offs, cap):
             n_hits.data_ptr(), stream)
     kernels.check(err, "liodom_local_map_compact")
     return out, out_valid, n_hits
+
+
+def k7_global_call(build_: dict, xyz, key, valid, base, offs, cap):
+    """K7's device-memory path of one build, its targets laid out as that
+    build takes them; None where the build has no such path."""
+    kind = build_.get("k7_global")
+    if kind is None:
+        return None
+    dev = xyz.device
+    c, n_t = xyz.shape[0], len(offs)
+    data = np.ascontiguousarray(offs, np.int32).tobytes()
+    if kind == "fenced":
+        fence = (ctypes.c_int * 3)()
+        build_["k7"].liodom_local_map_fence(n_t, fence)
+        d_offs = K7._device_fenced_offsets(data, fence[0], dev)
+    else:
+        d_offs = K7._device_offsets(data, dev).t().contiguous()
+    out = torch.empty((cap, 3), dtype=torch.float32, device=dev)
+    out_valid = torch.empty(cap, dtype=torch.bool, device=dev)
+    n_hits = torch.empty((), dtype=torch.int32, device=dev)
+    state = K7._lookback_state(dev, max(1, -(-c // K7.TILE_ROWS)))
+    err = build_["k7"].liodom_local_map_compact_global(
+        xyz.data_ptr(), key.data_ptr(), valid.data_ptr(), base.data_ptr(),
+        d_offs.data_ptr(), n_t, c, cap, state.data_ptr(), out.data_ptr(),
+        out_valid.data_ptr(), n_hits.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "liodom_local_map_compact_global")
+    return out, out_valid, n_hits
+
+
+def global_cases(kmap, kbase) -> dict:
+    """{name: K7 arguments} of the device-memory path on the bench map."""
+    m = (kmap.xyz, kmap.key, kmap.valid, kbase)
+    cap = CS.MCFG.local_map_capacity
+    wide = G.local_map_offsets(CS.MCFG, cells_xy=CS.CELLS_XY_WIDE)
+    near = wide[np.argsort(np.abs(wide).sum(1), kind="stable")]
+    edge = K7.FENCE_BYTES // 12
+    return {f"targets{len(wide)}": (*m, wide, cap),
+            f"targets{len(wide)}_cap1024": (*m, wide, 1024),
+            "targets174": (*m, G.local_map_offsets(CS.MCFG, cells_xy=6,
+                                                   cells_z=3), cap),
+            "targets75": (*m, G.local_map_offsets(CS.MCFG, cells_xy=3,
+                                                  cells_z=16), cap),
+            f"targets{edge}": (*m, near[:edge], cap),
+            f"targets{edge + 1}": (*m, near[:edge + 1], cap)}
 
 
 def probe_call(build_: dict, tab, code, active):
@@ -253,6 +338,8 @@ def main() -> int:
     ap.add_argument("--also", action="append", default=[],
                     metavar="LABEL=DIR",
                     help="more csrc directories to build, compare and time")
+    ap.add_argument("--fence-bytes", default="",
+                    help="comma-separated kFenceBytes of copies to build")
     ap.add_argument("--out", type=Path,
                     help="also write the JSON object to this file")
     args = ap.parse_args()
@@ -266,7 +353,10 @@ def main() -> int:
     for spec in args.also:
         label, _, path = spec.partition("=")
         variants[label] = Path(path)
-    libs, chase = build(variants, kernels.BUILD_DIR / "experiment")
+    out_dir = kernels.BUILD_DIR / "experiment"
+    for n_bytes in filter(None, args.fence_bytes.split(",")):
+        variants[f"fence{int(n_bytes)}"] = fence_copy(int(n_bytes), out_dir)
+    libs, chase = build(variants, out_dir)
 
     kmap, kbase, pmap, pcode, pvalid, pxyz = bench_inputs(dev)
     k7_cases, probe_cases = CS.map_kernel_cases(kmap, kbase, pmap, pcode,
@@ -292,6 +382,22 @@ def main() -> int:
                 equal[f"k7 {label} vs shipped, {name}"] = "not taken"
                 continue
             record(f"k7 {label} vs shipped, {name}",
+                   all(torch.equal(x, y) for x, y in zip(got, ref)))
+    g_cases = global_cases(kmap, kbase)
+    for name, a in g_cases.items():
+        ref = k7_global_call(libs["shipped"], *a)
+        want = K7.compact_hits_plain(*a)
+        hits[f"global_{name}"] = int(ref[2])
+        record(f"k7 global shipped vs plain, {name}",
+               all(torch.equal(x, y) for x, y in zip(ref, want)))
+        for label in libs:
+            if label == "shipped":
+                continue
+            got = k7_global_call(libs[label], *a)
+            if got is None:
+                equal[f"k7 global {label} vs shipped, {name}"] = "not taken"
+                continue
+            record(f"k7 global {label} vs shipped, {name}",
                    all(torch.equal(x, y) for x, y in zip(got, ref)))
     for name, a in probe_cases.items():
         ref = probe_call(libs["shipped"], *a)
@@ -319,6 +425,19 @@ def main() -> int:
             lambda: probe_call(b, *probe_args), REPS))
         times["table_copy"].append(CS.cuda_ms(lambda: pmap.code.clone(),
                                               REPS))
+    timed = [n for n in g_cases if n in ("targets19883", "targets174",
+                                         "targets75")]
+    g_times = {n: {label: [] for label in libs
+                   if libs[label].get("k7_global")} for n in timed}
+    for n in timed:
+        for label in order:
+            b = libs[label]
+            if b.get("k7_global"):
+                g_times[n][label].append(CS.cuda_ms(
+                    lambda: k7_global_call(b, *g_cases[n]), REPS))
+    # K7's shared-memory kernel's machine code in each build
+    sass = {label: CS.sass_of(out_dir / f"local_map_compact-{label}.so",
+                              "compact_kernelILb1E") for label in libs}
     res = {"nvidia_smi": CS.nvidia_smi_line(),
            "kind": torch.cuda.get_device_name(0), "torch": torch.__version__,
            "cuda": torch.version.cuda, "reps": REPS, "turns": order,
@@ -327,8 +446,19 @@ def main() -> int:
                        for k, t in times.items() if isinstance(t, dict)},
            "table_copy_ms_mean": float(np.mean(times["table_copy"])),
            "l2_chase": chase_l2(chase, dev),
+           "sass_smem_kernel": {
+               label: {"instructions": len(code), "equal_to_earlier":
+                       code == sass["earlier"] if "earlier" in sass else None}
+               for label, code in sass.items()},
+           "k7_global_ms": g_times,
+           "k7_global_ms_mean": {n: {lb: float(np.mean(v))
+                                     for lb, v in t.items()}
+                                 for n, t in g_times.items()},
            "k7_shape": K7.compact_shape(kmap.xyz.shape[0],
                                         len(k7_args[4])),
+           "k7_global_shape": {n: K7.compact_shape(kmap.xyz.shape[0],
+                                                   len(a[4]))
+                               for n, a in g_cases.items()},
            "probe_shape": PI.probe_shape(),
            "occupied": int(kmap.valid.sum()), "n_hits": hits,
            "rounds": rounds,

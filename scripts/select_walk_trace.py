@@ -11,13 +11,18 @@ also when the walk has ended and when the slots are written; read back
 through an added ``liodom_select_trace`` entry point; the kernel's work
 is untouched) and builds it as ``scripts/select_walk_experiment.py`` does.
 The timeline is put in at five lines of code of ``select.cu``
-(``_PATCHES``), each of which must appear there once, exactly as written:
-the script stops if one does not.  On the bench drive's last frame (lane
-0 of ``chip_smoke.py``, 64 x 4096 rings, 88 slots a ring) it runs the
-build 5 times, then once traced, checks the slots against the shipped
-kernel's, and prints one JSON object (and writes it to ``--out``): the
-span and, over the rings, the spread of each phase.  The shipped kernel
-is not changed.
+(``_PATCHES``), each of which must appear there once, exactly as written,
+and at the kernel's end: the script stops if one does not.  On the bench
+drive's last frame (lane 0 of ``chip_smoke.py``, 64 x 4096 rings, 88 slots
+a ring) it runs the build 5 times, then once traced, checks the slots
+against the shipped kernel's; then the same for the device-memory path
+(``liodom_select_edges_global``, where the rank phase is the top-L lists
+and the scratch's tags, and the list of a block's last region is timed in
+its phases: keys, radix select, placing, ordering (with the gap flags),
+writing; six more anchors) on that frame and on ``chip_smoke.WIDE_RINGS``'s
+64 seeded rings; and prints one JSON object (and writes it to ``--out``):
+each run's span and, over the rings, the spread of each phase.  The
+shipped kernel is not changed.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from liodom_tpu_torch.core.config import LiodomConfig  # noqa: E402
 from liodom_tpu_torch.ops import features as F  # noqa: E402
 from liodom_tpu_torch.ops import select_pallas as SEL  # noqa: E402
 
-_SLOTS = 6     # timeline entries a block
+_SLOTS = 12    # timeline entries a block (6 on, the top-L phases)
 # (a line of code in select.cu, the text put after it, or, with a leading
 # "<", before it)
 _PATCHES = (
@@ -62,9 +67,9 @@ __device__ __forceinline__ unsigned long long trace_now() {
     ("  cluster.sync();                          // every list in rank 0\n",
      """  const unsigned long long t_synced = trace_now();
   if (tid == 0 && blockIdx.x < (1 << 15)) {
-    g_trace[blockIdx.x * 6 + 0] = t_start;
-    g_trace[blockIdx.x * 6 + 1] = t_ranked;
-    g_trace[blockIdx.x * 6 + 2] = t_synced;
+    g_trace[blockIdx.x * 12 + 0] = t_start;
+    g_trace[blockIdx.x * 12 + 1] = t_ranked;
+    g_trace[blockIdx.x * 12 + 2] = t_synced;
   }
 """),
     ("<  cluster.sync();                          // every list in rank 0\n",
@@ -72,15 +77,48 @@ __device__ __forceinline__ unsigned long long trace_now() {
     ("  __syncthreads();\n\n  for (int k = tid; k < slots; k += kThreads) {\n",
      None),
 )
-_WALKED = """  if (tid == 0 && blockIdx.x < (1 << 15))
-    g_trace[blockIdx.x * 6 + 3] = trace_now();
-"""
-_END = """  __syncthreads();
-  if (tid == 0 && blockIdx.x < (1 << 15))
-    g_trace[blockIdx.x * 6 + 4] = trace_now();
+# the device-memory path's top-L list of a region (region_list_topl): its
+# phases' durations, the block's last region's, at slots 6-10
+_TOPL_PATCHES = (
+    ("  const int n = min(cap, len);\n",
+     "  const unsigned long long tq0 = trace_now();\n"),
+    ("<  // the radix select: prefix/mask the digits found, k the rank left "
+     "among\n", "  const unsigned long long tq1 = trace_now();\n"),
+    ("<  // the kept entries into buf as key << 32 | column: below the prefix "
+     "(and\n", "  const unsigned long long tq2 = trace_now();\n"),
+    ("<  // the keys are done: where the entries' neighbourhoods cover the "
+     "region\n", "  const unsigned long long tq3 = trace_now();\n"),
+    ("<  // (value, column | reach << 24) at its place: a pick at b "
+     "suppresses\n", "  const unsigned long long tq4 = trace_now();\n"),
+    ("<  __syncthreads();                        // s_key, work, buf reused"
+     "\n}\n", None),
+)
+_TOPL_END = """  __syncthreads();                        // s_key, work, buf reused
+  if (threadIdx.x == 0 && blockIdx.x < (1 << 15)) {
+    const unsigned long long tq5 = trace_now();
+    unsigned long long* g = g_trace + blockIdx.x * 12 + 6;
+    g[0] = tq1 - tq0;
+    g[1] = tq2 - tq1;
+    g[2] = tq3 - tq2;
+    g[3] = tq4 - tq3;
+    g[4] = tq5 - tq4;
+  }
 }
-
-}  // namespace
+"""
+_WALKED = """  if (tid == 0 && blockIdx.x < (1 << 15))
+    g_trace[blockIdx.x * 12 + 3] = trace_now();
+"""
+# the kernel's end: its last slot write
+_TAIL = """    pts[slot * 3 + 2] = pick ? p[3 * c + 2] : 0.0f;
+  }
+}
+"""
+_END = """    pts[slot * 3 + 2] = pick ? p[3 * c + 2] : 0.0f;
+  }
+  __syncthreads();
+  if (tid == 0 && blockIdx.x < (1 << 15))
+    g_trace[blockIdx.x * 12 + 4] = trace_now();
+}
 """
 _READ = """
 extern "C" int liodom_select_trace(void* host, int n) {
@@ -106,16 +144,67 @@ def traced_source(out: Path) -> Path:
         else:
             src = src.replace(anchor, text + anchor if before
                               else anchor + text)
-    tail = "}\n\n}  // namespace\n"
-    if src.count(tail) != 1:
+    for anchor, text in _TOPL_PATCHES:
+        before = anchor.startswith("<")
+        anchor = anchor.lstrip("<")
+        if src.count(anchor) != 1:
+            raise SystemExit(f"select_walk_trace: anchor not found once: "
+                             f"{anchor!r}")
+        if text is None:                 # the list's end
+            src = src.replace(anchor, _TOPL_END)
+        else:
+            src = src.replace(anchor, text + anchor if before
+                              else anchor + text)
+    if src.count(_TAIL) != 1:
         raise SystemExit("select_walk_trace: the kernel's end not found once")
-    src = src.replace(tail, _END) + _READ
+    src = src.replace(_TAIL, _END) + _READ
     (out / "select.cu").write_text(src)
     return out
 
 
 def pct(x) -> list:
     return np.percentile(x, [0, 50, 90, 100]).tolist()
+
+
+def timeline(lib, shipped, img, sm, cfg, call, blocks) -> dict:
+    """``call(lib, img, sm, cfg)`` of the traced build 5 times, then once
+    traced, its slots against the shipped build's; the timeline's span and
+    each phase's spread over the rings (``blocks`` a ring's cluster, rank 0
+    the walker)."""
+    for _ in range(5):
+        call(lib, img, sm, cfg)
+    torch.cuda.synchronize()
+    got = call(lib, img, sm, cfg)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in
+               zip(got, call(shipped, img, sm, cfg)))
+    rings = img.xyz.shape[0]
+    n = rings * blocks
+    buf = np.zeros(n * _SLOTS, dtype=np.uint64)
+    kernels.check(lib.liodom_select_trace(buf.ctypes.data, n * _SLOTS),
+                  "liodom_select_trace")
+    t = buf.reshape(rings, blocks, _SLOTS).astype(np.int64)
+    t0 = t[:, :, 0].min()
+    us = (t[:, :, :5] - t0) / 1e3
+    root = us[:, 0]
+    topl = t[:, :, 6:11] / 1e3             # durations, us
+    topl = topl[topl.sum(-1) > 0]          # the blocks that built a list
+    if not len(topl):
+        topl = np.zeros((1, 5))
+    return {"slots_equal": same, "rings": rings, "cluster_blocks": blocks,
+            "span_us": float(root[:, 4].max()),
+            "topl_us_percentiles_0_50_90_100": {
+                name: pct(topl[:, j]) for j, name in enumerate(
+                    ("keys", "radix_select", "placed", "ordered",
+                     "written"))},
+            "us_percentiles_0_50_90_100": {
+                "block_start": pct(us[:, :, 0]),
+                "rank_phase_per_block": pct(us[:, :, 1] - us[:, :, 0]),
+                "cluster_barrier_wait_rank0": pct(root[:, 2] - root[:, 1]),
+                "ring_lists_ready": pct(us[:, :, 1].max(axis=1)),
+                "walk_rank0": pct(root[:, 3] - root[:, 2]),
+                "slots_written_rank0": pct(root[:, 4] - root[:, 3]),
+                "ring_end": pct(root[:, 4])}}
 
 
 def main() -> int:
@@ -135,36 +224,31 @@ def main() -> int:
     cfg = LiodomConfig(local_map_size=5)
     img = CS.render_lanes(cfg, dev, [0], noise=0.01)[0][0][-1]
     sm = F.smoothness(img, cfg)
-    for _ in range(5):
-        X.select(lib, img, sm, cfg)
-    torch.cuda.synchronize()
-    got = X.select(lib, img, sm, cfg)
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in
-               zip(got, X.select(libs["shipped"][0], img, sm, cfg)))
-    rings = img.xyz.shape[0]
-    blocks = SEL.select_shape(img.xyz.shape[1], cfg.scan_regions,
-                              cfg.max_edges_per_region)["cluster_blocks"]
-    n = rings * blocks
-    buf = np.zeros(n * _SLOTS, dtype=np.uint64)
-    kernels.check(lib.liodom_select_trace(buf.ctypes.data, n * _SLOTS),
-                  "liodom_select_trace")
-    t = buf.reshape(rings, blocks, _SLOTS).astype(np.int64)
-    t0 = t[:, :, 0].min()
-    us = (t - t0) / 1e3
-    root = us[:, 0]
     res = {"nvidia_smi": CS.nvidia_smi_line(),
-           "kind": torch.cuda.get_device_name(0), "slots_equal": same,
-           "rings": rings, "cluster_blocks": blocks,
-           "span_us": float(root[:, 4].max()),
-           "us_percentiles_0_50_90_100": {
-               "block_start": pct(us[:, :, 0]),
-               "rank_phase_per_block": pct(us[:, :, 1] - us[:, :, 0]),
-               "cluster_barrier_wait_rank0": pct(root[:, 2] - root[:, 1]),
-               "ring_lists_ready": pct(us[:, :, 1].max(axis=1)),
-               "walk_rank0": pct(root[:, 3] - root[:, 2]),
-               "slots_written_rank0": pct(root[:, 4] - root[:, 3]),
-               "ring_end": pct(root[:, 4])}}
+           "kind": torch.cuda.get_device_name(0),
+           **timeline(lib, libs["shipped"][0], img, sm, cfg, X.select,
+                      SEL.select_shape(img.xyz.shape[1], cfg.scan_regions,
+                                       cfg.max_edges_per_region)[
+                                           "cluster_blocks"])}
+    # the device-memory path: the bench frame, then WIDE_RINGS on 64
+    # seeded rings (chip_smoke's seeds)
+    cases = {"bench_frame": (img, sm, cfg)}
+    for seed, (w, picks) in enumerate(CS.WIDE_RINGS):
+        c = cfg.replace(edges_per_region=picks, ring_width=w)
+        cases[f"wide_{w}x{c.scan_regions * (picks + 1)}"] = (
+            *CS.wide_planes(dev, 64, w, seed), c)
+    res["global_path"] = {}
+    for name, (wimg, wsm, c) in cases.items():
+        r, w = wsm.shape
+        shape = X.global_shape(lib, w, c)
+        scratch = torch.empty(r * shape[3] + 16, dtype=torch.uint8,
+                              device=dev)
+        res["global_path"][name] = {"shape": shape, **timeline(
+            lib, libs["shipped"][0], wimg, wsm, c,
+            lambda lb, i, s_, c_: X.select_global(lb, i, s_, c_, scratch),
+            shape[5])}
+    same = res["slots_equal"] and all(
+        v["slots_equal"] for v in res["global_path"].values())
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(res, indent=1))

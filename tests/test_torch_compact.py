@@ -11,6 +11,12 @@ compact_pallas.py`` and ``mapping/grid.py:get_local_map``), on the CPU.
   ``update_map`` and carried across with ``map_state_from_numpy``: rows,
   validity and ``n_hits`` exact, including a capacity below the hit count
   (the exact cut) and one above the map's row count.
+* ``compact_hits_fenced``, the model of the device-memory path's fenced
+  search (every s-th sorted offset, then log2 s steps in the offsets),
+  against ``compact_hits_plain`` and JAX ``get_local_map`` (its
+  neighbourhood and base set to the case's) at K = 0, 1, 15, 16, 17, 174
+  and 19,883 targets, strides 1, 2, 8 and 64 and the launch's, with keys
+  on, beside and away from the targets and a base whose key - base wraps.
 """
 
 import functools
@@ -18,6 +24,7 @@ import importlib.util
 from pathlib import Path
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -254,3 +261,59 @@ def test_chunked_membership_is_the_whole_compare(chunk):
         got = K7._membership(key, valid, base, offs, chunk=chunk)
         assert torch.equal(got, whole)
         assert 0 < int(got.sum()) < int(valid.sum())
+
+
+def _fenced_case(n_targets):
+    """(offsets, xyz, key, valid) of a 2,048-row map around the targets:
+    n_targets of cells_xy=70's 19,883 offsets (all of them at that K), half
+    the rows' keys on a target, a quarter a step beside one, the rest
+    random; keys relative to a base of 0."""
+    rng = np.random.default_rng(n_targets)
+    every = G.local_map_offsets(MapConfig(), cells_xy=70)
+    offs = (every if n_targets == len(every)
+            else every[rng.permutation(len(every))[:n_targets]])
+    rows = 2048
+    key = rng.integers(-3000, 3000, (rows, 3))
+    if n_targets:
+        on = offs[rng.integers(0, n_targets, rows)].astype(np.int64)
+        beside = on + np.eye(3, dtype=np.int64)[rng.integers(0, 3, rows)] * \
+            rng.choice([-1, 1], (rows, 1))
+        pick = rng.random(rows)
+        key = np.where(pick[:, None] < 0.5, on,
+                       np.where(pick[:, None] < 0.75, beside, key))
+    xyz = rng.normal(size=(rows, 3)).astype(np.float32)
+    return offs, xyz, key.astype(np.int64), rng.random(rows) < 0.8
+
+
+@pytest.mark.parametrize("n_targets", [0, 1, 15, 16, 17, 174, 19883])
+def test_fenced_search_matches_plain_and_jax(n_targets, monkeypatch):
+    offs, xyz, rel, valid = _fenced_case(n_targets)
+    jcfg = JMapConfig(map_capacity=len(xyz))
+    for base in (np.array([5, -3, 1], np.int32),
+                 np.array([2**31 - 20, -2**31 + 30, 2**31 - 1], np.int32)):
+        key = ((rel + base + 2**31) % 2**32 - 2**31).astype(np.int32)
+        if base[0] > 2**30 and n_targets:        # key - base wraps
+            assert ((key.astype(np.int64) - base) != rel).any()
+        t = [torch.from_numpy(a) for a in (xyz, key, valid, base)]
+        jstate = JG.MapState(jnp.asarray(xyz), jnp.asarray(key),
+                             jnp.asarray(valid), jnp.int32(0),
+                             jnp.zeros(len(xyz), jnp.uint32),
+                             jnp.zeros(len(xyz), jnp.uint32))
+        monkeypatch.setattr(JG, "local_map_offsets", lambda *a, **k: offs)
+        monkeypatch.setattr(JG, "cell_keys",
+                            lambda *a, **k: jnp.asarray(base))
+        for cap in (300, 4096):
+            want = K7.compact_hits_plain(*t, offs, cap)
+            with jax.disable_jit():     # the patched module globals
+                jx, jv, jn = JG.get_local_map(jstate, jnp.zeros(3), jcfg,
+                                              capacity=cap)
+            assert int(want[2]) == int(jn)
+            np.testing.assert_array_equal(want[0].numpy(), np.asarray(jx))
+            np.testing.assert_array_equal(want[1].numpy(), np.asarray(jv))
+            for stride in (1, 2, 8, 64, None):
+                got = K7.compact_hits_fenced(*t, offs, cap, stride=stride)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (base, cap, stride)
+        if n_targets:
+            assert 0 < int(want[2]) < int(valid.sum())
+    assert K7.fence_stride(n_targets) == (8 if n_targets == 19883 else 1)

@@ -101,10 +101,11 @@ def test_select_kernel_at_168_slots_bit_exact(dev):
     assert int(got.valid.sum()) > 1000
 
 
-def _wide_planes(dev, rings, width, seed=3):
+def _wide_planes(dev, rings, width, seed=3, counts=()):
     """Rings of ``width`` columns sampled every 5 cm along gentle curves,
-    ~12 % of the gaps broken, counts near the width, and a smoothness
-    plane quantised to 1/8, from ``seed``."""
+    ~12 % of the gaps broken, counts near the width (the first rings'
+    ``counts`` where given), and a smoothness plane quantised to 1/8, from
+    ``seed``."""
     rng = np.random.default_rng(seed)
     s = np.cumsum(np.where(rng.random((rings, width)) < 0.12, 0.4, 0.05),
                   axis=1)
@@ -113,6 +114,7 @@ def _wide_planes(dev, rings, width, seed=3):
                     0.1 * np.sin(s * 0.3 + off)], -1).astype(np.float32)
     count = (width - rng.integers(0, 2000, rings)).astype(np.int32)
     count[5] = 20                    # below min_points
+    count[:len(counts)] = counts
     xyz[np.arange(width)[None, :] >= count[:, None]] = 0.0
     sm = (np.round(rng.random((rings, width)) * 8.0) / 8.0).astype(np.float32)
     return (RingImage(torch.from_numpy(xyz).to(dev),
@@ -142,30 +144,91 @@ def test_select_kernel_on_rings_too_wide_for_shared_memory(dev, width,
     assert int(got.valid.sum()) > 0.8 * 63 * cfg.scan_regions * (picks + 1)
 
 
-@pytest.mark.parametrize("picks,where", [(289, "values"), (329, "lists")])
-def test_select_global_path_with_values_or_lists_in_scratch(dev, picks,
-                                                            where):
-    """K2's device-memory path at 64 rings x 49,152 columns in each of its
-    layouts: at 8 x 290 slots a region's values leave shared memory for the
-    device scratch, at 8 x 330 the lists and slots do (handed to rank 0
-    through global memory); bit for bit against select_plain."""
-    width = 49152
-    cfg = LiodomConfig(edges_per_region=picks, ring_width=width)
-    lay = SEL.select_global_shape(width, cfg.scan_regions,
-                                  cfg.max_edges_per_region)
-    img, sm = _wide_planes(dev, 64, width, seed=4)
+def _select_layout_case(dev, img, sm, cfg, where):
+    """K2's device-memory path on ``img`` in the layout ``where`` names
+    ("values": a region's order keys past shared memory; "lists": the
+    lists and slots in the scratch; "neither"; None: not checked), bit for
+    bit against select_plain."""
+    regions, mp = cfg.scan_regions, cfg.max_edges_per_region
+    w = img.xyz.shape[1]
+    lay = SEL.select_global_shape(w, regions, mp)
     total = torch.clamp(img.count - 10, min=0)
-    longest = int((total - total // cfg.scan_regions
-                   * (cfg.scan_regions - 1)).max())
+    longest = int((total - total // regions * (regions - 1)).max())
     assert lay["lists_in_scratch"] == (where == "lists")
-    assert (lay["values_in_smem"] < longest) == (where == "values")
+    if where is not None:
+        assert (lay["keys_in_smem"] < longest) == (where == "values")
+    assert lay["cluster_blocks"] == min(regions, 8)
     bidx, bval, pts = SEL.select_slots_global(img, sm, cfg)
     reach = SEL._reach_plane(img.xyz, cfg.neighbor_gap_sq)
     pidx, pval = SEL.select_plain(sm, reach, img.count, cfg)
     assert torch.equal(bidx, pidx) and torch.equal(bval != 0, pval)
     want = SEL.select_edges_plain(img, sm, cfg)
     assert torch.equal(pts.reshape(-1, 3), want.xyz)
-    assert int(pval.sum()) > 0.8 * 63 * cfg.scan_regions * (picks + 1)
+    assert int(pval.sum()) > 0.8 * (img.count.shape[0] - 1) * regions * mp
+
+
+@pytest.mark.parametrize("picks,where", [(289, "values"), (329, "lists")])
+def test_select_global_path_with_values_or_lists_in_scratch(dev, picks,
+                                                            where):
+    """K2's device-memory path at 64 rings x 49,152 columns in each of its
+    layouts: at 8 x 290 slots a region's order keys leave shared memory
+    (each radix pass reads the plane), at 8 x 330 the lists and slots go to
+    the device scratch (handed to rank 0 through global memory); bit for
+    bit against select_plain."""
+    cfg = LiodomConfig(edges_per_region=picks, ring_width=49152)
+    img, sm = _wide_planes(dev, 64, 49152, seed=4)
+    _select_layout_case(dev, img, sm, cfg, where)
+
+
+def test_select_global_path_either_side_of_its_layout_boundaries(dev):
+    """K2's top-L path at 16 rings x 49,152 columns at the last slot count
+    whose regions' keys shared memory holds and the first past it, and at
+    the last whose lists and slots it holds and the first past it (found
+    from select_global_shape): bidx, bval and the points bit for bit
+    against select_plain."""
+    width, regions = 49152, 8
+    img, sm = _wide_planes(dev, 16, width, seed=5)
+    total = torch.clamp(img.count - 10, min=0)
+    longest = int((total - total // regions * (regions - 1)).max())
+    shapes = {mp: SEL.select_global_shape(width, regions, mp)
+              for mp in range(1, 400)}
+    keys_edge = min(mp for mp, lay in shapes.items()
+                    if lay["keys_in_smem"] < longest) - 1
+    lists_edge = min(mp for mp, lay in shapes.items()
+                     if lay["lists_in_scratch"]) - 1
+    assert keys_edge < lists_edge
+    for mp, where in ((keys_edge, "neither"), (keys_edge + 1, "values"),
+                      (lists_edge, None), (lists_edge + 1, "lists")):
+        cfg = LiodomConfig(edges_per_region=mp - 1, ring_width=width)
+        _select_layout_case(dev, img, sm, cfg, where)
+
+
+@pytest.mark.parametrize("picks", [10, 329])
+def test_select_global_path_on_regions_no_longer_than_the_list(dev, picks):
+    """K2's top-L path where a region has at most L = 11 max_picks + 5
+    columns (the radix select skipped, every entry ranked): 16 rings x
+    49,152 columns at 88 and 8 x 330 slots, the first rings' counts at and
+    either side of min_points and 10 + 8 L; such regions, shorter than L
+    and of exactly L, occur, and bidx, bval and the points are bit for bit
+    select_plain's."""
+    width, regions = 49152, 8
+    cfg = LiodomConfig(edges_per_region=picks, ring_width=width)
+    big_l = SEL.walk_list_len(cfg.max_edges_per_region)
+    lo, top = cfg.min_points_per_scan, 10 + regions * big_l
+    counts = (lo - 1, lo, lo + 37, (lo + top) // 2, top - 1, top, top + 1)
+    img, sm = _wide_planes(dev, 16, width, seed=6, counts=counts)
+    total = torch.clamp(img.count.long() - 10, min=0)
+    lens = (total // regions)[:, None].repeat(1, regions)
+    lens[:, -1] = total - total // regions * (regions - 1)
+    lens = lens[img.count >= lo]
+    assert int((lens < big_l).sum()) > 0 and int((lens == big_l).sum()) > 0
+    bidx, bval, pts = SEL.select_slots_global(img, sm, cfg)
+    reach = SEL._reach_plane(img.xyz, cfg.neighbor_gap_sq)
+    pidx, pval = SEL.select_plain(sm, reach, img.count, cfg)
+    assert torch.equal(bidx, pidx) and torch.equal(bval != 0, pval)
+    want = SEL.select_edges_plain(img, sm, cfg)
+    assert torch.equal(pts.reshape(-1, 3), want.xyz)
+    assert int(pval.sum()) > 0
 
 
 def test_select_global_path_at_the_bench_shape(dev):
@@ -559,6 +622,43 @@ def test_local_map_compact_global_path_at_any_target_count(dev):
                 got = K7.compact_hits_global_cuda(*args)
                 want = K7.compact_hits_plain(*args)
                 assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_local_map_compact_global_path_either_side_of_a_stride_change(dev):
+    """K7's fenced search (the device-memory path) at target counts either
+    side of each fence-stride change up to cells_xy=70's 19,883 (stride
+    8), just past a multiple of the stride, and at 0 and 17, on 65,537
+    rows with keys on, beside and away from the targets, around a plain
+    base and one whose key - base wraps int32: rows, validity and n_hits
+    bit for bit against the plain version; the library's stride is the
+    wrapper's."""
+    rng = np.random.default_rng(15)
+    every = G.local_map_offsets(MapConfig(), cells_xy=70)
+    rows = 65537
+    xyz = torch.from_numpy(rng.normal(size=(rows, 3)).astype(np.float32))
+    valid = torch.from_numpy(rng.random(rows) < 0.8).to(dev)
+    counts = [0, 17, 2730, 2731, 5460, 5461, 8 * 1000 + 1, len(every)]
+    for n in counts:
+        offs = every[rng.permutation(len(every))[:n]]
+        shape = K7.compact_shape(rows, n)
+        assert shape["fence_stride"] == K7.fence_stride(n)
+        rel = rng.integers(-3000, 3000, (rows, 3))
+        if n:
+            on = offs[rng.integers(0, n, rows)].astype(np.int64)
+            side = on + np.eye(3, dtype=np.int64)[rng.integers(0, 3, rows)]
+            pick = rng.random(rows)[:, None]
+            rel = np.where(pick < 0.5, on, np.where(pick < 0.75, side, rel))
+        for base in (np.array([5, -3, 1]), np.array([2**31 - 20, -2**31 + 30,
+                                                     2**31 - 1])):
+            key = ((rel + base + 2**31) % 2**32 - 2**31).astype(np.int32)
+            args = (xyz.to(dev), torch.from_numpy(key).to(dev), valid,
+                    torch.from_numpy(base.astype(np.int32)).to(dev), offs)
+            for cap in (1024, 65536):
+                got = K7.compact_hits_global_cuda(*args, cap)
+                want = K7.compact_hits_plain(*args, cap)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+                assert (int(want[2]) > 1024) == (n > 0)
+    assert [K7.fence_stride(n) for n in counts] == [1, 1, 1, 2, 2, 4, 4, 8]
 
 
 def _probe_equal(tab, code, active):

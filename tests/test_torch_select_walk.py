@@ -21,6 +21,14 @@ JAX kernel's 128 slots a ring.
   88, 2 x 38,741 at S = 424, made from a seed): the port's
   ``select_edges`` against JAX ``select_edges`` bit for bit, and the walk
   against ``select_plain``.
+* ``select_lists_topl``, the device-memory path's list construction (order
+  keys, a radix select of the L-th key, the ties at it taken in column
+  order, a sorting network): every region's list equal to the sorted cut
+  ``sorted(range(start, end), key=(-v, c))[:L]`` and, through
+  ``select_walk(lists="topl")``, the slots equal to ``select_plain``'s, on
+  the bench frame, its 1/8-quantised plane, +-0.0 under -0.5, -inf, NaN
+  (the kernel's fold: NaN is -inf), denormals, all-equal regions, regions
+  shorter than L, regions of exactly L columns and the wide rings above.
 """
 
 import functools
@@ -230,3 +238,93 @@ def test_select_edges_on_rings_too_wide_for_shared_memory_matches_jax(
                                           img.count, cfg)
     assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
     assert stats["overflow"] == 0
+
+
+def _topl_scene(name):
+    """(xyz, count, smooth, cfg) of a named scene of the top-L test."""
+    if name in ("bench", "quantised", "signed_zero", "neg_inf",
+                "cross_region"):
+        return _planes(name, 88)
+    if name.startswith("wide"):
+        width, picks = {"wide49152": (49152, 10),
+                        "wide38741": (38741, 52)}[name]
+        xyz, count, sm = _wide_rings(width, width)
+        return (torch.from_numpy(xyz), torch.from_numpy(count),
+                torch.from_numpy(sm),
+                LiodomConfig(edges_per_region=picks, ring_width=width))
+    width = 256 if name == "l_equals_len" else 512
+    xyz, count = _dense_ring_image(5, width=width)
+    rng = np.random.default_rng(11)
+    sm = rng.random(xyz.shape[:2]).astype(np.float32)
+    # L = 38 against regions of 3 to 62 columns: some cut, some shorter
+    cfg = LiodomConfig(edges_per_region=2)
+    if name == "nan":
+        sm = np.where(rng.random(sm.shape) < 0.3, np.nan, sm - 0.5)
+        cfg = cfg.replace(smoothness_threshold=-1.0)
+    elif name == "denormal":
+        # a few distinct subnormals of either sign, with +-0.0
+        sm = np.round(rng.standard_normal(sm.shape) * 2) * 1e-41
+        cfg = cfg.replace(smoothness_threshold=-1.0)
+    elif name == "all_equal":
+        sm = np.full(sm.shape, 0.75)
+    else:                            # l_equals_len: 27-column regions, L 27
+        cfg = cfg.replace(edges_per_region=1)
+        big_l = SEL.walk_list_len(cfg.max_edges_per_region)
+        count = torch.full_like(count, 10 + cfg.scan_regions * big_l)
+        count[3] = 12
+    return xyz, count, torch.from_numpy(sm.astype(np.float32)), cfg
+
+
+TOPL_SCENES = ["bench", "quantised", "signed_zero", "neg_inf", "nan",
+               "denormal", "all_equal", "cross_region", "l_equals_len",
+               "wide49152", "wide38741"]
+
+
+@pytest.mark.parametrize("name", TOPL_SCENES)
+def test_topl_lists_are_the_sorted_cut(name):
+    """The device-memory path's lists (``select_lists_topl``, its radix
+    select and sort as the kernel runs them) against the sorted cut, region
+    by region, and the walk over them against the plain pick chain."""
+    xyz, count, sm, cfg = _topl_scene(name)
+    n_regions, max_picks = cfg.scan_regions, cfg.max_edges_per_region
+    big_l = SEL.walk_list_len(max_picks)
+    folded = (torch.where(torch.isnan(sm), float("-inf"), sm) + 0.0)
+    lens, tie_cut = [], 0
+    for ring in range(sm.shape[0]):
+        total = max(int(count[ring]) - 10, 0)
+        sector = total // n_regions
+        row = folded[ring].tolist()
+        for j in range(n_regions):
+            start = 5 + sector * j
+            end = min(5 + (total if j == n_regions - 1
+                           else sector * (j + 1)), sm.shape[1])
+            n = max(end - start, 0)
+            want = sorted(range(start, start + n),
+                          key=lambda c: (-row[c], c))[:big_l]
+            got = (SEL.select_lists_topl(sm[ring, start:start + n], big_l)
+                   + start).tolist()
+            assert got == want, (ring, j)
+            lens.append(n)
+            if n > big_l:            # the ties at the L-th value were cut
+                cut = row[want[-1]]
+                tie_cut += (sum(v == cut for v in row[start:start + n])
+                            > sum(row[c] == cut for c in want))
+    reach = SEL._reach_plane(xyz, cfg.neighbor_gap_sq)
+    want_i, want_v = SEL.select_plain(folded, reach, count, cfg)
+    got_i, got_v, stats = SEL.select_walk(sm, reach, count, cfg,
+                                          lists="topl")
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    assert stats["overflow"] == 0
+    assert int(want_v.sum()) > 0
+    if name in ("quantised", "wide49152", "wide38741", "all_equal",
+                "denormal"):
+        assert tie_cut > 0
+    if name in ("cross_region", "nan", "denormal", "all_equal"):
+        assert 0 < min(n for n in lens if n) < big_l
+    if name == "l_equals_len":
+        assert lens.count(big_l) >= 8 * 15
+    if name == "nan":
+        assert bool(torch.isnan(sm).any())
+    if name == "denormal":
+        tiny = sm[(sm != 0)].abs()
+        assert bool((tiny < 1.17549435e-38).all())
