@@ -81,13 +81,28 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="torch device; CUDA unless given (cpu runs the "
                     "kernels' plain versions)")
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="record the program's spans and counters "
+                    "(runtime/tracer) and write them to FILE at exit as a "
+                    "Chrome trace")
     return ap.parse_args(argv)
 
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:
-    """Run the app; returns its report (``rc`` is the exit code)."""
+    """Run the app; returns its report (``rc`` is the exit code).  With
+    ``--trace-out`` the span recorder is armed for the whole run and its
+    record written at the end (``trace_out`` in the report)."""
     args = parse_args(argv)
+    if not args.trace_out:
+        return _run(args)
+    from liodom_tpu_torch.runtime import tracer
+    with tracer.exported(args.trace_out, args.device):
+        report = _run(args)
+    report["trace_out"] = args.trace_out
+    return report
 
+
+def _run(args: argparse.Namespace) -> dict:
     import torch
 
     from liodom_tpu_torch.core.config import LiodomConfig, MapConfig

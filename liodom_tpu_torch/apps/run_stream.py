@@ -92,13 +92,28 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="torch device; CUDA unless given (cpu runs the "
                     "kernels' plain versions)")
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="record the program's spans and counters "
+                    "(runtime/tracer) and write them to FILE at exit as a "
+                    "Chrome trace")
     return ap.parse_args(argv)
 
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:
-    """Run the app; returns its report (``rc`` is the exit code)."""
+    """Run the app; returns its report (``rc`` is the exit code).  With
+    ``--trace-out`` the span recorder is armed for the whole run and its
+    record written at the end (``trace_out`` in the report)."""
     args = parse_args(argv)
+    if not args.trace_out:
+        return _run(args)
+    from liodom_tpu_torch.runtime import tracer
+    with tracer.exported(args.trace_out, args.device):
+        report = _run(args)
+    report["trace_out"] = args.trace_out
+    return report
 
+
+def _run(args: argparse.Namespace) -> dict:
     import torch
 
     from liodom_tpu_torch.core.config import LiodomConfig, MapConfig
@@ -116,6 +131,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                                                     device_name,
                                                     path_kernels,
                                                     prepare_kernels)
+    from liodom_tpu_torch.runtime import tracer
     from liodom_tpu_torch.runtime.publisher import OdomPublisher
 
     dev = resolve_device(args.device)
@@ -257,8 +273,11 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                     state = P.set_received_map(state, fresh[0], fresh[1])
             state, pose, _ = P.image_step(state, *stager.put(img, counts),
                                           cfg)
-            with audit.allowed():          # blocking: the live pose-out
-                mat = pose.matrix().cpu().numpy().astype(np.float64)
+            with audit.allowed(), tracer.span("fetch"):
+                # blocking: the live pose-out
+                with tracer.span("fetch.copy", device=True):
+                    mat = pose.matrix().cpu().numpy().astype(np.float64)
+                tracer.anchor()
             if args.engine_delay:
                 time.sleep(args.engine_delay)
             if args.mapping:

@@ -35,6 +35,7 @@ from liodom_tpu_torch.odometry.pipeline import (OdomState, init_state,
                                                 odometry_step)
 from liodom_tpu_torch.ops.features import (extract_features, select_edges,
                                            smoothness)
+from liodom_tpu_torch.runtime import tracer
 
 
 def init_combined(cfg: LiodomConfig, mcfg: MapConfig, device=None
@@ -58,8 +59,11 @@ def _refresh_local_map(odom_state: OdomState, map_state: MapState,
     276-279)."""
     if every > 1 and step is not None and step % every != 0:
         return odom_state
-    loc_xyz, loc_valid, _n_hits = get_local_map(
+    loc_xyz, loc_valid, n_hits = get_local_map(
         map_state, pose.t, mcfg, capacity=mcfg.local_map_capacity)
+    if tracer.RECORDER.on:
+        tracer.count("local_map.rows",
+                     n_hits.clamp(max=mcfg.local_map_capacity))
     return odom_state._replace(received_xyz=loc_xyz,
                                received_valid=loc_valid)
 
@@ -86,9 +90,11 @@ def _combined(odom_state: OdomState, map_state: MapState, edges: EdgeCloud,
     last frame, the edges inserted at the solved pose, the refreshed local
     map handed to the next frame."""
     new_odom, pose = _odom_only(odom_state, edges, cfg, t_laser_base)
-    map_state = update_map(map_state, edges.xyz, edges.valid, pose, mcfg)
-    new_odom = _refresh_local_map(new_odom, map_state, pose, mcfg, step,
-                                  every)
+    with tracer.span("map.update", device=True):
+        map_state = update_map(map_state, edges.xyz, edges.valid, pose, mcfg)
+    with tracer.span("map.local", device=True):
+        new_odom = _refresh_local_map(new_odom, map_state, pose, mcfg, step,
+                                      every)
     return new_odom, map_state, pose, edges.num_valid()
 
 
@@ -125,10 +131,12 @@ def combined_image_step(odom_state: OdomState, map_state: MapState,
     the extraction to the async mapper's cadence.  Returns (odom state, map
     state, pose, n_edges as a 0-d tensor); the input states are untouched."""
     _check_devices(odom_state, map_state, img_xyz, img_count)
-    img = RingImage(img_xyz, img_count)
-    edges = select_edges(img, smoothness(img, cfg), cfg)
-    return _combined(odom_state, map_state, edges, cfg, mcfg, step,
-                     local_map_every, t_laser_base)
+    with tracer.span("step", device=True):
+        img = RingImage(img_xyz, img_count)
+        with tracer.span("features", device=True):
+            edges = select_edges(img, smoothness(img, cfg), cfg)
+        return _combined(odom_state, map_state, edges, cfg, mcfg, step,
+                         local_map_every, t_laser_base)
 
 
 def chained_combined_image_step(odom_state: OdomState, map_state: MapState,

@@ -37,6 +37,7 @@ from liodom_tpu_torch.ops.knn_pallas import spatial_sort_points
 from liodom_tpu_torch.ops.neighbors import line_correspondences
 from liodom_tpu_torch.ops.solver import lm_solve
 from liodom_tpu_torch.ops.voxel import voxel_downsample
+from liodom_tpu_torch.runtime.tracer import span
 
 
 class OdomState(NamedTuple):
@@ -130,17 +131,20 @@ def odometry_step(state: OdomState, edges: EdgeCloud, cfg: LiodomConfig,
     state and edges (B, E, ...) step B independent sequences."""
     # front-compact the edges so the kNN kernel can skip all-padding query
     # tiles
-    exyz, evalid = local_map.compact(edges.xyz, edges.valid)
+    with span("features", device=True):
+        exyz, evalid = local_map.compact(edges.xyz, edges.valid)
 
-    map_xyz, map_valid = _matching_map(state, cfg)
-    map_presorted = False
-    if map_xyz.is_cuda:
-        # spatially order the matching map once a frame: both solver
-        # iterations query the same map, so the kNN wrapper skips its own
-        # ref sort.  The global sort merges the frames' co-located points
-        # into shared tiles, which is what makes the tile pruning work.
-        map_xyz, map_valid = spatial_sort_points(map_xyz, map_valid)
-        map_presorted = True
+    with span("knn", device=True):
+        map_xyz, map_valid = _matching_map(state, cfg)
+        map_presorted = False
+        if map_xyz.is_cuda:
+            # spatially order the matching map once a frame: both solver
+            # iterations query the same map, so the kNN wrapper skips its
+            # own ref sort.  The global sort merges the frames' co-located
+            # points into shared tiles, which is what makes the tile
+            # pruning work.
+            map_xyz, map_valid = spatial_sort_points(map_xyz, map_valid)
+            map_presorted = True
 
     # constant-velocity prediction (laser_odometry.cc:148-150)
     pred = se3.compose(state.odom,
@@ -153,22 +157,27 @@ def odometry_step(state: OdomState, edges: EdgeCloud, cfg: LiodomConfig,
 
     # 2x outer re-association, each: transform -> kNN/line fit -> 4-iter LM
     for _ in range(cfg.outer_iters):
-        edges_world = se3.transform(pose, exyz)
-        corr = line_correspondences(
-            edges_world, evalid, map_xyz, map_valid, k=cfg.knn_k,
-            max_sq_dist=cfg.knn_max_sq_dist, eig_ratio=cfg.eig_ratio,
-            min_line_sep=cfg.min_line_sep, map_presorted=map_presorted)
-        pose = lm_solve(pose, exyz, corr.lpa, corr.lpb, corr.valid,
-                        min_range=cfg.min_range, max_range=cfg.max_range,
-                        huber_delta=cfg.huber_delta, iters=cfg.inner_iters)
+        with span("knn", device=True):
+            edges_world = se3.transform(pose, exyz)
+            corr = line_correspondences(
+                edges_world, evalid, map_xyz, map_valid, k=cfg.knn_k,
+                max_sq_dist=cfg.knn_max_sq_dist, eig_ratio=cfg.eig_ratio,
+                min_line_sep=cfg.min_line_sep, map_presorted=map_presorted)
+        with span("lm_solve", device=True):
+            pose = lm_solve(pose, exyz, corr.lpa, corr.lpb, corr.valid,
+                            min_range=cfg.min_range, max_range=cfg.max_range,
+                            huber_delta=cfg.huber_delta,
+                            iters=cfg.inner_iters)
 
     # add the frame's edges (at the final pose) to the window
     # (laser_odometry.cc:231-235)
-    edges_final = se3.transform(pose, exyz)
-    window = local_map.push(
-        state.window,
-        torch.where(evalid[..., None], edges_final, torch.zeros_like(exyz)),
-        evalid)
+    with span("window.push", device=True):
+        edges_final = se3.transform(pose, exyz)
+        window = local_map.push(
+            state.window,
+            torch.where(evalid[..., None], edges_final,
+                        torch.zeros_like(exyz)),
+            evalid)
     new_state = OdomState(window, pose, state.odom, state.received_xyz,
                           state.received_valid, state.imu_ori)
     return new_state, pose
@@ -185,10 +194,12 @@ def image_step(state: OdomState, img_xyz: torch.Tensor,
     dev = state.odom.t.device
     if img_xyz.device != dev or img_count.device != dev:
         raise ValueError(f"image on {img_xyz.device}, state on {dev}")
-    img = RingImage(img_xyz, img_count)
-    edges = select_edges(img, smoothness(img, cfg), cfg)
-    new_state, pose = odometry_step(state, edges, cfg, t_laser_base)
-    return new_state, pose, edges.num_valid()
+    with span("step", device=True):
+        img = RingImage(img_xyz, img_count)
+        with span("features", device=True):
+            edges = select_edges(img, smoothness(img, cfg), cfg)
+        new_state, pose = odometry_step(state, edges, cfg, t_laser_base)
+        return new_state, pose, edges.num_valid()
 
 
 def full_step(state: OdomState, raw_xyz: torch.Tensor,

@@ -26,6 +26,12 @@ calls) and the state a caller passes back aliases no graph buffer.  The
 copies cost two passes over the state a frame (on a 2^20-slot map, ~35 MB
 read and written each way).
 
+With the span recorder armed (``runtime/tracer``) a capture also takes
+the step's device spans as event nodes, and each call records the host
+span ``aot.replay`` and the device spans ``aot.copy_in``, ``aot.graph`` and
+``aot.clone_out``; such a graph has a tag of its own.  While the recorder
+is off the graph and each call are what they are without it.
+
 Graphs live in an in-process registry keyed by :func:`_tag`; a CUDA graph
 cannot outlive its process, so nothing is written to disk: with ``save``,
 ``directory`` names the kernels' library directory (``runtime/cache.py``,
@@ -56,7 +62,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
-from liodom_tpu_torch.runtime import cache
+from liodom_tpu_torch.runtime import cache, tracer
 
 _GRAPHS: Dict[str, Callable[..., Any]] = {}
 _LOCK = threading.Lock()
@@ -76,7 +82,8 @@ def _tag(name: str, example_args, extra: str = "") -> str:
     """Identity of a compiled step: ``name``, the torch version, the device
     kind, every leaf's shape and dtype (a non-tensor leaf's value, which the
     graph bakes in), and ``extra``, which must carry whatever changes the
-    step without changing a shape (the configs, a branch pattern)."""
+    step without changing a shape (the configs, a branch pattern), and
+    whether the span recorder is armed (its graph holds event nodes)."""
     leaves, _ = tree_flatten(example_args)
     dev = _device(leaves)
     kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -85,7 +92,8 @@ def _tag(name: str, example_args, extra: str = "") -> str:
                    if isinstance(x, torch.Tensor)
                    else f"()/{type(x).__name__}={x!r}" for x in leaves)
     h = hashlib.sha256(f"{name}|{torch.__version__}|{kind}|{sig}|{extra}"
-                       .encode()).hexdigest()[:16]
+                       .encode() + (b"|spans" if tracer.RECORDER.on
+                                    else b"")).hexdigest()[:16]
     return f"{name}-{h}"
 
 
@@ -121,28 +129,37 @@ def _capture(fn: Callable, leaves, spec, dev: torch.device,
     static = [x.detach().clone() if t else x for x, t in zip(leaves, is_t)]
     graph, out = capture_graph(lambda: fn(*tree_unflatten(static, spec)),
                                dev)
+    spans = tracer.RECORDER.take_captured()
     out_leaves, out_spec = tree_flatten(out)
+    span = tracer.span
 
     def replay(*args):
         got, got_spec = tree_flatten(args)
         if got_spec != spec:
             raise TypeError(f"captured step called with {got_spec}, "
                             f"captured with {spec}")
-        for x, s, t in zip(got, static, is_t):
-            if not t:
-                if x != s:
-                    raise ValueError(f"captured step baked in {s!r}, "
-                                     f"called with {x!r}")
-            elif (not isinstance(x, torch.Tensor) or x.shape != s.shape
-                  or x.dtype != s.dtype or x.device != s.device):
-                raise ValueError(
-                    f"captured step takes {tuple(s.shape)} {s.dtype} on "
-                    f"{s.device}, got {getattr(x, 'shape', type(x))}")
-            elif x is not s:
-                s.copy_(x)
-        graph.replay()
-        return tree_unflatten([o.clone() if isinstance(o, torch.Tensor)
-                               else o for o in out_leaves], out_spec)
+        with span("aot.replay"):
+            with span("aot.copy_in", device=True):
+                for x, s, t in zip(got, static, is_t):
+                    if not t:
+                        if x != s:
+                            raise ValueError(f"captured step baked in {s!r}, "
+                                             f"called with {x!r}")
+                    elif (not isinstance(x, torch.Tensor)
+                          or x.shape != s.shape or x.dtype != s.dtype
+                          or x.device != s.device):
+                        raise ValueError(
+                            f"captured step takes {tuple(s.shape)} {s.dtype} "
+                            f"on {s.device}, got "
+                            f"{getattr(x, 'shape', type(x))}")
+                    elif x is not s:
+                        s.copy_(x)
+            with span("aot.graph", device=True):
+                graph.replay()
+            tracer.RECORDER.replayed(spans)
+            with span("aot.clone_out", device=True):
+                return tree_unflatten([o.clone() if isinstance(o, torch.Tensor)
+                                       else o for o in out_leaves], out_spec)
 
     return replay
 

@@ -25,6 +25,8 @@ import threading
 import time
 from typing import Deque, Generic, Optional, TypeVar
 
+from liodom_tpu_torch.runtime import tracer
+
 T = TypeVar("T")
 
 log = logging.getLogger("liodom_tpu_torch")
@@ -92,6 +94,8 @@ class Channel(Generic[T]):
                 n += 1
             self._q.append(item)
             self.dropped += n
+            if n:
+                tracer.count("channel.dropped", n)
             self._not_empty.notify()
             return n
 

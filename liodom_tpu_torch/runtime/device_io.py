@@ -29,6 +29,7 @@ import torch
 from liodom_tpu_torch import kernels
 from liodom_tpu_torch.core.pose import Pose
 from liodom_tpu_torch.ops.neighbors import resolve_knn_impl
+from liodom_tpu_torch.runtime import tracer
 
 _SYNC_WARNING = "called a synchronizing"
 
@@ -64,26 +65,32 @@ class Stager:
     def put(self, img: np.ndarray, counts: np.ndarray
             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(image, counts)`` on the device, without a host
-        synchronisation unless the host is ``slots`` frames ahead."""
-        img = np.asarray(img, np.float32).reshape(self.image_shape)
-        counts = np.asarray(counts, np.int32).reshape(self.image_shape[:1])
-        if not self._slots:
-            return torch.tensor(img), torch.tensor(counts)
-        h_img, h_cnt, done = self._slots[self._next]
-        self._next = (self._next + 1) % len(self._slots)
-        if not done.query():            # an unrecorded event reads done
-            self.waits += 1
-            done.synchronize()
-        h_img.numpy()[...] = img
-        h_cnt.numpy()[...] = counts
-        d_img = torch.empty(self.image_shape, dtype=torch.float32,
-                            device=self.device)
-        d_cnt = torch.empty(self.image_shape[:1], dtype=torch.int32,
-                            device=self.device)
-        d_img.copy_(h_img, non_blocking=True)
-        d_cnt.copy_(h_cnt, non_blocking=True)
-        done.record()
-        return d_img, d_cnt
+        synchronisation unless the host is ``slots`` frames ahead.  Spans
+        ``stage.put`` and, on the card, ``stage.copy``; a wait is counted
+        as ``stage.waits`` too."""
+        with tracer.span("stage.put"):
+            img = np.asarray(img, np.float32).reshape(self.image_shape)
+            counts = np.asarray(counts, np.int32).reshape(
+                self.image_shape[:1])
+            if not self._slots:
+                return torch.tensor(img), torch.tensor(counts)
+            h_img, h_cnt, done = self._slots[self._next]
+            self._next = (self._next + 1) % len(self._slots)
+            if not done.query():            # an unrecorded event reads done
+                self.waits += 1
+                tracer.count("stage.waits", 1)
+                done.synchronize()
+            h_img.numpy()[...] = img
+            h_cnt.numpy()[...] = counts
+            d_img = torch.empty(self.image_shape, dtype=torch.float32,
+                                device=self.device)
+            d_cnt = torch.empty(self.image_shape[:1], dtype=torch.int32,
+                                device=self.device)
+            with tracer.span("stage.copy", device=True):
+                d_img.copy_(h_img, non_blocking=True)
+                d_cnt.copy_(h_cnt, non_blocking=True)
+            done.record()
+            return d_img, d_cnt
 
 
 def staging_slots(chunk: int, due_every: Sequence[int],
@@ -110,12 +117,20 @@ def fetch_poses(pending: List[Tuple[torch.Tensor, torch.Tensor,
     made on the device in the poses' float32, as the JAX apps'
     ``np.asarray(pose.matrix(), np.float64)``, and come back with the edge
     counts (exact in float32: at most 2^24) in one copy.  Returns
-    ``((F, 4, 4) float64, (F,) int64)``."""
-    q = torch.cat([p[0].reshape(-1, 4) for p in pending])
-    t = torch.cat([p[1].reshape(-1, 3) for p in pending])
-    ne = torch.cat([p[2].reshape(-1) for p in pending])
-    mats = Pose(q, t).matrix().reshape(-1, 16)
-    block = torch.cat([mats, ne[:, None].to(mats.dtype)], dim=1).cpu().numpy()
+    ``((F, 4, 4) float64, (F,) int64)``.
+
+    Spans ``fetch`` and, on the card, ``fetch.copy``; the host has then
+    waited for the card, so the span recorder anchors its clock here
+    (``runtime/tracer.anchor``)."""
+    with tracer.span("fetch"):
+        with tracer.span("fetch.copy", device=True):
+            q = torch.cat([p[0].reshape(-1, 4) for p in pending])
+            t = torch.cat([p[1].reshape(-1, 3) for p in pending])
+            ne = torch.cat([p[2].reshape(-1) for p in pending])
+            mats = Pose(q, t).matrix().reshape(-1, 16)
+            block = torch.cat([mats, ne[:, None].to(mats.dtype)],
+                              dim=1).cpu().numpy()
+        tracer.anchor()
     return (block[:, :16].reshape(-1, 4, 4).astype(np.float64),
             block[:, 16].astype(np.int64))
 

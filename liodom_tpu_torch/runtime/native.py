@@ -21,6 +21,8 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from liodom_tpu_torch.runtime import tracer
+
 _SRC = os.path.join(os.path.dirname(__file__), "native_src", "loader.cc")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "native_src", "build")
 _FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
@@ -255,7 +257,12 @@ class SplitPrefetcher:
 
     def next(self) -> Optional[Tuple[np.ndarray, np.ndarray, int]]:
         """((rings, width, 3) image, (rings,) counts, n_dropped) or None at
-        end.  ``n_dropped`` = routed points lost to the ring_width clamp."""
+        end.  ``n_dropped`` = routed points lost to the ring_width clamp.
+        Spans ``loader.next``."""
+        with tracer.span("loader.next"):
+            return self._next()
+
+    def _next(self) -> Optional[Tuple[np.ndarray, np.ndarray, int]]:
         if self._h is not None:
             img = np.empty(self.shape, np.float32)
             counts = np.empty((self.shape[0],), np.int32)

@@ -151,11 +151,11 @@ def test_entry_points_default_to_cuda():
 
 def test_apps_default_to_cuda(tmp_path):
     """Each app runs on CUDA unless ``--device cpu``: without a card and
-    that flag it raises before it reads any input; so does a trace that
-    names no device."""
+    that flag it raises before it reads any input; so does arming the span
+    recorder without naming a device."""
     from liodom_tpu_torch.apps import (run_kitti, run_mapping, run_ouster,
                                        run_synthetic)
-    from liodom_tpu_torch.runtime.tracer import DeviceTrace
+    from liodom_tpu_torch.runtime import tracer
     argvs = ((run_kitti, ["--root", str(tmp_path)]),
              (run_mapping, ["--root", str(tmp_path), "--poses", "p.txt"]),
              (run_ouster, ["--synthetic"]), (run_synthetic, []))
@@ -167,7 +167,8 @@ def test_apps_default_to_cuda(tmp_path):
                 app.main(argv)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            DeviceTrace(str(tmp_path))
+            tracer.arm()
+        assert not tracer.RECORDER.on
 
 
 def test_stream_and_longcourse_apps_default_to_cuda(tmp_path):

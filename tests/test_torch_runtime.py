@@ -3,7 +3,7 @@
 native loader and the host splits bit for bit, the host split against the
 port's device split, ``KittiSequence``, the five results files byte for
 byte, the trajectory metrics and the publisher's messages to 1e-12, the PLY
-text, the presets, the channels, the trace, the checkpoint round trip and
+text, the presets, the channels, the checkpoint round trip and
 the host<->device staging of the apps."""
 
 import dataclasses
@@ -38,7 +38,6 @@ from liodom_tpu_torch.runtime import stats as tstats
 from liodom_tpu_torch.runtime import viz as tviz
 from liodom_tpu_torch.runtime.channels import (Channel, Closed,
                                                FrequencyMonitor, LatestValue)
-from liodom_tpu_torch.runtime.tracer import DeviceTrace, StageTimer, annotate
 
 torch.set_num_threads(1)
 
@@ -347,18 +346,6 @@ def test_frequency_monitor():
     for k in range(20):
         quiet.tick_input(t=k * 0.1)
         assert quiet.tick_output(t=k * 0.1 + 0.02) is None
-
-
-def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
-    stats = tstats.Stats()
-    timer = StageTimer(stats)
-    with DeviceTrace(str(tmp_path / "trace"), device="cpu") as tr:
-        with annotate("liodom_test_region"), timer.stage("laser_odometry"):
-            torch.ones(64).cumsum(0)
-    assert stats.laser_odom_times and timer.last_ms["laser_odometry"] >= 0
-    trace = json.loads(Path(tr.path).read_text())
-    names = {ev.get("name") for ev in trace["traceEvents"]}
-    assert "liodom_test_region" in names
 
 
 def _tree_equal(a, b):
