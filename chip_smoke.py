@@ -281,7 +281,16 @@ Phases, each printing one JSON line:
    the probe once a frame for each, ms a call, and whether two calls of
    each on one input give bit-equal centroids, and ``update_map_full`` at
    ``resolution=0.1`` (the sorted soup of a map that is not packable)
-   called twice on one input: every field ``torch.equal``.
+   called twice on one input: every field ``torch.equal``.  And the LM
+   solve's row (its own ``lm_solve`` line, ``lm_solve_phase``):
+   ``csrc/lm_solve.cu`` against ``lm_solve_plain`` on the card, on the
+   bench frame's two calls and seeded problems (B = 1 and 8 at 5,632
+   edges, ragged 1,000 and 37, 2 x 40,000 past the blocks' shared memory,
+   no valid correspondence: the pose held, a start at the true pose:
+   rounds rejected), within 1 mm and 1e-3 rad, reruns and each lane of a
+   batch against its solo call bit for bit, each side's accepts and
+   lambdas, ms a call of both, and 2 launches a frame of ``image_step``
+   eager and in one replay of it captured.
 20. profile — torch.profiler over 5 frames of the bench drive, for
    ``image_step``, ``combined_image_step``, ``batch_image_step`` at B = 4
    and 8 and the sharded flagship: device busy time and share, device
@@ -340,6 +349,7 @@ from liodom_tpu_torch.ops import neighbors as NB
 from liodom_tpu_torch.ops import probe_insert as PI
 from liodom_tpu_torch.ops import select_pallas as SEL
 from liodom_tpu_torch.ops import smoothness_pallas as SM
+from liodom_tpu_torch.ops import solver as SLV
 from liodom_tpu_torch.ops import voxel as V
 from liodom_tpu_torch.parallel import combined as CB
 from liodom_tpu_torch.parallel import launch as LA
@@ -1005,6 +1015,175 @@ def timed_in_turns(drives: dict, warm: int) -> dict:
         runs[name].append([start.elapsed_time(stop) / n,
                            (time.perf_counter() - h0) * 1e3 / n])
     return runs
+
+
+def lm_problem(seed: int, b: int, e: int, dev, noise: float = 0.02,
+               start_off: float = 1.0):
+    """B lanes of e point-to-line correspondences, each lane its own true
+    pose and a start ``start_off`` x (0.1 rad, ~0.6 m) from it: edges 5-60
+    m out, their lines through the true world points (with ``noise`` m of
+    offset), ~10 % invalid.  Returns (pose0, cp, lpa, lpb, valid) on
+    ``dev``."""
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0, 2 * np.pi, (b, e))
+    rad = rng.uniform(5, 60, (b, e))
+    cp = np.stack([rad * np.cos(ang), rad * np.sin(ang),
+                   rng.uniform(-2, 4, (b, e))], -1)
+    yaw = rng.uniform(-0.5, 0.5, b)
+    rot = np.stack([yaw_matrix(y) for y in yaw])
+    t_true = rng.normal(size=(b, 3)) * [2.0, 2.0, 0.2]
+    world = np.einsum("bij,bej->bei", rot, cp) + t_true[:, None]
+    d = rng.normal(size=(b, e, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    off = rng.normal(size=(b, e, 3)) * noise
+    lpa, lpb = world + off + 0.3 * d, world + off - 0.4 * d
+    yaw0 = yaw + 0.1 * start_off
+    q0 = np.stack([np.cos(yaw0 / 2), 0 * yaw0, 0 * yaw0, np.sin(yaw0 / 2)],
+                  -1)
+    t0 = t_true + np.multiply([0.5, -0.3, 0.05], start_off)
+
+    def on(x, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=dev)
+    return (se3.Pose(on(q0), on(t0)), on(cp), on(lpa), on(lpb),
+            on(rng.random((b, e)) > 0.1, torch.bool))
+
+
+def lm_accepts(solve, args, kw, iters: int):
+    """Each round's accept of ``solve``, read from its poses at iters = 0
+    .. iters (a round accepted moves the pose), a list per lane, and the
+    lambda each sequence leaves; with the final pose."""
+    outs = [solve(*args, **kw, iters=n) for n in range(iters + 1)]
+    moved = [((a.q != b.q).any(-1) | (a.t != b.t).any(-1)).cpu().numpy()
+             for a, b in zip(outs, outs[1:])]
+    acc = np.stack(moved, -1).reshape(-1, iters)
+    lam = [float(np.float32(1e-4) * np.prod(
+        [np.float32(0.5) if a else np.float32(4.0) for a in row]))
+        for row in acc]
+    return acc.tolist(), lam, outs[-1]
+
+
+def lm_solve_phase(cfg, imgs, dev, smi, usage, check) -> None:
+    """The LM row of the kernels phase: ``csrc/lm_solve.cu`` against
+    ``lm_solve_plain`` on the card on the same inputs (the bench frame's
+    two calls, B = 1 and 8 at 5,632 edges, ragged 1,000 and 37, 40,000
+    past the blocks' shared memory, no valid correspondence, rejected
+    rounds), reruns bit for bit, lanes of a batch bit for bit to their solo
+    calls, each side's accepts and lambdas; ms a call (CUDA events,
+    L2-warm) of both; the launches a frame of ``image_step`` eager and
+    captured."""
+    t_phase = time.perf_counter()
+    kw = dict(min_range=cfg.min_range, max_range=cfg.max_range,
+              huber_delta=cfg.huber_delta)
+    iters = cfg.inner_iters
+    # the bench frame's two calls, as image_step makes them
+    calls = []
+    real = P.lm_solve
+
+    def record(*a, **k):
+        calls.append(a)
+        return real(*a, **k)
+
+    P.lm_solve = record
+    try:
+        P.image_step(P.init_state(cfg, device=dev), imgs[0].xyz,
+                     imgs[0].count, cfg)
+        state = P.init_state(cfg, device=dev)
+        for im in imgs[:6]:
+            state, _, _ = P.image_step(state, im.xyz, im.count, cfg)
+    finally:
+        P.lm_solve = real
+    cases = {"bench_frame_call1": calls[-2], "bench_frame_call2": calls[-1],
+             "b1_e5632": lm_problem(1, 1, 5632, dev),
+             "b8_e5632": lm_problem(8, 8, 5632, dev),
+             "b1_e1000": lm_problem(2, 1, 1000, dev),
+             "b1_e37": lm_problem(3, 1, 37, dev),
+             "b2_e40000": lm_problem(4, 2, 40000, dev)}
+    pose, cp, lpa, lpb, valid = lm_problem(5, 1, 5632, dev)
+    cases["no_valid"] = (pose, cp, lpa, lpb, torch.zeros_like(valid))
+    # started at the true pose with noise-free lines: nothing to gain
+    pose, cp, lpa, lpb, valid = lm_problem(6, 1, 5632, dev, noise=0.0,
+                                           start_off=0.0)
+    cases["rejected"] = (pose, cp, lpa, lpb, valid)
+    rows = {}
+    for name, args in cases.items():
+        shape = SLV.lm_solve_shape(args[1].shape[-2])
+        k_acc, k_lam, got = lm_accepts(SLV.lm_solve_cuda, args, kw, iters)
+        p_acc, p_lam, want = lm_accepts(SLV.lm_solve_plain, args, kw, iters)
+        again = SLV.lm_solve_cuda(*args, **kw, iters=iters)
+        rerun = bool(torch.equal(again.q, got.q) and
+                     torch.equal(again.t, got.t))
+        gap_m, gap_rad = pose_gap(got.t.cpu().numpy(), got.q.cpu().numpy(),
+                                  want.t.cpu().numpy(), want.q.cpu().numpy())
+        row = {"lanes": int(got.t[..., 0].numel()),
+               "edges": int(args[1].shape[-2]),
+               "valid": int(args[4].sum()), "shape": shape,
+               "pose_gap_m": gap_m, "pose_gap_rad": gap_rad,
+               "rerun_bit_equal": rerun, "accepts": k_acc,
+               "plain_accepts": p_acc, "lambda": k_lam,
+               "plain_lambda": p_lam}
+        check(rerun, f"lm_solve {name}: a rerun changed the pose")
+        check(gap_m < 1e-3 and gap_rad < 1e-3,
+              f"lm_solve {name}: {gap_m:.2e} m, {gap_rad:.2e} rad from the "
+              f"plain version")
+        if got.t.dim() == 2:
+            solo = [SLV.lm_solve_cuda(se3.Pose(args[0].q[i], args[0].t[i]),
+                                      *(x[i] for x in args[1:]), **kw,
+                                      iters=iters)
+                    for i in range(got.t.shape[0])]
+            row["lanes_bit_equal_solo"] = all(
+                torch.equal(s.q, got.q[i]) and torch.equal(s.t, got.t[i])
+                for i, s in enumerate(solo))
+            check(row["lanes_bit_equal_solo"],
+                  f"lm_solve {name}: a lane differs from its solo call")
+        rows[name] = row
+    check(rows["no_valid"]["accepts"] == [[False] * iters],
+          "lm_solve no_valid: a round was accepted")
+    held = SLV.lm_solve_cuda(*cases["no_valid"], **kw, iters=iters)
+    check(bool(torch.equal(held.q, cases["no_valid"][0].q) and
+               torch.equal(held.t, cases["no_valid"][0].t)),
+          "lm_solve no_valid: the pose moved")
+    check(any(not a for row in (rows["rejected"], rows["bench_frame_call2"])
+              for lane in row["accepts"] for a in lane),
+          "lm_solve: no case rejected a round")
+    # ms a call, L2-warm, and the bench frame's plain version beside it
+    timing = {}
+    for name in ("bench_frame_call1", "b1_e5632", "b8_e5632", "b1_e37",
+                 "b2_e40000"):
+        args = cases[name]
+        timing[name] = {
+            "kernel_ms": cuda_ms(lambda: SLV.lm_solve_cuda(
+                *args, **kw, iters=iters), reps=200),
+            "plain_ms": cuda_ms(lambda: SLV.lm_solve_plain(
+                *args, **kw, iters=iters), reps=20)}
+    # bytes the call needs (cp, lpa, lpb, valid, the poses) and its
+    # operations (JAX's count, tools/bench_stages.roofline), on the H100
+    e = cases["bench_frame_call1"][1].shape[-2]
+    b_ms, b_by = bound(e * 37 + 56, 2.0 * iters * e * (2 * 36 + 12 + 60))
+    # launches a frame: eager, and in one replay of a captured step
+    SLV.lm_solve_cuda.launches = 0
+    P.image_step(state, imgs[6].xyz, imgs[6].count, cfg)
+    eager = SLV.lm_solve_cuda.launches
+    cap = bench_stages.capture(
+        lambda s, x, c: P.image_step(s, x, c, cfg),
+        (state, imgs[6].xyz, imgs[6].count))
+    cap.graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cap.graph.replay()
+        torch.cuda.synchronize()
+    in_graph = sum(1 for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA
+                   and "lm_solve_kernel" in ev.name)
+    check(eager == cfg.outer_iters,
+          f"lm_solve: {eager} launches in an eager frame")
+    check(in_graph == cfg.outer_iters,
+          f"lm_solve: {in_graph} launches in a captured frame")
+    emit({"phase": "lm_solve", "nvidia_smi": smi, "cases": rows,
+          "timing": timing, "bound_ms": b_ms, "bound_by": b_by,
+          "ptxas": usage.get("lm_solve"),
+          "launches_eager_frame": eager, "launches_captured_frame": in_graph,
+          "seconds": time.perf_counter() - t_phase})
 
 
 def aot_phase(cfg, ccfg, imgs, eager, ceager, seager, gt_pos, bimgs,
@@ -3473,6 +3652,7 @@ def main() -> int:
     flagged_b = int(prep_b[2].sum())
     flagged5 = int(prep5[2].sum())
     sparse_epilogue = sparse_epilogue_phase(imgs, cposes_k, cfg, check)
+    lm_solve_phase(cfg, imgs, dev, smi, usage, check)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t_kernels,
           "sparse_epilogue": sparse_epilogue,
           "smoothness": {"bit_exact": all(v["bit_exact"]

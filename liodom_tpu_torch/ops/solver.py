@@ -18,17 +18,23 @@ iterations):
 * with a process group the correspondences may be split over its members,
   whose sums are all-reduced (the JAX package's ``axis_name`` psum).
 
+:func:`lm_solve` dispatches: CUDA tensors launch ``csrc/lm_solve.cu``
+(:func:`lm_solve_cuda`, every round of every lane in one launch); CPU
+tensors and a call with a process group take :func:`lm_solve_plain`.
+
 The residual follows factors.hpp:71-105, including the distance weight
 ``w = 1.01 - d_norm`` whose dependence on ``t`` enters the Jacobian.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
 import torch.distributed as dist
 
+from liodom_tpu_torch import kernels
 from liodom_tpu_torch.core import pose as se3
 from liodom_tpu_torch.core.pose import Pose
 
@@ -175,10 +181,10 @@ def _all_reduce_equations(ne: NormalEquations, group) -> NormalEquations:
                            flat[..., 36:42], flat[..., 42])
 
 
-def lm_solve(pose0: Pose, cp: torch.Tensor, lpa: torch.Tensor,
-             lpb: torch.Tensor, valid: torch.Tensor, *, min_range: float,
-             max_range: float, huber_delta: float = 0.2, iters: int = 4,
-             init_lambda: float = 1e-4, group=None) -> Pose:
+def lm_solve_plain(pose0: Pose, cp: torch.Tensor, lpa: torch.Tensor,
+                   lpb: torch.Tensor, valid: torch.Tensor, *, min_range: float,
+                   max_range: float, huber_delta: float = 0.2, iters: int = 4,
+                   init_lambda: float = 1e-4, group=None) -> Pose:
     """Levenberg-Marquardt on the SE(3) tangent: ``iters`` damped steps
     (laser_odometry.cc:214) with correspondences fixed; a step is kept when
     it lowers the robust cost (lambda x 0.5), else dropped (lambda x 4).
@@ -219,3 +225,123 @@ def lm_solve(pose0: Pose, cp: torch.Tensor, lpa: torch.Tensor,
         lam = torch.where(accept, lam * 0.5, lam * 4.0)
         cost = torch.where(accept, new_cost, cost)
     return Pose(q, t)
+
+
+_SIG = [("liodom_lm_solve", [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
+                                                    ctypes.c_void_p]
+         + [ctypes.c_int] * 3 + [ctypes.c_float] * 7
+         + [ctypes.c_void_p] * 3),
+        ("liodom_lm_solve_shape", [ctypes.c_int, ctypes.c_void_p])]
+
+
+def _row_stride(x: torch.Tensor):
+    """The floats between the rows of ``x`` (..., E, 3) when they are 3
+    floats each at one stride of at least 3, the leading dimensions packed
+    over them (the line fit's ``near[..., 0, :]`` of a contiguous (..., E,
+    k, 3) is, at 3 k); else None."""
+    dims = list(zip(reversed(x.shape[:-1]), reversed(x.stride()[:-1])))
+    stride = next((step for size, step in dims if size > 1), 3)
+    want = stride
+    for size, step in dims:
+        if size > 1 and step != want:
+            return None
+        want *= size
+    return stride if x.stride(-1) == 1 and stride >= 3 else None
+
+
+def _check_solve_args(pose0: Pose, cp, lpa, lpb, valid) -> None:
+    """What ``csrc/lm_solve.cu`` takes: float32 poses ``(..., 4)`` /
+    ``(..., 3)``, float32 ``cp``, ``lpa``, ``lpb`` ``(..., E, 3)`` and a
+    bool ``valid`` ``(..., E)`` with the poses' leading dimensions, on one
+    CUDA device; the poses, ``cp`` and ``valid`` contiguous, ``lpa`` and
+    ``lpb`` rows of one stride (the kNN's neighbours in place); raises on
+    anything else."""
+    q0, t0 = pose0
+    floats = (q0, t0, cp, lpa, lpb)
+    if any(x.dtype != torch.float32 for x in floats) or \
+            valid.dtype != torch.bool:
+        raise TypeError("lm_solve_cuda takes float32 poses and "
+                        "correspondences and a bool valid, got "
+                        f"{[x.dtype for x in floats + (valid,)]}")
+    lead = t0.shape[:-1]
+    if (t0.shape[-1:] != (3,) or q0.shape != lead + (4,)
+            or cp.ndim != len(lead) + 2 or cp.shape[:-2] != lead
+            or cp.shape[-1] != 3 or lpa.shape != cp.shape
+            or lpb.shape != cp.shape or valid.shape != cp.shape[:-1]):
+        raise ValueError(
+            f"lm_solve_cuda shapes: q {tuple(q0.shape)}, t {tuple(t0.shape)}, "
+            f"cp {tuple(cp.shape)}, lpa {tuple(lpa.shape)}, lpb "
+            f"{tuple(lpb.shape)}, valid {tuple(valid.shape)}")
+    stride = _row_stride(lpa)
+    if not (all(x.is_contiguous() for x in (q0, t0, cp, valid))
+            and stride is not None and _row_stride(lpb) == stride):
+        raise ValueError("lm_solve_cuda needs contiguous poses, cp and "
+                         "valid, and lpa and lpb as rows of one stride")
+    if not (t0.is_cuda and all(x.device == t0.device
+                               for x in floats + (valid,))):
+        raise ValueError("lm_solve_cuda needs every tensor on one CUDA "
+                         "device")
+
+
+def lm_solve_cuda(pose0: Pose, cp: torch.Tensor, lpa: torch.Tensor,
+                  lpb: torch.Tensor, valid: torch.Tensor, *, min_range: float,
+                  max_range: float, huber_delta: float = 0.2, iters: int = 4,
+                  init_lambda: float = 1e-4) -> Pose:
+    """:func:`lm_solve_plain` in one launch of ``csrc/lm_solve.cu`` (one
+    thread-block cluster a lane, every round on the card): the same
+    float32 expressions, the sums over edges in another, fixed order, so
+    the same inputs give the same bits on every run.  On the current
+    stream, without a host synchronisation; the pose is new tensors."""
+    _check_solve_args(pose0, cp, lpa, lpb, valid)
+    q0, t0 = pose0
+    q = torch.empty_like(q0)
+    t = torch.empty_like(t0)
+    b, e = t0.numel() // 3, cp.shape[-2]
+    if b == 0:
+        return Pose(q, t)
+    span = max_range - min_range
+    lib = kernels.load("lm_solve", _SIG)
+    with torch.cuda.device(t0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.liodom_lm_solve(
+            q0.data_ptr(), t0.data_ptr(), cp.data_ptr(), lpa.data_ptr(),
+            lpb.data_ptr(), _row_stride(lpa), valid.data_ptr(), b, e, iters,
+            init_lambda, min_range, 1.0 / span, span, huber_delta,
+            huber_delta * huber_delta, 2.0 * huber_delta, q.data_ptr(),
+            t.data_ptr(), stream)
+    kernels.check(err, "liodom_lm_solve")
+    lm_solve_cuda.launches += 1
+    return Pose(q, t)
+
+
+lm_solve_cuda.launches = 0
+
+
+def lm_solve_shape(e: int) -> dict:
+    """The built kernel's launch for ``e`` edges a lane: blocks in a lane's
+    cluster, threads a block, a block's share of the edges, the edges it
+    keeps in shared memory, its dynamic shared memory in bytes."""
+    lib = kernels.load("lm_solve", _SIG)
+    out = (ctypes.c_int * 5)()
+    kernels.check(lib.liodom_lm_solve_shape(e, ctypes.addressof(out)),
+                  "liodom_lm_solve_shape")
+    return dict(zip(("cluster", "threads", "share", "cached", "smem_bytes"),
+                    out))
+
+
+def lm_solve(pose0: Pose, cp: torch.Tensor, lpa: torch.Tensor,
+             lpb: torch.Tensor, valid: torch.Tensor, *, min_range: float,
+             max_range: float, huber_delta: float = 0.2, iters: int = 4,
+             init_lambda: float = 1e-4, group=None) -> Pose:
+    """The LM solve of :func:`lm_solve_plain` on the tensors' device: on
+    CUDA one launch of ``csrc/lm_solve.cu``; on the CPU, and with a
+    ``group`` (whose sums are all-reduced between rounds, which no kernel
+    can wait for), the plain version."""
+    kw = dict(min_range=min_range, max_range=max_range,
+              huber_delta=huber_delta, iters=iters, init_lambda=init_lambda)
+    if group is not None:
+        return lm_solve_plain(pose0, cp, lpa, lpb, valid, group=group, **kw)
+    if pose0.t.is_cuda:
+        return lm_solve_cuda(pose0, cp, lpa, lpb, valid, **kw)
+    kernels.require_cpu(pose0.t, "lm_solve")
+    return lm_solve_plain(pose0, cp, lpa, lpb, valid, **kw)

@@ -206,17 +206,18 @@ class SyncAudit:
 
 
 def path_kernels(mapping: bool, sharded: bool = False) -> Tuple[str, ...]:
-    """The kernel sources an image step launches: K1, K2 and the kNN (K3 or
+    """The kernel sources an image step launches: K1, K2, the kNN (K3 or
     K4, or K6 under ``LIODOM_KNN_IMPL=pallas_lines``; K5 on the sharded
-    steps of ``parallel/``, whatever the setting), and with the map K7 and
-    the probe kernel."""
+    steps of ``parallel/``, whatever the setting) and the LM solve (not on
+    the sharded steps, whose solve all-reduces between rounds and stays
+    plain), and with the map K7 and the probe kernel."""
     if sharded:
-        knn = "knn_index"
+        step = ("knn_index",)
     elif resolve_knn_impl() == "pallas_lines":
-        knn = "knn_lines"
+        step = ("knn_lines", "lm_solve")
     else:
-        knn = "knn_coords"
-    return ("smoothness", "select", knn) + (
+        step = ("knn_coords", "lm_solve")
+    return ("smoothness", "select") + step + (
         ("local_map_compact", "probe_insert") if mapping else ())
 
 
@@ -225,7 +226,7 @@ def _load_library(name: str) -> None:
     nothing."""
     from liodom_tpu_torch.ops import (compact_pallas, knn_pallas,
                                       probe_insert, select_pallas,
-                                      smoothness_pallas)
+                                      smoothness_pallas, solver)
     if name == "smoothness":
         smoothness_pallas.smoothness_shape()
     elif name == "select":
@@ -236,6 +237,8 @@ def _load_library(name: str) -> None:
         compact_pallas.compact_shape(1, 1)
     elif name == "probe_insert":
         probe_insert.probe_shape()
+    elif name == "lm_solve":
+        solver.lm_solve_shape(1)
     else:
         raise ValueError(f"no kernel source {name!r}")
 

@@ -1133,3 +1133,82 @@ def test_bench_graph_rows_pass_their_gates(dev):
     assert "combined_async_scans_per_s" in final
     assert "," in final["card"]          # nvidia-smi: name, power limit
     assert final["build_s"] is not None and final["build_s"] >= 0
+
+
+def _lm_lanes(seed, b, e, dev, k=None):
+    """B lanes of e correspondences (edges 5-60 m out, lines through their
+    true world points, ~10 % invalid) and a start ~0.6 m and 0.1 rad off;
+    with ``k``, lpa and lpb are the first two rows of a (B, e, k, 3)
+    tensor, as the line fit hands them over."""
+    rng = np.random.default_rng(seed)
+    ang, rad = rng.uniform(0, 2 * np.pi, (b, e)), rng.uniform(5, 60, (b, e))
+    cp = np.stack([rad * np.cos(ang), rad * np.sin(ang),
+                   rng.uniform(-2, 4, (b, e))], -1)
+    rot = np.stack([yaw_matrix(y) for y in rng.uniform(-0.5, 0.5, b)])
+    world = np.einsum("bij,bej->bei", rot, cp) + [1.0, -0.5, 0.1]
+    d = rng.normal(size=(b, e, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    off = rng.normal(size=(b, e, 3)) * 0.02
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
+    lpa, lpb = f32(world + off + 0.3 * d), f32(world + off - 0.4 * d)
+    if k is not None:
+        near = torch.stack([lpa, lpb] + [lpa] * (k - 2), -2)
+        lpa, lpb = near[..., 0, :], near[..., 1, :]
+    q0 = np.zeros((b, 4))
+    q0[:, 0], q0[:, 3] = np.cos(0.05), np.sin(0.05)
+    return (Pose(f32(q0), f32(np.tile([1.5, -0.8, 0.15], (b, 1)))), f32(cp),
+            lpa, lpb, torch.tensor(rng.random((b, e)) > 0.1, device=dev))
+
+
+@pytest.mark.parametrize("b, e, k", [(1, 5632, None), (8, 5632, 5),
+                                     (1, 37, None), (2, 40000, 5)])
+def test_lm_solve_kernel_against_the_plain_version(dev, b, e, k):
+    """One launch a call; within 1e-3 m and 1e-3 rad of ``lm_solve_plain``
+    on the card (the sums over edges in another order); a rerun and each
+    lane's solo call bit for bit; no valid correspondence holds the
+    pose."""
+    from liodom_tpu_torch.ops import solver as SLV
+    pose, cp, lpa, lpb, valid = _lm_lanes(e + b, b, e, dev, k)
+    kw = dict(min_range=3.0, max_range=75.0)
+    before = SLV.lm_solve_cuda.launches
+    got = SLV.lm_solve(pose, cp, lpa, lpb, valid, **kw)
+    assert SLV.lm_solve_cuda.launches == before + 1
+    want = SLV.lm_solve_plain(pose, cp, lpa, lpb, valid, **kw)
+    assert float((got.t - want.t).norm(dim=-1).max()) < 1e-3
+    assert float((got.q - want.q).abs().max()) < 1e-3
+    assert float((got.t - pose.t).norm(dim=-1).min()) > 0.05
+    again = SLV.lm_solve(pose, cp, lpa, lpb, valid, **kw)
+    assert torch.equal(again.q, got.q) and torch.equal(again.t, got.t)
+    for i in range(b):
+        one = SLV.lm_solve(Pose(pose.q[i], pose.t[i]), cp[i], lpa[i],
+                           lpb[i], valid[i], **kw)
+        assert torch.equal(one.q, got.q[i]) and torch.equal(one.t, got.t[i])
+    held = SLV.lm_solve(pose, cp, lpa, lpb, torch.zeros_like(valid), **kw)
+    assert torch.equal(held.q, pose.q) and torch.equal(held.t, pose.t)
+
+
+def test_lm_solve_with_a_group_on_the_card_stays_plain(dev):
+    """A call with a process group (here one NCCL rank) all-reduces between
+    rounds: the plain version, no launch, the kernel's pose within 1e-3 m."""
+    import socket
+
+    import torch.distributed as dist
+    from liodom_tpu_torch.ops import solver as SLV
+    from liodom_tpu_torch.parallel import launch
+    pose, cp, lpa, lpb, valid = _lm_lanes(3, 1, 2000, dev)
+    pose, cp, lpa, lpb, valid = (Pose(pose.q[0], pose.t[0]), cp[0], lpa[0],
+                                 lpb[0], valid[0])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    launch.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        kw = dict(min_range=3.0, max_range=75.0)
+        before = SLV.lm_solve_cuda.launches
+        got = SLV.lm_solve(pose, cp, lpa, lpb, valid, group=dist.group.WORLD,
+                           **kw)
+        assert SLV.lm_solve_cuda.launches == before
+        want = SLV.lm_solve(pose, cp, lpa, lpb, valid, **kw)
+        assert float((got.t - want.t).norm()) < 1e-3
+    finally:
+        dist.destroy_process_group()

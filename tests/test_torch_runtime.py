@@ -423,8 +423,9 @@ def test_stager_and_block_fetch_on_the_cpu():
         pass
     assert audit.count == 0 and DIO.prepare_kernels(("smoothness",),
                                                     dev) == {}
-    assert DIO.path_kernels(False) == ("smoothness", "select", "knn_coords")
-    assert DIO.path_kernels(True)[3:] == ("local_map_compact",
+    assert DIO.path_kernels(False) == ("smoothness", "select", "knn_coords",
+                                       "lm_solve")
+    assert DIO.path_kernels(True)[4:] == ("local_map_compact",
                                           "probe_insert")
     # the sharded steps search with K5, whatever LIODOM_KNN_IMPL says
     assert DIO.path_kernels(True, sharded=True) == (
