@@ -46,6 +46,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--local-map-capacity", type=int, default=65536,
                     help="received-local-map buffer rows (fixed-shape "
                     "deployment sizing; truncation is counted and warned)")
+    ap.add_argument("--map-capacity", type=int, default=524288,
+                    help="map table slots (MapConfig.map_capacity); a "
+                    "KITTI-00-length drive needs 4194304 (2^22) to be kept "
+                    "without overflow")
     ap.add_argument("--scan-lines", type=int, default=64)
     ap.add_argument("--ring-width", type=int, default=0,
                     help="padded points per ring; 0 (default) auto-sizes "
@@ -151,6 +155,7 @@ def _run(args: argparse.Namespace) -> dict:
             chained_combined_image_step, combined_image_step, init_combined)
         mcfg = MapConfig(voxel_xysize=40.0, voxel_zsize=50.0, resolution=0.4,
                          cells_xy=3, cells_z=2,  # launch/liodom.launch:46-52
+                         map_capacity=args.map_capacity,
                          local_map_capacity=args.local_map_capacity)
         state, mstate = init_combined(cfg, mcfg, device=dev)
     else:

@@ -37,6 +37,7 @@ from liodom_tpu_torch.core.device import resolve_device
 from liodom_tpu_torch.core.pose import Pose
 from liodom_tpu_torch.ops.compact_pallas import compact_hits
 from liodom_tpu_torch.ops.probe_insert import EMPTY, probe_insert
+from liodom_tpu_torch.runtime import tracer
 
 
 class MapState(NamedTuple):
@@ -186,11 +187,28 @@ def update_map(state: MapState, pts: torch.Tensor, valid: torch.Tensor,
     element-wise passes (``key`` and ``valid`` decoded from the table).
     Points are dropped, and counted in ``overflow``, when the probe
     exhausts its 64 rounds.  Non-packable configs take
-    :func:`update_map_full`."""
+    :func:`update_map_full`.
+
+    With the span recorder armed (``runtime/tracer``) the two halves are
+    the device spans ``map.probe`` and ``map.fold``, and the counters
+    ``map.probe_rounds`` and ``map.claimed`` (:func:`_count_claimed`) are
+    kept; off, the update is what it is without them."""
     if not packable(cfg):
         return update_map_full(state, pts, valid, pose, cfg)
-    return fold_frame(state, valid, insert_frame(state, pts, valid, pose,
-                                                 cfg), cfg)
+    with tracer.span("map.probe", device=True):
+        ins = insert_frame(state, pts, valid, pose, cfg)
+    with tracer.span("map.fold", device=True):
+        out = fold_frame(state, valid, ins, cfg)
+    _count_claimed(state, out)
+    return out
+
+
+def _count_claimed(before: MapState, after: MapState) -> None:
+    """``map.claimed``: the slots an update claimed (occupied after it, not
+    before), counted on the tensors' device while the recorder is armed."""
+    if tracer.RECORDER.on:
+        tracer.count("map.claimed",
+                     after.valid.sum() - before.valid.sum())
 
 
 class Inserted(NamedTuple):
@@ -209,7 +227,11 @@ def insert_frame(state: MapState, pts: torch.Tensor, valid: torch.Tensor,
     find-or-insert of each code (packable configs only)."""
     new_xyz = se3.transform(pose, pts.to(state.xyz.dtype))
     code = _packed_codes(new_xyz, valid, cfg)
-    return Inserted(new_xyz, *probe_insert(state.code, code, valid))
+    if not tracer.RECORDER.on:
+        return Inserted(new_xyz, *probe_insert(state.code, code, valid))
+    *found, rounds = probe_insert(state.code, code, valid, with_rounds=True)
+    tracer.count("map.probe_rounds", rounds)
+    return Inserted(new_xyz, *found)
 
 
 def fold_frame(state: MapState, valid: torch.Tensor, ins: Inserted,
@@ -259,12 +281,20 @@ def update_map_sparse_epilogue(state: MapState, pts: torch.Tensor,
     Non-packable configs take :func:`update_map_full`."""
     if not packable(cfg):
         return update_map_full(state, pts, valid, pose, cfg)
+    with tracer.span("map.probe", device=True):
+        ins = insert_frame(state, pts, valid, pose, cfg)
+    with tracer.span("map.fold", device=True):
+        out = _sparse_fold(state, valid, ins, cfg)
+    _count_claimed(state, out)
+    return out
 
+
+def _sparse_fold(state: MapState, valid: torch.Tensor, ins: Inserted,
+                 cfg: MapConfig) -> MapState:
+    """The frame-sized second half of :func:`update_map_sparse_epilogue`."""
     cap = state.xyz.shape[0]
     dtype = state.xyz.dtype
-
-    new_xyz, tab, slot, claimed, failed = insert_frame(state, pts, valid,
-                                                       pose, cfg)
+    new_xyz, tab, slot, claimed, failed = ins
     ok = valid & ~failed
     slot = slot.to(torch.int64)
     slot_c = torch.where(ok, slot, cap)             # cap -> spare row, dropped

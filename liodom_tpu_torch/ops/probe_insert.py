@@ -201,12 +201,12 @@ def probe_insert_cuda(tab: torch.Tensor, code: torch.Tensor,
 probe_insert_cuda.launches = 0
 
 
-def probe_insert(tab: torch.Tensor, code: torch.Tensor, active: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                            torch.Tensor]:
+def probe_insert(tab: torch.Tensor, code: torch.Tensor, active: torch.Tensor,
+                 with_rounds: bool = False) -> Tuple[torch.Tensor, ...]:
     """The probe on the tensors' device: the kernel for CUDA tensors, the
-    plain rounds for CPU tensors."""
+    plain rounds for CPU tensors; with ``with_rounds`` the rounds run
+    (() int32) come last."""
     if tab.is_cuda:
-        return probe_insert_cuda(tab, code, active)
+        return probe_insert_cuda(tab, code, active, with_rounds)
     kernels.require_cpu(tab, "probe_insert")
-    return probe_insert_plain(tab, code, active)
+    return probe_insert_plain(tab, code, active, with_rounds)

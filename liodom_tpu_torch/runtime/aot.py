@@ -28,8 +28,9 @@ read and written each way).
 
 With the span recorder armed (``runtime/tracer``) a capture also takes
 the step's device spans as event nodes, and each call records the host
-span ``aot.replay`` and the device spans ``aot.copy_in``, ``aot.graph`` and
-``aot.clone_out``; such a graph has a tag of its own.  While the recorder
+span ``aot.replay``, the device spans ``aot.copy_in``, ``aot.graph`` and
+``aot.clone_out`` and the counter ``aot.copy_bytes`` (the bytes copied in
+and cloned out); such a graph has a tag of its own.  While the recorder
 is off the graph and each call are what they are without it.
 
 Graphs live in an in-process registry keyed by :func:`_tag`; a CUDA graph
@@ -132,6 +133,9 @@ def _capture(fn: Callable, leaves, spec, dev: torch.device,
     spans = tracer.RECORDER.take_captured()
     out_leaves, out_spec = tree_flatten(out)
     span = tracer.span
+    # what a replay copies: every tensor leaf in, every tensor output out
+    copy_bytes = sum(x.nbytes for x in static + out_leaves
+                     if isinstance(x, torch.Tensor))
 
     def replay(*args):
         got, got_spec = tree_flatten(args)
@@ -157,6 +161,8 @@ def _capture(fn: Callable, leaves, spec, dev: torch.device,
             with span("aot.graph", device=True):
                 graph.replay()
             tracer.RECORDER.replayed(spans)
+            if tracer.RECORDER.on:
+                tracer.count("aot.copy_bytes", copy_bytes)
             with span("aot.clone_out", device=True):
                 return tree_unflatten([o.clone() if isinstance(o, torch.Tensor)
                                        else o for o in out_leaves], out_spec)

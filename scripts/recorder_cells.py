@@ -52,6 +52,7 @@ READERS = ("device_idle.program", "loader_idle_ms.replay",
            "fetch_wait_ms.live")
 LAYERS = ("features", "knn", "lm_solve", "window.push", "map.update",
           "map.local")
+NESTED = ("map.probe", "map.fold")      # inside map.update
 
 
 def _q(values, qs=(0.5, 0.95)):
@@ -74,7 +75,7 @@ def _graph_split(rec, frames) -> dict:
     if not rows:
         return {}
     med = {k: statistics.median(r.get(k, 0.0) for r in rows)
-           for k in LAYERS + ("step", "aot.graph")}
+           for k in LAYERS + NESTED + ("step", "aot.graph")}
     share = [sum(r.get(k, 0.0) for k in LAYERS) / r["aot.graph"]
              for r in rows]
     return {"sampled_frames": len(rows), "median_ms": med,
@@ -152,6 +153,9 @@ def run(args) -> dict:
                                bool(args.trace), dev, T_PROCESS)
     tracer.disarm()
     rec = tracer.snapshot() if args.armed else None
+    if rec is not None:
+        # the record as a loop that arms the recorder hands it back
+        res.extra.setdefault("program", rec)
     checks = check.verdict(R.judge(cell, res, dev), cell.limits)
     view = SimpleNamespace(result=res, ctx=ctx, program=rec,
                            trace=ctx.tracer.trace, cfg=ctx.cfg,
@@ -166,7 +170,10 @@ def run(args) -> dict:
         out["traced"] = {m["name"]: cell.reader(m["name"]).read(view)
                          for m in cell.per_layer}
     if rec is not None:
-        out["metrics"] = {n: cell.reader(n).read(view) for n in READERS}
+        own = [m["name"] for m in cell.per_layer
+               if m["source"] in ("program_span", "program_counter")]
+        out["metrics"] = {n: cell.reader(n).read(view)
+                          for n in READERS + tuple(own)}
         out["program_idle_gaps"] = spans.longest_gaps(view)
         w = spans.window(view)
         out["spans"] = {"host": len(rec["host"]),
@@ -176,9 +183,10 @@ def run(args) -> dict:
             out["graph_split"] = _graph_split(rec, w.frames)
             drive_ms = out["diag"].get("drive_ms")
             if drive_ms:
-                drive = (cell.config["route"]["ramp_frames"]
-                         + cell.config["route"]["circuit_frames"]
-                         * cell.traffic["drive_laps"])
+                route = cell.config["route"]
+                drive = route.get("drive_frames") or (
+                    route["ramp_frames"] + route["circuit_frames"]
+                    * cell.traffic["drive_laps"])
                 out["drives"] = _drives(rec, w, drive, drive_ms)
             if "rate_hz" in cell.traffic:
                 out["live"] = _live(rec, w, ctx.t_process + ctx.setup_s,
