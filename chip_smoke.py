@@ -275,11 +275,13 @@ Phases, each printing one JSON line:
    bench capacity and at 1,024, its device-memory path also at 75 and 174
    targets, and 6 frames of ``combined_image_step`` at ``cells_xy=70``,
    every refresh equal to the plain version.  Then each kernel's time
-   beside its plain version's and its bound, the new paths' too.  Also ``update_map_sparse_epilogue`` against ``update_map``
-   over the combined drive's 36 frames at 524,288 and 2^20 slots: slots,
-   keys, codes and overflow ``torch.equal``, centroids within 1e-5 m,
-   the probe once a frame for each, ms a call, and whether two calls of
-   each on one input give bit-equal centroids, and ``update_map_full`` at
+   beside its plain version's and its bound, the new paths' too.  Also
+   the map fold (``csrc/map_fold.cu``) over the combined drive's 36
+   frames at 524,288 and 2^22 slots against the plain fold on the card
+   and ``fold_frame``: keys, codes and overflow ``torch.equal``,
+   centroids within 1e-5 m, one fold launch a frame, ms a call; at 37
+   edges, past one block and into a full 1,024-slot table every field
+   ``torch.equal`` to the plain fold on the CPU; and ``update_map_full`` at
    ``resolution=0.1`` (the sorted soup of a map that is not packable)
    called twice on one input: every field ``torch.equal``.  And the LM
    solve's row (its own ``lm_solve`` line, ``lm_solve_phase``):
@@ -345,6 +347,7 @@ from liodom_tpu_torch.odometry import pipeline as P
 from liodom_tpu_torch.ops import compact_pallas as K7
 from liodom_tpu_torch.ops import features as F
 from liodom_tpu_torch.ops import knn_pallas as KNN
+from liodom_tpu_torch.ops import map_fold as MF
 from liodom_tpu_torch.ops import neighbors as NB
 from liodom_tpu_torch.ops import probe_insert as PI
 from liodom_tpu_torch.ops import select_pallas as SEL
@@ -448,7 +451,8 @@ _COUNTED = {"smoothness": SM.smoothness_cuda,
             "knn_index_any_k": KNN.knn_index_launch_any_k,
             "local_map_compact": K7.compact_hits_cuda,
             "local_map_compact_global": K7.compact_hits_global_cuda,
-            "probe_insert": PI.probe_insert_cuda}
+            "probe_insert": PI.probe_insert_cuda,
+            "map_fold": MF.map_fold_cuda}
 
 
 def reset_counters() -> None:
@@ -1390,57 +1394,96 @@ def aot_phase(cfg, ccfg, imgs, eager, ceager, seager, gt_pos, bimgs,
           "timing": timing, "seconds": time.perf_counter() - t_phase})
 
 
-def sparse_epilogue_phase(imgs, poses, cfg, check) -> dict:
-    """``update_map_sparse_epilogue`` against ``update_map`` on the card:
-    the combined drive's 36 frames of edges at their solved poses into two
-    maps each, at 524,288 and 2^20 slots: slots, keys, codes and overflow
-    ``torch.equal``, centroids within 1e-5 m, the probe once a frame for
-    each; both functions' ms a call on the last frame, and whether two
-    calls of each on the same input give bit-equal centroids.  Then
-    ``update_map_full`` at ``resolution=0.1`` (not packable): every field
-    of two calls on one input ``torch.equal``."""
+def map_fold_phase(imgs, poses, cfg, check) -> dict:
+    """``update_map``'s fold (``csrc/map_fold.cu``) on the card: the
+    combined drive's 36 frames of edges at their solved poses into maps of
+    524,288 and 2^22 slots, each frame's fold from one probe result against
+    the plain fold on the card (``_sparse_fold``) and the capacity-sized
+    ``fold_frame``: keys, validity, codes and overflow ``torch.equal``,
+    centroids within 1e-5 m (whether they are bit-equal too), one probe and
+    one fold launch a frame; its cases (37 edges; 4 frames' 22,528 edges,
+    past one block; a full 1,024-slot table) every field and the slots
+    folded ``torch.equal`` to the plain fold on the CPU; ms a call of the
+    fold, the plain fold, ``fold_frame`` and ``update_map`` on the last
+    frame.  Then ``update_map_full`` at ``resolution=0.1`` (not packable):
+    every field of two calls on one input ``torch.equal``."""
     edges = [F.select_edges(im, F.smoothness(im, cfg), cfg) for im in imgs]
     out = {}
-    for cap in (MCFG.map_capacity, 1 << 20):
+    for cap in (MCFG.map_capacity, 1 << 22):
         mcfg = MCFG.replace(map_capacity=cap)
-        probes = {}
-        for name in ("update_map", "update_map_sparse_epilogue"):
-            fn = getattr(G, name)
-            m = G.init_map(cap)
-            torch.cuda.synchronize()
-            reset_counters()
-            for e, p in zip(edges, poses):
-                prev = m
-                m = fn(m, e.xyz, e.valid, p, mcfg)
-            probes[name] = read_counters()["probe_insert"]
-            if name == "update_map":
-                dense, dense_prev = m, prev
-            else:
-                sparse, sparse_prev = m, prev
-        ints = {k: torch.equal(getattr(dense, k), getattr(sparse, k))
-                for k in ("valid", "key", "code", "overflow")}
-        err = float((dense.xyz - sparse.xyz).abs().max())
-        e, p = edges[-1], poses[-1]
-        repeat = {}
-        ms = {}
-        for name, prev in (("update_map", dense_prev),
-                           ("update_map_sparse_epilogue", sparse_prev)):
-            fn = getattr(G, name)
-            repeat[name] = torch.equal(fn(prev, e.xyz, e.valid, p, mcfg).xyz,
-                                       fn(prev, e.xyz, e.valid, p, mcfg).xyz)
-            ms[name] = cuda_ms(lambda: fn(prev, e.xyz, e.valid, p, mcfg), 50)
-        check(all(ints.values()), f"sparse epilogue at {cap} slots: "
-              f"{ints} (valid, key, code, overflow torch.equal)")
-        check(err <= 1e-5, f"sparse epilogue at {cap} slots: centroids "
-              f"{err:.2e} m from update_map's")
-        check(probes == {"update_map": len(edges),
-                         "update_map_sparse_epilogue": len(edges)},
-              f"sparse epilogue at {cap} slots: probe launches {probes}")
+        m = G.init_map(cap)
+        torch.cuda.synchronize()
+        reset_counters()
+        ints, err, bit = {}, {}, True
+        for e, p in zip(edges, poses):
+            ins = G.insert_frame(m, e.xyz, e.valid, p, mcfg)
+            got = G._fold(m, e.valid, ins, mcfg)
+            others = {"sparse_fold": G._sparse_fold(m, e.valid, ins, mcfg),
+                      "fold_frame": G.fold_frame(m, e.valid, ins, mcfg)}
+            for name, o in others.items():
+                ints[name] = ints.get(name, True) and all(
+                    torch.equal(getattr(got, k), getattr(o, k))
+                    for k in ("valid", "key", "code", "overflow"))
+                err[name] = max(err.get(name, 0.0),
+                                float((got.xyz - o.xyz).abs().max()))
+            bit = bit and torch.equal(got.xyz, others["sparse_fold"].xyz)
+            prev, m = m, got
+        counts = read_counters()
+        launched = {k: counts[k] for k in ("probe_insert", "map_fold")}
+        check(all(ints.values()), f"map fold at {cap} slots: keys, validity, "
+              f"codes or overflow differ: {ints}")
+        check(max(err.values()) <= 1e-5, f"map fold at {cap} slots: "
+              f"centroids {err} m apart")
+        check(launched == {"probe_insert": len(edges),
+                           "map_fold": len(edges)},
+              f"map fold at {cap} slots: launches {launched}")
+        ins = G.insert_frame(prev, e.xyz, e.valid, p, mcfg)
+        ms = {"map_fold": cuda_ms(lambda: G._fold(prev, e.valid, ins, mcfg),
+                                  50),
+              "sparse_fold": cuda_ms(lambda: G._sparse_fold(
+                  prev, e.valid, ins, mcfg), 50),
+              "fold_frame": cuda_ms(lambda: G.fold_frame(
+                  prev, e.valid, ins, mcfg), 50),
+              "update_map": cuda_ms(lambda: G.update_map(
+                  prev, e.xyz, e.valid, p, mcfg), 50)}
         out[str(cap)] = {"frames": len(edges), "ints_equal": ints,
-                         "xyz_max_abs_err": err, "probe_launches": probes,
-                         "leaves": int(dense.valid.sum()),
-                         "overflow": int(dense.overflow), "ms_per_call": ms,
-                         "repeat_xyz_bit_equal": repeat}
+                         "xyz_max_abs_err": err,
+                         "xyz_bit_equal_to_sparse_fold": bit,
+                         "launches": launched,
+                         "leaves": int(m.valid.sum()),
+                         "overflow": int(m.overflow), "ms_per_call": ms,
+                         "shape": MF.map_fold_shape(e.xyz.shape[0])}
+    # the kernel's cases against the plain fold on the CPU
+    world = [se3.transform(p, e.xyz) for e, p in zip(edges, poses)]
+    ident = se3.Pose.identity(device=world[0].device)
+    small = G.init_map(1024)
+    mcfg_small = MCFG.replace(map_capacity=1024)
+    for e, p in zip(edges[:2], poses[:2]):
+        small = G.update_map(small, e.xyz, e.valid, p, mcfg_small)
+    cases = {"e37": (prev, world[-1][:37], edges[-1].valid[:37], MCFG),
+             "e22528": (prev, torch.cat(world[-4:]),
+                        torch.cat([e.valid for e in edges[-4:]]), MCFG),
+             "full_1024": (small, world[2], edges[2].valid, mcfg_small)}
+    for name, (st, pts, valid, mcfg) in cases.items():
+        ins = G.insert_frame(st, pts, valid, ident, mcfg)
+        got, folded = G._fold(st, valid, ins, mcfg, with_folded=True)
+        want, want_folded = G._sparse_fold(
+            G.MapState(*(t.cpu() for t in st)), valid.cpu(),
+            G.Inserted(*(t.cpu() for t in ins)), mcfg, with_folded=True)
+        same = {k: torch.equal(getattr(got, k).cpu(), getattr(want, k))
+                for k in G.MapState._fields}
+        check(all(same.values()) and int(folded) == int(want_folded),
+              f"map fold ({name}): differs from the plain fold on the CPU: "
+              f"{same}, folded {int(folded)} against {int(want_folded)}")
+        out[name] = {"rows": pts.shape[0], "fields_equal": same,
+                     "folded": int(folded),
+                     "claimed": int(ins.claimed.sum()),
+                     "dropped": int((valid & ins.failed).sum()),
+                     "sort_blocks": MF.map_fold_shape(pts.shape[0])[
+                         "sort_blocks"]}
+    check(out["full_1024"]["dropped"] > 0
+          and out["e22528"]["sort_blocks"] == 2,
+          f"map fold cases: {out['full_1024']}, {out['e22528']}")
     # the sorted soup of a non-packable map (0.1 m leaves): the drive's
     # frames into it, then two calls on the last frame's input
     mcfg = MCFG.replace(resolution=0.1)
@@ -1739,7 +1782,8 @@ def stream_runs(smi, check) -> None:
                     knn_coords=2 * (done + 1))
         if "--mapping" in argv:
             mp = rep["mapper_processed"]
-            want.update(probe_insert=mp, local_map_compact=mp // 4)
+            want.update(probe_insert=mp, map_fold=mp,
+                        local_map_compact=mp // 4)
             check(mp >= 1 and rep["map_overflow"] == 0
                   and rep["local_map_truncation"] == 0,
                   f"{label}: mapper folded {mp} frames, overflow "
@@ -1786,7 +1830,7 @@ def longcourse_runs(tmp: Path, fresh: Path, smi, check) -> None:
     gate(label, rep)
     refreshes = len(range(0, n, 4))
     want = launches(smoothness=n, select_edges=n, knn_coords=2 * n,
-                    probe_insert=n,
+                    probe_insert=n, map_fold=n,
                     local_map_compact=refreshes + len(rep["growth"]))
     check(counts == want, f"{label}: launch counts {counts} != {want}")
     emit({"phase": "apps", "run": label, "nvidia_smi": smi,
@@ -1970,7 +2014,7 @@ def apps_phase(tmp: Path, spins, gt_pos, gt_yaw, dev, smi, check) -> None:
     est_m = read_poses(res_m / "poses.txt")
     ate = traj_ate(est_m, gt_pos)
     want_m = launches(smoothness=n, select_edges=n, knn_coords=2 * n,
-                      local_map_compact=n + 1, probe_insert=n)
+                      local_map_compact=n + 1, probe_insert=n, map_fold=n)
     check(ate < 0.1, f"run_kitti --mapping ATE {ate:.4f} m")
     check(rep["map_overflow"] == 0 and rep["local_map_truncated"] == 0,
           f"run_kitti --mapping: overflow {rep['map_overflow']}, local map "
@@ -2097,7 +2141,7 @@ def apps_phase(tmp: Path, spins, gt_pos, gt_yaw, dev, smi, check) -> None:
     rep, counts = run_app(run_mapping, base + [
         "--poses", res / "poses.txt", "--out", map_out], check,
         "run_mapping")
-    want = launches(smoothness=n, select_edges=n, probe_insert=n,
+    want = launches(smoothness=n, select_edges=n, probe_insert=n, map_fold=n,
                     local_map_compact=1)
     check(rep["occupied_slots"] > 0, "run_mapping: empty map")
     check((map_out / "map.ply").exists(), "run_mapping wrote no map.ply")
@@ -2177,14 +2221,14 @@ def any_k_drives(cfg, ccfg, bimgs, lanes_b, gt_pos, mesh, check) -> dict:
     cp, _ = drive("combined", lambda: run_combined(
         *S.init_combined(c20, MCFG), bimgs[:n], c20, keep=False),
         smoothness=n, select_edges=n, knn_coords_any_k=2 * n,
-        local_map_compact=n, probe_insert=n)
+        local_map_compact=n, probe_insert=n, map_fold=n)
     cpt, cpq, _, _ = drive_error(cp, gt_pos[:n])
     sstep = CB.make_sharded_combined_image_step(mesh, c20, MCFG)
     sp, _ = drive("sharded", lambda: run_sharded(
         *CB.init_combined_image_sharded(c20, MCFG, mesh), bimgs[:n], sstep,
         keep=False),
         smoothness=n, select_edges=n, knn_index_any_k=2 * n,
-        local_map_compact=n, probe_insert=n)
+        local_map_compact=n, probe_insert=n, map_fold=n)
     near("sharded", sp, cpt, cpq)
     out["combined"] = {"frames": n, "launches": counts["combined"]}
     return out
@@ -2524,6 +2568,7 @@ def compact_wide_phase(kmap, kbase, imgs, ccfg, check):
     counts = read_counters()
     want = launches(smoothness=N_ANY_K, select_edges=N_ANY_K,
                     knn_coords=2 * N_ANY_K, probe_insert=N_ANY_K,
+                    map_fold=N_ANY_K,
                     local_map_compact_global=N_ANY_K)
     refresh = []
     for (odom, mp), p in zip(states, poses):
@@ -2653,7 +2698,7 @@ def main() -> int:
             for (_, m), p in zip(cstates, cposes_k)]
     want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
                     knn_coords=2 * N_FRAMES, local_map_compact=N_FRAMES,
-                    probe_insert=N_FRAMES)
+                    probe_insert=N_FRAMES, map_fold=N_FRAMES)
     check(ccounts == want, f"combined launch counts {ccounts} != {want}")
     check(bool(np.isfinite(cq).all() and np.isfinite(ct).all()),
           "combined: non-finite pose")
@@ -2751,7 +2796,7 @@ def main() -> int:
         prev = cstates[i]
     want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
                     knn_coords=2 * N_FRAMES, local_map_compact=N_FRAMES,
-                    probe_insert=N_FRAMES)
+                    probe_insert=N_FRAMES, map_fold=N_FRAMES)
     check(rccounts == want, f"combined_step launch counts {rccounts} != "
           f"{want}")
     check(all(rc_step_same), f"combined_step vs combined_image_step from "
@@ -2990,7 +3035,8 @@ def main() -> int:
         want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
                         knn_lines=2 * N_FRAMES,
                         local_map_compact=N_FRAMES if mapped else 0,
-                        probe_insert=N_FRAMES if mapped else 0)
+                        probe_insert=N_FRAMES if mapped else 0,
+                        map_fold=N_FRAMES if mapped else 0)
         check(lnc == want, f"lines ({name}) launch counts {lnc} != {want}")
         check(lnate < 0.1, f"lines ({name}) ATE over {N_ATE} frames "
               f"{lnate:.4f} m >= 0.1")
@@ -3031,7 +3077,7 @@ def main() -> int:
     s_overflow = int(s_states[-1][1].overflow)
     want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
                     knn_index=2 * N_FRAMES, local_map_compact=N_FRAMES,
-                    probe_insert=N_FRAMES)
+                    probe_insert=N_FRAMES, map_fold=N_FRAMES)
     check(scounts == want, f"sharded launch counts {scounts} != {want}")
     check(bool(np.isfinite(sq_).all() and np.isfinite(st_).all()),
           "sharded: non-finite pose")
@@ -3106,7 +3152,7 @@ def main() -> int:
     c_q = torch.stack([p.q for p in c_poses]).cpu().numpy()
     c_gap = pose_gap(c_t, c_q, ct[:N_ATE], cq[:N_ATE])
     want = launches(knn_index=2 * N_ATE, local_map_compact=N_ATE,
-                    probe_insert=N_ATE)
+                    probe_insert=N_ATE, map_fold=N_ATE)
     check(c_counts == want, f"sharded combined step launch counts "
           f"{c_counts} != {want}")
     check(c_gap[0] < 0.01 and c_gap[1] < 1e-3, f"sharded combined step vs "
@@ -3651,10 +3697,10 @@ def main() -> int:
     flagged = int(flags.sum())
     flagged_b = int(prep_b[2].sum())
     flagged5 = int(prep5[2].sum())
-    sparse_epilogue = sparse_epilogue_phase(imgs, cposes_k, cfg, check)
+    map_fold = map_fold_phase(imgs, cposes_k, cfg, check)
     lm_solve_phase(cfg, imgs, dev, smi, usage, check)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t_kernels,
-          "sparse_epilogue": sparse_epilogue,
+          "map_fold": map_fold,
           "smoothness": {"bit_exact": all(v["bit_exact"]
                                           for v in k1.values()),
                          "max_abs_err": k1_err, "shapes": k1,

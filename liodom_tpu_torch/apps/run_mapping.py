@@ -82,10 +82,10 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
           f"device={device_name(dev)}")
     report = {"app": "run_mapping", "rc": 0, "device": device_name(dev),
               "frames": n, **prepare_loader()}
-    # K1 and K2 extract the edges, the probe kernel inserts them, K7
-    # extracts the exported local map
+    # K1 and K2 extract the edges, the probe kernel inserts them and the
+    # fold kernel folds them in, K7 extracts the exported local map
     report.update(prepare_kernels(("smoothness", "select", "probe_insert",
-                             "local_map_compact"), dev))
+                                   "map_fold", "local_map_compact"), dev))
 
     # the trajectory goes to the card once; each frame takes its row
     quats = torch.as_tensor(np.stack([_quat_from_matrix(m[:3, :3])

@@ -20,8 +20,11 @@ and the slot layout is the JAX package's, slot for slot.
 The probe loop and the slot hash live in ``ops/probe_insert.py``: on CUDA
 one kernel (``csrc/probe_insert.cu``) runs every round in one launch, so
 the update never waits on the host; on the CPU the rounds are torch ops.
-Local-map extraction (:func:`get_local_map`) runs K7
-(``ops/compact_pallas.py``).
+The fold after it is frame-sized: on CUDA one launch of
+``csrc/map_fold.cu`` (``ops/map_fold.py``), on the CPU its plain version
+:func:`_sparse_fold`; :func:`fold_frame`, the capacity-sized fold, is kept
+as the tested alternative.  Local-map extraction (:func:`get_local_map`)
+runs K7 (``ops/compact_pallas.py``).
 """
 
 from __future__ import annotations
@@ -31,11 +34,13 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from liodom_tpu_torch import kernels
 from liodom_tpu_torch.core import pose as se3
 from liodom_tpu_torch.core.config import MapConfig
 from liodom_tpu_torch.core.device import resolve_device
 from liodom_tpu_torch.core.pose import Pose
 from liodom_tpu_torch.ops.compact_pallas import compact_hits
+from liodom_tpu_torch.ops.map_fold import map_fold_cuda
 from liodom_tpu_torch.ops.probe_insert import EMPTY, probe_insert
 from liodom_tpu_torch.runtime import tracer
 
@@ -181,24 +186,28 @@ def update_map(state: MapState, pts: torch.Tensor, valid: torch.Tensor,
     """Hash-grid ``Map::updateMap`` (map.cc:90-129), the production path.
 
     Transform to world, route each point to its (cell, leaf), find or
-    insert its slot, then fold the new points into the slot centroids: the
-    E-sized per-slot sums of ``[x y z 1]`` (:func:`_slot_sums`, in row
-    order, so the map is the same from run to run on the card) and C-sized
-    element-wise passes (``key`` and ``valid`` decoded from the table).
+    insert its slot (:func:`insert_frame`), then fold the new points into
+    the slots they hit (:func:`_fold`): every pass after the probe is
+    frame-sized but the copies of the state that the result starts from.
     Points are dropped, and counted in ``overflow``, when the probe
     exhausts its 64 rounds.  Non-packable configs take
     :func:`update_map_full`.
 
     With the span recorder armed (``runtime/tracer``) the two halves are
     the device spans ``map.probe`` and ``map.fold``, and the counters
-    ``map.probe_rounds`` and ``map.claimed`` (:func:`_count_claimed`) are
-    kept; off, the update is what it is without them."""
+    ``map.probe_rounds``, ``map.folded`` (the slots the fold rewrote) and
+    ``map.claimed`` (:func:`_count_claimed`) are kept; off, the update is
+    what it is without them."""
     if not packable(cfg):
         return update_map_full(state, pts, valid, pose, cfg)
+    armed = tracer.RECORDER.on
     with tracer.span("map.probe", device=True):
         ins = insert_frame(state, pts, valid, pose, cfg)
     with tracer.span("map.fold", device=True):
-        out = fold_frame(state, valid, ins, cfg)
+        out = _fold(state, valid, ins, cfg, with_folded=armed)
+    if armed:
+        out, folded = out
+        tracer.count("map.folded", folded)
     _count_claimed(state, out)
     return out
 
@@ -222,9 +231,9 @@ class Inserted(NamedTuple):
 
 def insert_frame(state: MapState, pts: torch.Tensor, valid: torch.Tensor,
                  pose: Pose, cfg: MapConfig) -> Inserted:
-    """The first half of :func:`update_map` and its sparse epilogue: the
-    frame to world, its packed (cell, leaf) codes, and the probe kernel's
-    find-or-insert of each code (packable configs only)."""
+    """The first half of :func:`update_map`: the frame to world, its packed
+    (cell, leaf) codes, and the probe kernel's find-or-insert of each code
+    (packable configs only)."""
     new_xyz = se3.transform(pose, pts.to(state.xyz.dtype))
     code = _packed_codes(new_xyz, valid, cfg)
     if not tracer.RECORDER.on:
@@ -234,64 +243,36 @@ def insert_frame(state: MapState, pts: torch.Tensor, valid: torch.Tensor,
     return Inserted(new_xyz, *found)
 
 
-def fold_frame(state: MapState, valid: torch.Tensor, ins: Inserted,
-               cfg: MapConfig) -> MapState:
-    """The second half of :func:`update_map`: the per-slot sums of the
-    inserted frame folded into the stored centroids, ``key`` and ``valid``
-    decoded from the table, the dropped points counted."""
-    cap = state.xyz.shape[0]
-    dtype = state.xyz.dtype
-    new_xyz, tab, slot, failed = ins.xyz, ins.table, ins.slot, ins.failed
-    ok = valid & ~failed
-    slot_c = torch.where(ok, slot.to(torch.int64), cap)  # cap: spare, dropped
-
-    payload = torch.cat([torch.where(ok[:, None], new_xyz, 0.0),
-                         ok[:, None].to(dtype)], dim=1)        # (E, 4)
-    seg_slot, sums = _slot_sums(slot_c, payload, cap)
-    acc = torch.zeros((cap + 1, 4), dtype=dtype, device=new_xyz.device)
-    acc = acc.index_copy_(0, seg_slot, sums)[:cap]
-    add_sum, add_cnt = acc[:, :3], acc[:, 3]
-    base_w = state.valid.to(dtype)                  # stored centroid weight
-    touched = add_cnt > 0
-    out_xyz = torch.where(touched[:, None],
-                          (state.xyz * base_w[:, None] + add_sum)
-                          / (base_w + add_cnt)[:, None],
-                          state.xyz)
-    out_valid = tab != EMPTY
-    out_key = torch.where(out_valid[:, None], _decode_cell_keys(tab, cfg), 0)
-
-    dropped = (valid & failed).sum(dtype=torch.int32)
-    return MapState(out_xyz, out_key, out_valid, state.overflow + dropped, tab)
-
-
-def update_map_sparse_epilogue(state: MapState, pts: torch.Tensor,
-                               valid: torch.Tensor, pose: Pose,
-                               cfg: MapConfig) -> MapState:
-    """The O(E) variant of :func:`update_map` (``grid.py:334``), which the
-    JAX package measured slower and keeps for the comparison of
-    ``scripts/map_epilogue_sweep.py``: every pass after the probe is
-    frame-sized.  The per-slot sums are :func:`update_map`'s
-    (:func:`_slot_sums`); the touched centroids are gathered, updated and
-    written back in place of the C-sized fold, and ``key`` and
-    ``valid`` are stamped only at the slots claimed by this call (a matched
-    slot carries them already); the key is the reference expression on the
-    claiming point, the packed-code decode of :func:`update_map` for every
-    cell the code does not alias.  Same slots, keys, validity, table and
-    overflow as :func:`update_map`; centroids to float32 rounding.
-    Non-packable configs take :func:`update_map_full`."""
-    if not packable(cfg):
-        return update_map_full(state, pts, valid, pose, cfg)
-    with tracer.span("map.probe", device=True):
-        ins = insert_frame(state, pts, valid, pose, cfg)
-    with tracer.span("map.fold", device=True):
-        out = _sparse_fold(state, valid, ins, cfg)
-    _count_claimed(state, out)
-    return out
+def _fold(state: MapState, valid: torch.Tensor, ins: Inserted,
+          cfg: MapConfig, with_folded: bool = False):
+    """The frame-sized fold on the tensors' device: one launch of
+    ``csrc/map_fold.cu`` for CUDA tensors, :func:`_sparse_fold` for CPU
+    tensors, bit-exact with each other; with ``with_folded`` the slots
+    folded (() int32) come after the state."""
+    if not state.xyz.is_cuda:
+        kernels.require_cpu(state.xyz, "map fold")
+        return _sparse_fold(state, valid, ins, cfg, with_folded)
+    fields = map_fold_cuda(state.xyz, state.key, state.valid,
+                           state.overflow, ins.xyz, valid, ins.slot,
+                           ins.claimed, ins.failed, cfg.voxel_xysize,
+                           cfg.voxel_zsize, with_folded)
+    out = MapState(*fields[:4], ins.table)
+    return (out, fields[4]) if with_folded else out
 
 
 def _sparse_fold(state: MapState, valid: torch.Tensor, ins: Inserted,
-                 cfg: MapConfig) -> MapState:
-    """The frame-sized second half of :func:`update_map_sparse_epilogue`."""
+                 cfg: MapConfig, with_folded: bool = False):
+    """The frame-sized fold as torch ops, the plain version of
+    ``csrc/map_fold.cu``: the per-slot sums (:func:`_slot_sums`) of the
+    frame's rows that are valid and were not dropped; each touched slot's
+    centroid gathered, updated and written back; ``key`` and ``valid``
+    stamped only at the slots this call claimed (a matched slot carries
+    them already), the key the reference expression (:func:`cell_keys`) on
+    the claiming point, which is :func:`fold_frame`'s decode of the packed
+    code for every cell the code does not alias.  Same slots, keys,
+    validity, table and overflow as :func:`fold_frame`, and the same
+    centroids: the same sums, added in the same order.  With
+    ``with_folded`` the slots folded (() int32) come after the state."""
     cap = state.xyz.shape[0]
     dtype = state.xyz.dtype
     new_xyz, tab, slot, claimed, failed = ins
@@ -319,6 +300,43 @@ def _sparse_fold(state: MapState, valid: torch.Tensor, ins: Inserted,
         0, claim_tgt, cell_keys(new_xyz, cfg))[:cap]
     out_valid = torch.cat([state.valid, state.valid.new_zeros(1)]).index_fill_(
         0, claim_tgt, True)[:cap]
+
+    dropped = (valid & failed).sum(dtype=torch.int32)
+    out = MapState(out_xyz, out_key, out_valid, state.overflow + dropped, tab)
+    if not with_folded:
+        return out
+    return out, (tgt < cap).sum(dtype=torch.int32)
+
+
+def fold_frame(state: MapState, valid: torch.Tensor, ins: Inserted,
+               cfg: MapConfig) -> MapState:
+    """The capacity-sized fold, the tested alternative to :func:`_fold`
+    (``scripts/map_fold_split.py``, ``chip_smoke.py``): the
+    per-slot sums of the inserted frame scattered into a zeroed (C, 4)
+    accumulator and folded into the stored centroids by passes over every
+    slot, ``key`` and ``valid`` decoded from the whole table, the dropped
+    points counted.  The same state as :func:`_fold`; at 2^22 slots it took
+    1.12 ms a frame on the H100 where the frame-sized sums take 0.12."""
+    cap = state.xyz.shape[0]
+    dtype = state.xyz.dtype
+    new_xyz, tab, slot, failed = ins.xyz, ins.table, ins.slot, ins.failed
+    ok = valid & ~failed
+    slot_c = torch.where(ok, slot.to(torch.int64), cap)  # cap: spare, dropped
+
+    payload = torch.cat([torch.where(ok[:, None], new_xyz, 0.0),
+                         ok[:, None].to(dtype)], dim=1)        # (E, 4)
+    seg_slot, sums = _slot_sums(slot_c, payload, cap)
+    acc = torch.zeros((cap + 1, 4), dtype=dtype, device=new_xyz.device)
+    acc = acc.index_copy_(0, seg_slot, sums)[:cap]
+    add_sum, add_cnt = acc[:, :3], acc[:, 3]
+    base_w = state.valid.to(dtype)                  # stored centroid weight
+    touched = add_cnt > 0
+    out_xyz = torch.where(touched[:, None],
+                          (state.xyz * base_w[:, None] + add_sum)
+                          / (base_w + add_cnt)[:, None],
+                          state.xyz)
+    out_valid = tab != EMPTY
+    out_key = torch.where(out_valid[:, None], _decode_cell_keys(tab, cfg), 0)
 
     dropped = (valid & failed).sum(dtype=torch.int32)
     return MapState(out_xyz, out_key, out_valid, state.overflow + dropped, tab)

@@ -210,7 +210,7 @@ def path_kernels(mapping: bool, sharded: bool = False) -> Tuple[str, ...]:
     K4, or K6 under ``LIODOM_KNN_IMPL=pallas_lines``; K5 on the sharded
     steps of ``parallel/``, whatever the setting) and the LM solve (not on
     the sharded steps, whose solve all-reduces between rounds and stays
-    plain), and with the map K7 and the probe kernel."""
+    plain), and with the map K7, the probe kernel and the map fold."""
     if sharded:
         step = ("knn_index",)
     elif resolve_knn_impl() == "pallas_lines":
@@ -218,13 +218,13 @@ def path_kernels(mapping: bool, sharded: bool = False) -> Tuple[str, ...]:
     else:
         step = ("knn_coords", "lm_solve")
     return ("smoothness", "select") + step + (
-        ("local_map_compact", "probe_insert") if mapping else ())
+        ("local_map_compact", "probe_insert", "map_fold") if mapping else ())
 
 
 def _load_library(name: str) -> None:
     """Load a built library through its op module's bindings, launching
     nothing."""
-    from liodom_tpu_torch.ops import (compact_pallas, knn_pallas,
+    from liodom_tpu_torch.ops import (compact_pallas, knn_pallas, map_fold,
                                       probe_insert, select_pallas,
                                       smoothness_pallas, solver)
     if name == "smoothness":
@@ -237,6 +237,8 @@ def _load_library(name: str) -> None:
         compact_pallas.compact_shape(1, 1)
     elif name == "probe_insert":
         probe_insert.probe_shape()
+    elif name == "map_fold":
+        map_fold.map_fold_shape(1)
     elif name == "lm_solve":
         solver.lm_solve_shape(1)
     else:

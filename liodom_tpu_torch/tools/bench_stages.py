@@ -21,7 +21,8 @@ of their own: ``knn_line_fit`` = ``knn_prepare`` (``knn_pallas.knn_prepare``:
 the query sort, tile boxes and pair flags) + ``knn_launch`` (K3) +
 ``line_fit`` (``neighbors._line_fit``), and ``map_update`` = ``probe``
 (``grid.insert_frame``: the transform, the codes and the probe kernel) +
-``sums`` (``grid.fold_frame``).
+``sums`` (``grid._fold``: the frame-sized fold, one launch of
+``csrc/map_fold.cu``).
 
 Two columns a row:
 
@@ -242,7 +243,7 @@ def stages(it: Intermediates, cfg: LiodomConfig, mcfg: MapConfig
                        map_args),
         "probe": (lambda m, x, v, p: G.insert_frame(m, x, v, p, mcfg),
                   map_args),
-        "sums": (lambda m, v, i: G.fold_frame(m, v, i, mcfg), (cm, ev, ins)),
+        "sums": (lambda m, v, i: G._fold(m, v, i, mcfg), (cm, ev, ins)),
         "map_local": (lambda m, t: G.get_local_map(
             m, t, mcfg, capacity=mcfg.local_map_capacity), (cm, it.cpose.t)),
     }

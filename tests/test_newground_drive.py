@@ -193,12 +193,13 @@ def _map_frame(seed=1, n=3000, cap=4096):
     return G.init_map(cap, device="cpu"), pts, valid, pose
 
 
-@pytest.mark.parametrize("update", [G.update_map,
-                                    G.update_map_sparse_epilogue],
+@pytest.mark.parametrize("fold", [G.fold_frame, G._sparse_fold],
                          ids=["fold", "sparse"])
-def test_recorder_off_leaves_the_map_update_as_it_was(update, monkeypatch):
-    """Off: no event, no counter, the probe called as before; the state
-    equal to the update armed and to the two halves called directly."""
+def test_recorder_off_leaves_the_map_update_as_it_was(fold, monkeypatch):
+    """Off: no event, no counter (``map.folded`` either), the probe called
+    as before; the state equal to the update armed and to its two halves
+    called directly, with either fold: the capacity-sized ``fold_frame`` or
+    the frame-sized plain fold."""
     cfg = MapConfig(map_capacity=4096)
     state, pts, valid, pose = _map_frame()
     calls = []
@@ -213,19 +214,22 @@ def test_recorder_off_leaves_the_map_update_as_it_was(update, monkeypatch):
     monkeypatch.setattr(G, "probe_insert", probe)
     monkeypatch.setattr(tracer, "count", refuse)
     monkeypatch.setattr(torch.cuda, "Event", refuse)
-    off = update(state, pts, valid, pose, cfg)
+    off = G.update_map(state, pts, valid, pose, cfg)
     assert calls == [{}]
     monkeypatch.undo()
-    direct = G.fold_frame(state, valid, G.insert_frame(state, pts, valid,
-                                                       pose, cfg), cfg)
+    direct = fold(state, valid, G.insert_frame(state, pts, valid, pose, cfg),
+                  cfg)
     tracer.arm(CPU)
-    on = update(state, pts, valid, pose, cfg)
+    on = G.update_map(state, pts, valid, pose, cfg)
+    tracer.anchor()
     tracer.disarm()
     for a, b, c in zip(off, on, direct):
         assert torch.equal(a, b)
-        if update is G.update_map:
-            assert torch.equal(a, c)
+        assert torch.equal(a, c)
     assert int(off.valid.sum()) > 0
+    folded = [c for c in tracer.snapshot()["counts"]
+              if c[0] == "map.folded"]
+    assert folded and folded[-1][2] > 0
 
 
 def test_copy_bytes_counts_a_replays_copies(monkeypatch):
@@ -289,7 +293,8 @@ def test_run_kitti_map_capacity_reaches_the_map(monkeypatch):
 @pytest.mark.cuda
 def test_map_update_graph_off_keeps_its_nodes():
     """On the card: ``update_map`` captured with the recorder off has the
-    nodes of its two halves captured directly (no span, no counter)."""
+    nodes of its two halves captured directly (no span, no counter), the
+    fold one launch of ``csrc/map_fold.cu`` (and the state's copies)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import sys
@@ -298,7 +303,7 @@ def test_map_update_graph_off_keeps_its_nodes():
     from liodom_tpu_torch.runtime import aot
     from liodom_tpu_torch.runtime.device_io import prepare_kernels
     dev = torch.device("cuda")
-    prepare_kernels(["probe_insert"], dev)
+    prepare_kernels(["probe_insert", "map_fold"], dev)
     cfg = MapConfig(map_capacity=1 << 22)
     state, pts, valid, pose = _map_frame(cap=1 << 22)
     state = G.MapState(*(t.to(dev) for t in state))
@@ -309,7 +314,7 @@ def test_map_update_graph_off_keeps_its_nodes():
     torch.cuda.CUDAGraph = lambda: real(keep_graph=True)
     try:
         for fn in (lambda: G.update_map(state, pts, valid, pose, cfg),
-                   lambda: G.fold_frame(state, valid, G.insert_frame(
+                   lambda: G._fold(state, valid, G.insert_frame(
                        state, pts, valid, pose, cfg), cfg)):
             graph, out = aot.capture_graph(fn, dev)
             counts.append(_node_count(graph))

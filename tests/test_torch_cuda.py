@@ -712,6 +712,101 @@ def test_probe_insert_kernel_edge_cases(dev):
     assert bool(got[3].any()) and int(got[4]) == PI.MAX_PROBES
 
 
+def _fold_frame_on(dev, m, e, seed):
+    """``e`` world points against the map ``m``: half near its stored
+    leaves, half on new ground, a tenth invalid, and the last eighth
+    repeating the first (the same slots at both ends of the frame, in the
+    first and the last block of the fold's cluster)."""
+    rng = np.random.default_rng(seed)
+    rows = torch.nonzero(m.valid).squeeze(1).cpu().numpy()
+    old = m.xyz[torch.from_numpy(rng.choice(rows, e // 2)).to(dev)].cpu()
+    old = old.numpy() + rng.normal(size=(e // 2, 3)) * 0.1
+    new = rng.normal(size=(e - e // 2, 3)) * np.array([80, 80, 8]) + 150
+    pts = np.concatenate([old, new]).astype(np.float32)[rng.permutation(e)]
+    pts[e - e // 8:] = pts[: e // 8]
+    valid = rng.random(e) > 0.1
+    return (torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev),
+            Pose(torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev),
+                 torch.zeros(3, device=dev)))
+
+
+@pytest.mark.parametrize("cap,e", [(65536, 37), (1 << 22, 5632),
+                                   (65536, 20_000), (1 << 20, 100_000),
+                                   (1 << 20, 196_608), (1024, 1500)],
+                         ids=["e37", "e5632_2p22", "e20000_two_blocks",
+                              "e100000_nine_blocks", "e196608_limit",
+                              "full_1024"])
+def test_map_fold_kernel_against_the_plain_fold(dev, cap, e):
+    """``csrc/map_fold.cu`` against ``grid._sparse_fold`` on the same
+    probe result: every field of the state and the slots folded bit for bit
+    against the plain fold on the CPU; against the plain fold on the card
+    the integers bit for bit and the centroids within 1e-5 m (its
+    ``segment_reduce`` may add in another order).  Frames of 37 rows, of
+    the bench's 5,632 at 2^22 slots (one sorting block, 11 folding), past
+    one block's shared memory (2, 9 and 16 sorting blocks, the last the
+    kernel's limit), and into a full 1,024-slot table; repeated slots,
+    claimed and dropped rows."""
+    from liodom_tpu_torch.ops import map_fold as MF
+    mcfg, m = _map_on(dev, capacity=cap)
+    pts, valid, pose = _fold_frame_on(dev, m, e, seed=e)
+    ins = G.insert_frame(m, pts, valid, pose, mcfg)
+    ok = valid & ~ins.failed
+    shape = MF.map_fold_shape(e)
+    assert e <= shape["max_rows"] and shape["sort_blocks"] == {
+        37: 1, 5632: 1, 1500: 1, 20_000: 2, 100_000: 9, 196_608: 16}[e]
+    assert shape["cluster_blocks"] == {
+        37: 1, 5632: 11, 1500: 3, 20_000: 16, 100_000: 16, 196_608: 16}[e]
+    before = MF.map_fold_cuda.launches
+    got, folded = G._fold(m, valid, ins, mcfg, with_folded=True)
+    torch.cuda.synchronize()
+    assert MF.map_fold_cuda.launches == before + 1
+    card, card_folded = G._sparse_fold(m, valid, ins, mcfg, with_folded=True)
+    cpu, cpu_folded = G._sparse_fold(
+        G.MapState(*(t.cpu() for t in m)), valid.cpu(),
+        G.Inserted(*(t.cpu() for t in ins)), mcfg, with_folded=True)
+    for name in G.MapState._fields:
+        assert torch.equal(getattr(got, name).cpu(), getattr(cpu, name)), \
+            name
+    for name in ("key", "valid", "overflow", "code"):
+        assert torch.equal(getattr(got, name), getattr(card, name)), name
+    assert float((got.xyz - card.xyz).abs().max()) <= 1e-5
+    hit = int(torch.unique(ins.slot[ok]).numel())
+    assert int(folded) == int(card_folded) == int(cpu_folded) == hit
+    if cap == 1024:
+        assert bool((valid & ins.failed).any()) and int(got.overflow) > int(
+            m.overflow)
+    else:
+        assert bool(ins.claimed.any()) and hit < int(ok.sum())
+    for a, b in zip(m, G.MapState(*(t.cpu() for t in m))):
+        assert torch.equal(a.cpu(), b)          # the inputs left untouched
+
+
+def test_update_map_launches_the_fold_once_a_call(dev):
+    """``update_map`` on CUDA: one probe launch and one fold launch a
+    call, its state the plain fold's on the CPU; a frame past the kernel's
+    limit is refused, never folded plainly."""
+    from liodom_tpu_torch.ops import map_fold as MF
+    mcfg, m = _map_on(dev, capacity=65536)
+    cpu = G.MapState(*(t.cpu() for t in m))
+    probes, folds = PI.probe_insert_cuda.launches, MF.map_fold_cuda.launches
+    for f in range(3):
+        pts, valid, pose = _fold_frame_on(dev, m, 5632, seed=f)
+        m = G.update_map(m, pts, valid, pose, mcfg)
+        cpu_pose = Pose(pose.q.cpu(), pose.t.cpu())
+        ins = G.insert_frame(cpu, pts.cpu(), valid.cpu(), cpu_pose, mcfg)
+        cpu = G._sparse_fold(cpu, valid.cpu(), ins, mcfg)
+        for a, b in zip(m, cpu):
+            assert torch.equal(a.cpu(), b)
+    assert PI.probe_insert_cuda.launches == probes + 3
+    assert MF.map_fold_cuda.launches == folds + 3
+    limit = MF.map_fold_shape(1)["max_rows"]
+    assert limit == MF.MAX_ROWS
+    pts, valid, pose = _fold_frame_on(dev, m, limit + 1, seed=9)
+    with pytest.raises(ValueError, match="exceeds"):
+        G.update_map(m, pts, valid, pose, mcfg)
+    assert MF.map_fold_cuda.launches == folds + 3
+
+
 def test_combined_step_on_the_card_matches_the_cpu_path(dev):
     cfg, imgs = _images(4)
     cfg = cfg.replace(mapping=True)

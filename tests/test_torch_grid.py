@@ -343,48 +343,157 @@ def _sparse_frames(seed=21, n_frames=6, e=500):
 
 @pytest.mark.parametrize("capacity", [8192, 1024])
 def test_sparse_epilogue_matches_jax(capacity):
-    """The port's ``update_map_sparse_epilogue`` against JAX's over the JAX
-    test's frames (seed 21, 6 frames of 500 points): codes, keys, validity
-    and overflow bit for bit, centroids within 1e-5 m; at 1,024 slots the
-    table fills and points are dropped."""
+    """The port's ``update_map``, whose fold is frame-sized, against JAX's
+    frame-sized ``update_map_sparse_epilogue`` over the JAX test's frames
+    (seed 21, 6 frames of 500 points): codes, keys, validity and overflow
+    bit for bit, centroids within 1e-5 m; at 1,024 slots the table fills
+    and points are dropped."""
     jcfg, cfg = _cfgs("default", map_capacity=capacity)
     jm, tm = JG.init_map(capacity), G.init_map(capacity, device="cpu")
     for pts, valid, q, t in _sparse_frames():
         jm = JG.update_map_sparse_epilogue(jm, jnp.asarray(pts),
                                            jnp.asarray(valid), _jpose(q, t),
                                            jcfg)
-        tm = G.update_map_sparse_epilogue(tm, torch.from_numpy(pts),
-                                          torch.from_numpy(valid),
-                                          _tpose(q, t), cfg)
+        tm = G.update_map(tm, torch.from_numpy(pts), torch.from_numpy(valid),
+                          _tpose(q, t), cfg)
         assert_map_equal(tm, jm)
     assert int(tm.valid.sum()) > 1000
     assert (int(tm.overflow) > 0) is (capacity == 1024)
 
 
 def test_sparse_epilogue_matches_update_map():
-    """The JAX test's own contract on the port: the sparse epilogue and
-    ``update_map`` give one slot layout, the same keys, validity, table and
-    overflow, and centroids within 1e-5 m, frame after frame; a
-    non-packable config takes the sorted soup in both."""
-    _, cfg = _cfgs("default", map_capacity=8192)
-    a = G.init_map(8192, device="cpu")
-    b = G.init_map(8192, device="cpu")
-    for i, (pts, valid, q, t) in enumerate(_sparse_frames()):
-        args = (torch.from_numpy(pts), torch.from_numpy(valid), _tpose(q, t),
-                cfg)
-        a = G.update_map(a, *args)
-        b = G.update_map_sparse_epilogue(b, *args)
-        assert torch.equal(a.valid, b.valid), i
-        assert torch.equal(a.code, b.code), i
-        assert torch.equal(a.key, b.key), i
-        assert int(a.overflow) == int(b.overflow), i
-        torch.testing.assert_close(a.xyz, b.xyz, atol=1e-5, rtol=0)
+    """``update_map`` (the frame-sized fold) against ``insert_frame`` +
+    ``fold_frame`` (the capacity-sized one) over the JAX test's frames at
+    8,192 and 1,024 slots (there the table fills and points are dropped):
+    one slot layout, the same keys, validity, table and overflow, and
+    centroids within 1e-5 m, frame after frame; a non-packable config
+    takes the sorted soup."""
+    for cap in (8192, 1024):
+        _, cfg = _cfgs("default", map_capacity=cap)
+        a = G.init_map(cap, device="cpu")
+        b = G.init_map(cap, device="cpu")
+        for i, (pts, valid, q, t) in enumerate(_sparse_frames()):
+            args = (torch.from_numpy(pts), torch.from_numpy(valid),
+                    _tpose(q, t), cfg)
+            a = G.fold_frame(a, args[1], G.insert_frame(a, *args), cfg)
+            b = G.update_map(b, *args)
+            assert torch.equal(a.valid, b.valid), (cap, i)
+            assert torch.equal(a.code, b.code), (cap, i)
+            assert torch.equal(a.key, b.key), (cap, i)
+            assert int(a.overflow) == int(b.overflow), (cap, i)
+            torch.testing.assert_close(a.xyz, b.xyz, atol=1e-5, rtol=0)
+        assert (int(b.overflow) > 0) is (cap == 1024)
     _, flat = _cfgs("nonpackable", resolution=0.1)
     pts, valid, q, t = _sparse_frames(n_frames=1)[0]
     args = (torch.from_numpy(pts), torch.from_numpy(valid), _tpose(q, t),
             flat)
     full = G.update_map_full(G.init_map(1024, device="cpu"), *args)
-    sparse = G.update_map_sparse_epilogue(G.init_map(1024, device="cpu"),
-                                          *args)
-    for x, y in zip(full, sparse):
+    hashed = G.update_map(G.init_map(1024, device="cpu"), *args)
+    for x, y in zip(full, hashed):
         assert torch.equal(x, y)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on CUDA: the fold's dispatch."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_fold_dispatch_kernel_on_cuda_plain_on_cpu(monkeypatch):
+    """A CPU state takes ``_sparse_fold`` and launches nothing; a state on
+    CUDA calls ``map_fold_cuda`` once an update, with the state, the
+    probe's result, the frame's mask and the cell sizes (a stand-in that
+    runs the plain fold gives the CPU path's map); the wrapper refuses CPU
+    tensors."""
+    from liodom_tpu_torch.ops import map_fold as MF
+    _, cfg = _cfgs("small_cells", map_capacity=4096)
+    frames = _frames(4, n_frames=3)
+    plain, calls = [], []
+    real_plain = G._sparse_fold
+
+    def counting_plain(*a, **k):
+        plain.append(1)
+        return real_plain(*a, **k)
+
+    def stand_in(xyz, key, valid, overflow, pts, pts_valid, slot, claimed,
+                 failed, xy, z, with_folded=False):
+        calls.append((xy, z, with_folded))
+        st = G.MapState(xyz.as_subclass(torch.Tensor), key, valid, overflow,
+                        None)
+        out = real_plain(st, pts_valid, G.Inserted(pts, None, slot, claimed,
+                                                   failed),
+                         MapConfig(voxel_xysize=xy, voxel_zsize=z),
+                         with_folded)
+        if with_folded:
+            return tuple(out[0][:4]) + (out[1],)
+        return tuple(out[:4])
+
+    monkeypatch.setattr(G, "_sparse_fold", counting_plain)
+    monkeypatch.setattr(G, "map_fold_cuda", stand_in)
+    launches = MF.map_fold_cuda.launches
+    cpu = card = G.init_map(4096, device="cpu")
+    for pts, valid, q, t in frames:
+        args = (torch.from_numpy(pts), torch.from_numpy(valid),
+                _tpose(q, t), cfg)
+        cpu = G.update_map(cpu, *args)
+        on_card = card._replace(xyz=card.xyz.as_subclass(_OnCard))
+        card = G.update_map(on_card, *args)
+        card = card._replace(xyz=card.xyz.as_subclass(torch.Tensor))
+        for x, y in zip(cpu, card):
+            assert torch.equal(x, y)
+    assert len(plain) == len(frames)       # the CPU state's alone
+    assert calls == [(20.0, 25.0, False)] * len(frames)
+    assert MF.map_fold_cuda.launches == launches
+    m = G.init_map(64, device="cpu")
+    e = torch.zeros(3, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        MF.map_fold_cuda(m.xyz, m.key, m.valid, m.overflow,
+                         torch.zeros(3, 3), e, torch.zeros(3,
+                                                           dtype=torch.int32),
+                         e, e, 20.0, 25.0)
+
+
+@pytest.mark.parametrize("capacity", [8192, 1024])
+def test_map_folded_counts_the_slots_a_frame_hits(capacity):
+    """``map.folded`` under the armed recorder: the distinct slots that
+    the frame's rows which are valid and not dropped hit (a hundred rows
+    repeat others; at 1,024 slots the table fills and rows are dropped);
+    the plain fold's state the same with the count as without it."""
+    from liodom_tpu_torch.runtime import tracer
+    _, cfg = _cfgs("default", map_capacity=capacity)
+    m = G.init_map(capacity, device="cpu")
+    hit = []
+    tracer.RECORDER.disarm()
+    tracer.RECORDER._reset()
+    try:
+        for pts, valid, q, t in _sparse_frames():
+            pts[-100:] = pts[:100]
+            args = (torch.from_numpy(pts), torch.from_numpy(valid),
+                    _tpose(q, t), cfg)
+            ins = G.insert_frame(m, *args)
+            assert int(torch.unique(ins.slot).numel()) < 450
+            ok = args[1] & ~ins.failed
+            want = int(torch.unique(ins.slot[ok]).numel())
+            plain = G._sparse_fold(m, args[1], ins, cfg)
+            out, folded = G._sparse_fold(m, args[1], ins, cfg,
+                                         with_folded=True)
+            assert int(folded) == want
+            hit.append(want)
+            assert all(torch.equal(x, y) for x, y in zip(plain, out))
+            tracer.arm(torch.device("cpu"))
+            before = tracer.snapshot()["counts"]
+            got = G.update_map(m, *args)
+            tracer.anchor()
+            tracer.disarm()
+            counts = {n: v for n, _, v, _ in tracer.snapshot()["counts"]}
+            prev = {n: v for n, _, v, _ in before}
+            assert counts["map.folded"] - prev.get("map.folded", 0) == want
+            assert all(torch.equal(x, y) for x, y in zip(got, out))
+            m = got
+        assert (int(m.overflow) > 0) is (capacity == 1024)
+        assert min(hit[:2]) > 300 and hit[2] > 0
+    finally:
+        tracer.RECORDER.disarm()
+        tracer.RECORDER._reset()

@@ -25,6 +25,7 @@ from liodom_tpu_torch.odometry import pipeline as P
 from liodom_tpu_torch.ops import compact_pallas as K7
 from liodom_tpu_torch.ops import features as F
 from liodom_tpu_torch.ops import knn_pallas as KNN
+from liodom_tpu_torch.ops import map_fold as MF
 from liodom_tpu_torch.ops import neighbors as NB
 from liodom_tpu_torch.ops import probe_insert as PI
 from liodom_tpu_torch.ops import select_pallas as SEL
@@ -256,7 +257,8 @@ def _counts():
     return (SM.smoothness_cuda.launches, SEL.select_edges_cuda.launches,
             KNN.knn_launch.launches, KNN.knn_launch_batched.launches,
             KNN.knn_lines_launch.launches, KNN.knn_index_launch.launches,
-            K7.compact_hits_cuda.launches, PI.probe_insert_cuda.launches)
+            K7.compact_hits_cuda.launches, PI.probe_insert_cuda.launches,
+            MF.map_fold_cuda.launches)
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -426,9 +426,9 @@ def test_stager_and_block_fetch_on_the_cpu():
     assert DIO.path_kernels(False) == ("smoothness", "select", "knn_coords",
                                        "lm_solve")
     assert DIO.path_kernels(True)[4:] == ("local_map_compact",
-                                          "probe_insert")
+                                          "probe_insert", "map_fold")
     # the sharded steps search with K5, whatever LIODOM_KNN_IMPL says
     assert DIO.path_kernels(True, sharded=True) == (
         "smoothness", "select", "knn_index", "local_map_compact",
-        "probe_insert")
+        "probe_insert", "map_fold")
     assert DIO.path_kernels(False, sharded=True)[2:] == ("knn_index",)
