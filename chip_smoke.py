@@ -277,8 +277,8 @@ Phases, each printing one JSON line:
    every refresh equal to the plain version.  Then each kernel's time
    beside its plain version's and its bound, the new paths' too.  Also
    the map fold (``csrc/map_fold.cu``) over the combined drive's 36
-   frames at 524,288 and 2^22 slots against the plain fold on the card
-   and ``fold_frame``: keys, codes and overflow ``torch.equal``,
+   frames at 524,288 and 2^22 slots against the plain fold on the card:
+   keys, codes and overflow ``torch.equal``,
    centroids within 1e-5 m, one fold launch a frame, ms a call; at 37
    edges, past one block and into a full 1,024-slot table every field
    ``torch.equal`` to the plain fold on the CPU; and ``update_map_full`` at
@@ -438,35 +438,38 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-_COUNTED = {"smoothness": SM.smoothness_cuda,
-            "select_edges": SEL.select_edges_cuda,
-            "select_edges_global": SEL.select_edges_global_cuda,
-            "knn_coords": KNN.knn_launch,
-            "knn_coords_batched": KNN.knn_launch_batched,
-            "knn_lines": KNN.knn_lines_launch,
-            "knn_index": KNN.knn_index_launch,
-            "knn_coords_any_k": KNN.knn_launch_any_k,
-            "knn_coords_batched_any_k": KNN.knn_launch_batched_any_k,
-            "knn_lines_any_k": KNN.knn_lines_launch_any_k,
-            "knn_index_any_k": KNN.knn_index_launch_any_k,
-            "local_map_compact": K7.compact_hits_cuda,
-            "local_map_compact_global": K7.compact_hits_global_cuda,
-            "probe_insert": PI.probe_insert_cuda,
-            "map_fold": MF.map_fold_cuda}
+# the entry points whose launches a drive checks, by symbol (the LM
+# solve's are checked on their own)
+_COUNTED = ("liodom_smoothness", "liodom_select_edges",
+            "liodom_select_edges_global", "liodom_knn_coords_batched",
+            "liodom_knn_lines", "liodom_knn_index", "liodom_knn_coords_any_k",
+            "liodom_knn_lines_any_k", "liodom_knn_index_any_k",
+            "liodom_local_map_compact", "liodom_local_map_compact_global",
+            "liodom_probe_insert", "liodom_map_fold")
 
 
 def reset_counters() -> None:
-    for fn in _COUNTED.values():
-        fn.launches = 0
+    kernels.reset_launch_counts()
 
 
 def read_counters() -> dict:
-    return {name: fn.launches for name, fn in _COUNTED.items()}
+    counts = kernels.launch_counts()
+    return {symbol: counts.get(symbol, 0) for symbol in _COUNTED}
 
 
 def launches(**nonzero) -> dict:
     """The counters a drive must leave: the named ones, every other 0."""
-    return {name: nonzero.get(name, 0) for name in _COUNTED}
+    unknown = set(nonzero) - set(_COUNTED)
+    if unknown:
+        raise ValueError(f"no counted entry point {sorted(unknown)}")
+    return {symbol: nonzero.get(symbol, 0) for symbol in _COUNTED}
+
+
+def counted(symbol: str, run):
+    """``run()``'s result and the launches of ``symbol`` it made."""
+    before = kernels.launch_counts().get(symbol, 0)
+    out = run()
+    return out, kernels.launch_counts().get(symbol, 0) - before
 
 
 def sync_free(run):
@@ -547,20 +550,17 @@ def usage_of(usage: dict, pattern: str) -> dict:
 
 
 def walk_vs_oracle(prep, gates) -> dict:
-    """K3 (K4 for a batch) and K6 on the same prepared tensors against
-    ``knn_launch_plain`` and ``knn_lines_launch_plain``, the keyed (d2,
-    index) selection: d2, coordinates and endpoints bit for bit on every
-    slot; K6's gate may flip only where the plain eigenvalues sit at the
-    ratio (acosf / cosf ulps)."""
-    batched = prep[2].ndim == 3
-    launch = KNN.knn_launch_batched if batched else KNN.knn_launch
-    d_k, c_k = launch(*prep)
+    """K3 (a batch of one) or K4, and K6, on the same prepared tensors
+    against ``knn_launch_plain`` and ``knn_lines_launch_plain``, the keyed
+    (d2, index) selection: d2, coordinates and endpoints bit for bit on
+    every slot; K6's gate may flip only where the plain eigenvalues sit at
+    the ratio (acosf / cosf ulps)."""
+    d_k, c_k = KNN.knn_launch("knn_coords", *prep)
     d_o, c_o = KNN.knn_launch_plain(*prep)
-    prep_l = prep if batched else tuple(x[None] for x in prep)
-    lpa, lpb, ok = KNN.knn_lines_launch(*prep_l, *gates)
-    lpa_o, lpb_o, ok_o = KNN.knn_lines_launch_plain(*prep_l, *gates)
-    near = c_o if batched else c_o[None]
-    zm = near - near.mean(dim=-2, keepdim=True)
+    lpa, lpb, ok = KNN.knn_launch("knn_lines", *prep,
+                                  floats=KNN.line_gates(*gates))
+    lpa_o, lpb_o, ok_o = KNN.knn_lines_launch_plain(*prep, *gates)
+    zm = c_o - c_o.mean(dim=-2, keepdim=True)
     eigs = NB.sym3_eigenvalues(torch.einsum("...ki,...kj->...ij", zm, zm))
     at_ratio = ((eigs[..., 2] - gates[1] * eigs[..., 1]).abs()
                 <= 1e-4 * eigs[..., 2].abs())
@@ -581,6 +581,23 @@ def walk_vs_oracle(prep, gates) -> dict:
             "k6_gate_flips": int(flips.sum()),
             "k6_gate_flips_off_ratio_boundary": int((flips & ~at_ratio)
                                                     .sum())}
+
+
+def list_walk(source, prep, k, like, ints=(), floats=()):
+    """``source``'s ``ListWalk`` entry point (``*_any_k``) launched on
+    ``prep`` at ``k`` as ``KNN.knn_launch`` launches it, also at a k where
+    that takes the register walk; its lists in shared memory (they fit at
+    k <= 16), its outputs shaped as ``like`` (the plain launch's)."""
+    q4, r4, flags, qperm = prep
+    b, n_e, n_m = flags.shape
+    if not KNN.knn_any_k_shape(source, n_m, k)["lists_in_smem"]:
+        raise ValueError(f"{source} at k={k}: the lists need the scratch")
+    outs = tuple(torch.empty_like(t) for t in like)
+    kernels.launch(f"liodom_{source}_any_k", q4.device, q4.data_ptr(),
+                   r4.data_ptr(), flags.data_ptr(), qperm.data_ptr(), None,
+                   *(t.data_ptr() for t in outs), b, qperm.shape[-1], n_e,
+                   n_m, *ints, KNN.TILE_E, KNN.TILE_M, k, *floats)
+    return outs
 
 
 def walk_row(tie: dict, source: str, n_m: int) -> dict:
@@ -1165,9 +1182,9 @@ def lm_solve_phase(cfg, imgs, dev, smi, usage, check) -> None:
     e = cases["bench_frame_call1"][1].shape[-2]
     b_ms, b_by = bound(e * 37 + 56, 2.0 * iters * e * (2 * 36 + 12 + 60))
     # launches a frame: eager, and in one replay of a captured step
-    SLV.lm_solve_cuda.launches = 0
+    kernels.reset_launch_counts()
     P.image_step(state, imgs[6].xyz, imgs[6].count, cfg)
-    eager = SLV.lm_solve_cuda.launches
+    eager = kernels.launch_counts().get("liodom_lm_solve", 0)
     cap = bench_stages.capture(
         lambda s, x, c: P.image_step(s, x, c, cfg),
         (state, imgs[6].xyz, imgs[6].count))
@@ -1398,14 +1415,13 @@ def map_fold_phase(imgs, poses, cfg, check) -> dict:
     """``update_map``'s fold (``csrc/map_fold.cu``) on the card: the
     combined drive's 36 frames of edges at their solved poses into maps of
     524,288 and 2^22 slots, each frame's fold from one probe result against
-    the plain fold on the card (``_sparse_fold``) and the capacity-sized
-    ``fold_frame``: keys, validity, codes and overflow ``torch.equal``,
-    centroids within 1e-5 m (whether they are bit-equal too), one probe and
-    one fold launch a frame; its cases (37 edges; 4 frames' 22,528 edges,
-    past one block; a full 1,024-slot table) every field and the slots
-    folded ``torch.equal`` to the plain fold on the CPU; ms a call of the
-    fold, the plain fold, ``fold_frame`` and ``update_map`` on the last
-    frame.  Then ``update_map_full`` at ``resolution=0.1`` (not packable):
+    the plain fold on the card (``_sparse_fold``): keys, validity, codes
+    and overflow ``torch.equal``, centroids within 1e-5 m (whether they are
+    bit-equal too), one probe and one fold launch a frame; its cases (37
+    edges; 4 frames' 22,528 edges, past one block; a full 1,024-slot table)
+    every field and the slots folded ``torch.equal`` to the plain fold on
+    the CPU; ms a call of the fold, the plain fold and ``update_map`` on
+    the last frame.  Then ``update_map_full`` at ``resolution=0.1`` (not packable):
     every field of two calls on one input ``torch.equal``."""
     edges = [F.select_edges(im, F.smoothness(im, cfg), cfg) for im in imgs]
     out = {}
@@ -1418,8 +1434,7 @@ def map_fold_phase(imgs, poses, cfg, check) -> dict:
         for e, p in zip(edges, poses):
             ins = G.insert_frame(m, e.xyz, e.valid, p, mcfg)
             got = G._fold(m, e.valid, ins, mcfg)
-            others = {"sparse_fold": G._sparse_fold(m, e.valid, ins, mcfg),
-                      "fold_frame": G.fold_frame(m, e.valid, ins, mcfg)}
+            others = {"sparse_fold": G._sparse_fold(m, e.valid, ins, mcfg)}
             for name, o in others.items():
                 ints[name] = ints.get(name, True) and all(
                     torch.equal(getattr(got, k), getattr(o, k))
@@ -1429,20 +1444,19 @@ def map_fold_phase(imgs, poses, cfg, check) -> dict:
             bit = bit and torch.equal(got.xyz, others["sparse_fold"].xyz)
             prev, m = m, got
         counts = read_counters()
-        launched = {k: counts[k] for k in ("probe_insert", "map_fold")}
+        launched = {k: counts[k]
+                    for k in ("liodom_probe_insert", "liodom_map_fold")}
         check(all(ints.values()), f"map fold at {cap} slots: keys, validity, "
               f"codes or overflow differ: {ints}")
         check(max(err.values()) <= 1e-5, f"map fold at {cap} slots: "
               f"centroids {err} m apart")
-        check(launched == {"probe_insert": len(edges),
-                           "map_fold": len(edges)},
+        check(launched == {"liodom_probe_insert": len(edges),
+                           "liodom_map_fold": len(edges)},
               f"map fold at {cap} slots: launches {launched}")
         ins = G.insert_frame(prev, e.xyz, e.valid, p, mcfg)
         ms = {"map_fold": cuda_ms(lambda: G._fold(prev, e.valid, ins, mcfg),
                                   50),
               "sparse_fold": cuda_ms(lambda: G._sparse_fold(
-                  prev, e.valid, ins, mcfg), 50),
-              "fold_frame": cuda_ms(lambda: G.fold_frame(
                   prev, e.valid, ins, mcfg), 50),
               "update_map": cuda_ms(lambda: G.update_map(
                   prev, e.xyz, e.valid, p, mcfg), 50)}
@@ -1778,12 +1792,13 @@ def stream_runs(smi, check) -> None:
         check(rep["host_syncs"] == 0, f"{label}: {rep['host_syncs']} host "
               "synchronisations between due points")
         # the warm-up frame before the sensor starts, then each processed
-        want = dict(smoothness=done + 1, select_edges=done + 1,
-                    knn_coords=2 * (done + 1))
+        want = dict(liodom_smoothness=done + 1,
+                    liodom_select_edges=done + 1,
+                    liodom_knn_coords_batched=2 * (done + 1))
         if "--mapping" in argv:
             mp = rep["mapper_processed"]
-            want.update(probe_insert=mp, map_fold=mp,
-                        local_map_compact=mp // 4)
+            want.update(liodom_probe_insert=mp, liodom_map_fold=mp,
+                        liodom_local_map_compact=mp // 4)
             check(mp >= 1 and rep["map_overflow"] == 0
                   and rep["local_map_truncation"] == 0,
                   f"{label}: mapper folded {mp} frames, overflow "
@@ -1829,9 +1844,10 @@ def longcourse_runs(tmp: Path, fresh: Path, smi, check) -> None:
                           label, rate=False)
     gate(label, rep)
     refreshes = len(range(0, n, 4))
-    want = launches(smoothness=n, select_edges=n, knn_coords=2 * n,
-                    probe_insert=n, map_fold=n,
-                    local_map_compact=refreshes + len(rep["growth"]))
+    want = launches(liodom_smoothness=n, liodom_select_edges=n,
+                    liodom_knn_coords_batched=2 * n, liodom_probe_insert=n,
+                    liodom_map_fold=n,
+                    liodom_local_map_compact=refreshes + len(rep["growth"]))
     check(counts == want, f"{label}: launch counts {counts} != {want}")
     emit({"phase": "apps", "run": label, "nvidia_smi": smi,
           **{k: rep[k] for k in keys if k in rep}, "launches": counts})
@@ -1936,7 +1952,8 @@ def apps_phase(tmp: Path, spins, gt_pos, gt_yaw, dev, smi, check) -> None:
     direct = torch.stack(direct).cpu().double().numpy()
     direct_gap = traj_gap(est, direct)
     ate = traj_ate(est, gt_pos)
-    want = launches(smoothness=n, select_edges=n, knn_coords=2 * n)
+    want = launches(liodom_smoothness=n, liodom_select_edges=n,
+                    liodom_knn_coords_batched=2 * n)
     check(all(r == n for r in rows.values()), f"run_kitti results rows "
           f"{rows} != {n}")
     check(direct_gap[0] <= 1e-6, f"run_kitti vs an image_step loop over "
@@ -2013,8 +2030,10 @@ def apps_phase(tmp: Path, spins, gt_pos, gt_yaw, dev, smi, check) -> None:
     eager_reps["run_kitti --mapping"] = rep
     est_m = read_poses(res_m / "poses.txt")
     ate = traj_ate(est_m, gt_pos)
-    want_m = launches(smoothness=n, select_edges=n, knn_coords=2 * n,
-                      local_map_compact=n + 1, probe_insert=n, map_fold=n)
+    want_m = launches(liodom_smoothness=n, liodom_select_edges=n,
+                      liodom_knn_coords_batched=2 * n,
+                      liodom_local_map_compact=n + 1, liodom_probe_insert=n,
+                      liodom_map_fold=n)
     check(ate < 0.1, f"run_kitti --mapping ATE {ate:.4f} m")
     check(rep["map_overflow"] == 0 and rep["local_map_truncated"] == 0,
           f"run_kitti --mapping: overflow {rep['map_overflow']}, local map "
@@ -2104,8 +2123,9 @@ def apps_phase(tmp: Path, spins, gt_pos, gt_yaw, dev, smi, check) -> None:
     rep, counts = run_app(run_ouster, o_args + ["--results-dir", res_o],
                           check, "run_ouster")
     ate = traj_ate(read_poses(res_o / "poses.txt"), gt_pos)
-    want_o = launches(smoothness=N_OUSTER_APP, select_edges=N_OUSTER_APP,
-                      knn_coords=2 * N_OUSTER_APP)
+    want_o = launches(liodom_smoothness=N_OUSTER_APP,
+                      liodom_select_edges=N_OUSTER_APP,
+                      liodom_knn_coords_batched=2 * N_OUSTER_APP)
     check(rep["rings"] == OUSTER_CFG.scan_lines
           and rep["frames"] == N_OUSTER_APP, f"run_ouster read "
           f"{rep['rings']} rows, {rep['frames']} frames")
@@ -2141,8 +2161,9 @@ def apps_phase(tmp: Path, spins, gt_pos, gt_yaw, dev, smi, check) -> None:
     rep, counts = run_app(run_mapping, base + [
         "--poses", res / "poses.txt", "--out", map_out], check,
         "run_mapping")
-    want = launches(smoothness=n, select_edges=n, probe_insert=n, map_fold=n,
-                    local_map_compact=1)
+    want = launches(liodom_smoothness=n, liodom_select_edges=n,
+                    liodom_probe_insert=n, liodom_map_fold=n,
+                    liodom_local_map_compact=1)
     check(rep["occupied_slots"] > 0, "run_mapping: empty map")
     check((map_out / "map.ply").exists(), "run_mapping wrote no map.ply")
     check(counts == want, f"run_mapping launch counts {counts} != {want}")
@@ -2180,7 +2201,8 @@ def any_k_drives(cfg, ccfg, bimgs, lanes_b, gt_pos, mesh, check) -> dict:
 
     poses, ne = drive("image_step", lambda: run_course(
         P.init_state(k20), bimgs[:N_ATE], k20, keep=False),
-        smoothness=N_ATE, select_edges=N_ATE, knn_coords_any_k=2 * N_ATE)
+        liodom_smoothness=N_ATE, liodom_select_edges=N_ATE,
+        liodom_knn_coords_any_k=2 * N_ATE)
     t, q, _, ate = drive_error(poses, gt_pos[:N_ATE])
     ne = torch.stack(ne).cpu().numpy()
     cpu = [RingImage(im.xyz.cpu(), im.count.cpu())
@@ -2210,25 +2232,29 @@ def any_k_drives(cfg, ccfg, bimgs, lanes_b, gt_pos, mesh, check) -> dict:
     os.environ["LIODOM_KNN_IMPL"] = "pallas_lines"
     lp, _ = drive("lines", lambda: run_course(
         P.init_state(k20), bimgs[:n], k20, keep=False),
-        smoothness=n, select_edges=n, knn_lines_any_k=2 * n)
+        liodom_smoothness=n, liodom_select_edges=n,
+        liodom_knn_lines_any_k=2 * n)
     os.environ["LIODOM_KNN_IMPL"] = "pallas_coords"
     near("lines", lp, t[:n], q[:n])
     bp, _ = drive("batch", lambda: run_course(
         init_batch_state(k20, LANES), lanes_b[:n], k20, keep=False,
         step=P.batch_image_step),
-        smoothness=n, select_edges=n, knn_coords_batched_any_k=2 * n)
+        liodom_smoothness=n, liodom_select_edges=n,
+        liodom_knn_coords_any_k=2 * n)
     near("batch", [se3.Pose(p.q[0], p.t[0]) for p in bp], t[:n], q[:n])
     cp, _ = drive("combined", lambda: run_combined(
         *S.init_combined(c20, MCFG), bimgs[:n], c20, keep=False),
-        smoothness=n, select_edges=n, knn_coords_any_k=2 * n,
-        local_map_compact=n, probe_insert=n, map_fold=n)
+        liodom_smoothness=n, liodom_select_edges=n,
+        liodom_knn_coords_any_k=2 * n, liodom_local_map_compact=n,
+        liodom_probe_insert=n, liodom_map_fold=n)
     cpt, cpq, _, _ = drive_error(cp, gt_pos[:n])
     sstep = CB.make_sharded_combined_image_step(mesh, c20, MCFG)
     sp, _ = drive("sharded", lambda: run_sharded(
         *CB.init_combined_image_sharded(c20, MCFG, mesh), bimgs[:n], sstep,
         keep=False),
-        smoothness=n, select_edges=n, knn_index_any_k=2 * n,
-        local_map_compact=n, probe_insert=n, map_fold=n)
+        liodom_smoothness=n, liodom_select_edges=n,
+        liodom_knn_index_any_k=2 * n, liodom_local_map_compact=n,
+        liodom_probe_insert=n, liodom_map_fold=n)
     near("sharded", sp, cpt, cpq)
     out["combined"] = {"frames": n, "launches": counts["combined"]}
     return out
@@ -2356,9 +2382,8 @@ def select_wide_phase(cfg, img, sm, raws, poses, dev, check) -> dict:
         reach = SEL._reach_plane(wimg.xyz, c.neighbor_gap_sq)
         pidx, pval = SEL.select_plain(wsm, reach, wimg.count, c)
         pedges = SEL.select_edges_plain(wimg, wsm, c)
-        before = SEL.select_edges_global_cuda.launches
-        edges = SEL.select_edges_cuda(wimg, wsm, c)
-        took = SEL.select_edges_global_cuda.launches - before
+        edges, took = counted("liodom_select_edges_global",
+                              lambda: SEL.select_edges_cuda(wimg, wsm, c))
         same = (torch.equal(bidx, pidx) and torch.equal(bval != 0, pval)
                 and torch.equal(pts.reshape(-1, 3), pedges.xyz)
                 and torch.equal(edges.xyz, pedges.xyz)
@@ -2470,8 +2495,9 @@ def select_wide_phase(cfg, img, sm, raws, poses, dev, check) -> dict:
     (_, wp, _), syncs = sync_free(lambda: run_course(
         P.init_state(wc), wimgs, wc, keep=False))
     counts = read_counters()
-    want = launches(smoothness=N_ANY_K, select_edges_global=N_ANY_K,
-                    knn_coords=2 * N_ANY_K)
+    want = launches(liodom_smoothness=N_ANY_K,
+                    liodom_select_edges_global=N_ANY_K,
+                    liodom_knn_coords_batched=2 * N_ANY_K)
     gap = max(float((a.t - b.t).norm()) for a, b in zip(wp, poses))
     equal = all(torch.equal(a.t, b.t) and torch.equal(a.q, b.q)
                 for a, b in zip(wp, poses))
@@ -2502,9 +2528,8 @@ def compact_wide_phase(kmap, kbase, imgs, ccfg, check):
     m = (kmap.xyz, kmap.key, kmap.valid)
     out = {"targets": len(offs)}
     for c in (cap, 1024):
-        before = K7.compact_hits_global_cuda.launches
-        got = K7.compact_hits_cuda(*m, kbase, offs, c)
-        took = K7.compact_hits_global_cuda.launches - before
+        got, took = counted("liodom_local_map_compact_global",
+                            lambda: K7.compact_hits_cuda(*m, kbase, offs, c))
         want = K7.compact_hits_plain(*m, kbase, offs, c)
         same = all(torch.equal(a, b) for a, b in zip(got, want))
         check(same and took == 1, f"K7 at {len(offs)} targets, capacity {c}:"
@@ -2566,10 +2591,10 @@ def compact_wide_phase(kmap, kbase, imgs, ccfg, check):
     (states, poses, _), syncs = sync_free(lambda: run_combined(
         *S.init_combined(ccfg, wide), imgs[:N_ANY_K], ccfg, mcfg=wide))
     counts = read_counters()
-    want = launches(smoothness=N_ANY_K, select_edges=N_ANY_K,
-                    knn_coords=2 * N_ANY_K, probe_insert=N_ANY_K,
-                    map_fold=N_ANY_K,
-                    local_map_compact_global=N_ANY_K)
+    want = launches(liodom_smoothness=N_ANY_K, liodom_select_edges=N_ANY_K,
+                    liodom_knn_coords_batched=2 * N_ANY_K,
+                    liodom_probe_insert=N_ANY_K, liodom_map_fold=N_ANY_K,
+                    liodom_local_map_compact_global=N_ANY_K)
     refresh = []
     for (odom, mp), p in zip(states, poses):
         want_map = K7.compact_hits_plain(
@@ -2645,8 +2670,8 @@ def main() -> int:
     t, q, err, ate_gate = drive_error(poses, gt_pos)
     ne = torch.stack(n_edges).cpu().numpy()
     ate_all = float(np.sqrt(np.mean(err ** 2)))
-    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
-                    knn_coords=2 * N_FRAMES)
+    want = launches(liodom_smoothness=N_FRAMES, liodom_select_edges=N_FRAMES,
+                    liodom_knn_coords_batched=2 * N_FRAMES)
     check(counts == want, f"launch counts {counts} != {want}")
     check(bool(np.isfinite(q).all() and np.isfinite(t).all()),
           "non-finite pose")
@@ -2696,9 +2721,10 @@ def main() -> int:
     hits = [int(G.get_local_map(m, p.t, MCFG,
                                 capacity=MCFG.local_map_capacity)[2])
             for (_, m), p in zip(cstates, cposes_k)]
-    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
-                    knn_coords=2 * N_FRAMES, local_map_compact=N_FRAMES,
-                    probe_insert=N_FRAMES, map_fold=N_FRAMES)
+    want = launches(liodom_smoothness=N_FRAMES, liodom_select_edges=N_FRAMES,
+                    liodom_knn_coords_batched=2 * N_FRAMES,
+                    liodom_local_map_compact=N_FRAMES,
+                    liodom_probe_insert=N_FRAMES, liodom_map_fold=N_FRAMES)
     check(ccounts == want, f"combined launch counts {ccounts} != {want}")
     check(bool(np.isfinite(cq).all() and np.isfinite(ct).all()),
           "combined: non-finite pose")
@@ -2757,8 +2783,8 @@ def main() -> int:
     ft, fq, ferr, fate = drive_error(fposes, gt_pos)
     f_same = same_poses(fposes, poses)
     f_same_edges = torch.equal(torch.stack(fedges), torch.stack(n_edges))
-    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
-                    knn_coords=2 * N_FRAMES)
+    want = launches(liodom_smoothness=N_FRAMES, liodom_select_edges=N_FRAMES,
+                    liodom_knn_coords_batched=2 * N_FRAMES)
     check(fcounts == want, f"full_step launch counts {fcounts} != {want}")
     check(all(f_same), f"full_step vs image_step: poses differ at frames "
           f"{[i for i, ok in enumerate(f_same) if not ok]}")
@@ -2794,9 +2820,10 @@ def main() -> int:
         rc_step_same.append(same_poses([p_i], [cposes_k[i]])[0]
                             and int(ne_i) == int(cne[i]))
         prev = cstates[i]
-    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
-                    knn_coords=2 * N_FRAMES, local_map_compact=N_FRAMES,
-                    probe_insert=N_FRAMES, map_fold=N_FRAMES)
+    want = launches(liodom_smoothness=N_FRAMES, liodom_select_edges=N_FRAMES,
+                    liodom_knn_coords_batched=2 * N_FRAMES,
+                    liodom_local_map_compact=N_FRAMES,
+                    liodom_probe_insert=N_FRAMES, liodom_map_fold=N_FRAMES)
     check(rccounts == want, f"combined_step launch counts {rccounts} != "
           f"{want}")
     check(all(rc_step_same), f"combined_step vs combined_image_step from "
@@ -2839,8 +2866,8 @@ def main() -> int:
                      torch.stack([p.q for p in ocposes]).numpy(),
                      ot[:N_CPU_FRAMES], oq[:N_CPU_FRAMES])
     o_same_edges = [int(c) for c in ocedges] == one[:N_CPU_FRAMES].tolist()
-    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
-                    knn_coords=2 * N_FRAMES)
+    want = launches(liodom_smoothness=N_FRAMES, liodom_select_edges=N_FRAMES,
+                    liodom_knn_coords_batched=2 * N_FRAMES)
     check(ocounts == want, f"Ouster full_step launch counts {ocounts} != "
           f"{want}")
     check(bool(np.isfinite(oq).all() and np.isfinite(ot).all()),
@@ -2881,8 +2908,8 @@ def main() -> int:
                      torch.stack([p.q for p in vcposes]).numpy(),
                      vt[:N_CPU_FRAMES], vq[:N_CPU_FRAMES])
     v_same_edges = [int(c) for c in vcedges] == vne[:N_CPU_FRAMES].tolist()
-    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
-                    knn_coords=2 * N_FRAMES)
+    want = launches(liodom_smoothness=N_FRAMES, liodom_select_edges=N_FRAMES,
+                    liodom_knn_coords_batched=2 * N_FRAMES)
     check(vcounts == want, f"filtered launch counts {vcounts} != {want}")
     check(bool(np.isfinite(vq).all() and np.isfinite(vt).all()),
           "filtered: non-finite pose")
@@ -2934,8 +2961,8 @@ def main() -> int:
     lane_gap = (float(lane_dt[:N_ATE].max()), float(lane_dr[:N_ATE].max()))
     lane_same_edges = all(np.array_equal(lne[:, s], solo[s][2])
                           for s in range(LANES))
-    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
-                    knn_coords_batched=2 * N_FRAMES)
+    want = launches(liodom_smoothness=N_FRAMES, liodom_select_edges=N_FRAMES,
+                    liodom_knn_coords_batched=2 * N_FRAMES)
     check(lcounts == want, f"batch launch counts {lcounts} != {want}")
     check(bool(np.isfinite(lq).all() and np.isfinite(lt).all()),
           "batch: non-finite pose")
@@ -3001,8 +3028,9 @@ def main() -> int:
         chc = read_counters()
         cht, chq, cherr, chate = drive_error(chp, gt_pos)
         gap = pose_gap(cht, chq, loop_t, loop_q)
-        want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
-                        knn_coords=2 * N_FRAMES)
+        want = launches(liodom_smoothness=N_FRAMES,
+                        liodom_select_edges=N_FRAMES,
+                        liodom_knn_coords_batched=2 * N_FRAMES)
         check(chc == want, f"chained ({name}) launch counts {chc} != {want}")
         check(gap[0] <= 1e-6, f"chained ({name}) vs the per-frame loop: "
               f"{gap[0]:.2e} m")
@@ -3032,11 +3060,12 @@ def main() -> int:
         # over the first N_ATE frames, as the batch path's bar
         gap = (float(ln_dt[:N_ATE].max()), float(ln_dr[:N_ATE].max()))
         mapped = name == "combined_image_step"
-        want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
-                        knn_lines=2 * N_FRAMES,
-                        local_map_compact=N_FRAMES if mapped else 0,
-                        probe_insert=N_FRAMES if mapped else 0,
-                        map_fold=N_FRAMES if mapped else 0)
+        want = launches(liodom_smoothness=N_FRAMES,
+                        liodom_select_edges=N_FRAMES,
+                        liodom_knn_lines=2 * N_FRAMES,
+                        liodom_local_map_compact=N_FRAMES if mapped else 0,
+                        liodom_probe_insert=N_FRAMES if mapped else 0,
+                        liodom_map_fold=N_FRAMES if mapped else 0)
         check(lnc == want, f"lines ({name}) launch counts {lnc} != {want}")
         check(lnate < 0.1, f"lines ({name}) ATE over {N_ATE} frames "
               f"{lnate:.4f} m >= 0.1")
@@ -3075,9 +3104,10 @@ def main() -> int:
     s_dt, s_dr = pose_gaps(st_, sq_, ct, cq)
     s_gap = (float(s_dt[:N_ATE].max()), float(s_dr[:N_ATE].max()))
     s_overflow = int(s_states[-1][1].overflow)
-    want = launches(smoothness=N_FRAMES, select_edges=N_FRAMES,
-                    knn_index=2 * N_FRAMES, local_map_compact=N_FRAMES,
-                    probe_insert=N_FRAMES, map_fold=N_FRAMES)
+    want = launches(liodom_smoothness=N_FRAMES, liodom_select_edges=N_FRAMES,
+                    liodom_knn_index=2 * N_FRAMES,
+                    liodom_local_map_compact=N_FRAMES,
+                    liodom_probe_insert=N_FRAMES, liodom_map_fold=N_FRAMES)
     check(scounts == want, f"sharded launch counts {scounts} != {want}")
     check(bool(np.isfinite(sq_).all() and np.isfinite(st_).all()),
           "sharded: non-finite pose")
@@ -3121,7 +3151,7 @@ def main() -> int:
         pose_gaps(kt[:, s], kq[:, s], solo[s][0], solo[s][1])
         for s in range(LANES))))
     k_gap = (float(k_dt[:N_ATE].max()), float(k_dr[:N_ATE].max()))
-    want = launches(knn_index=2 * N_FRAMES)
+    want = launches(liodom_knn_index=2 * N_FRAMES)
     check(kcounts == want, f"sharded step launch counts {kcounts} != {want}")
     check(k_gap[0] < 0.01 and k_gap[1] < 1e-3, f"sharded step vs solo "
           f"image_step over {N_ATE} frames: {k_gap}")
@@ -3151,8 +3181,8 @@ def main() -> int:
     c_t = torch.stack([p.t for p in c_poses]).cpu().numpy()
     c_q = torch.stack([p.q for p in c_poses]).cpu().numpy()
     c_gap = pose_gap(c_t, c_q, ct[:N_ATE], cq[:N_ATE])
-    want = launches(knn_index=2 * N_ATE, local_map_compact=N_ATE,
-                    probe_insert=N_ATE, map_fold=N_ATE)
+    want = launches(liodom_knn_index=2 * N_ATE, liodom_local_map_compact=N_ATE,
+                    liodom_probe_insert=N_ATE, liodom_map_fold=N_ATE)
     check(c_counts == want, f"sharded combined step launch counts "
           f"{c_counts} != {want}")
     check(c_gap[0] < 0.01 and c_gap[1] < 1e-3, f"sharded combined step vs "
@@ -3380,9 +3410,9 @@ def main() -> int:
     qxyz, qvalid = local_map.compact(ec_k.xyz, ec_k.valid)
     query = se3.transform(bposes[-1], qxyz)
     radius = cfg.knn_max_sq_dist ** 0.5
-    prep = KNN.knn_prepare(query, qvalid, map_xyz, map_valid, radius,
-                           ref_presorted=True)
-    d_k, c_k = KNN.knn_launch(*prep)
+    prep = KNN.knn_prepare(query[None], qvalid[None], map_xyz[None],
+                           map_valid[None], radius, ref_presorted=True)
+    d_k, c_k = (t[0] for t in KNN.knn_launch("knn_coords", *prep))
     d_p, c_p = KNN.knn_coords_plain(query, qvalid, map_xyz, map_valid)
     near = d_p < cfg.knn_max_sq_dist
     rel = ((d_k - d_p).abs() / torch.clamp(d_p.abs(), min=1e-12))[near]
@@ -3401,17 +3431,18 @@ def main() -> int:
     query_b = se3.transform(bb_poses[-1], qxyz_b)
     map_b, mvalid_b = KNN.spatial_sort_points(
         *local_map.flatten(bb_states[-2].window))
-    prep_b = KNN.knn_prepare_batched(query_b, qvalid_b, map_b, mvalid_b,
-                                     radius, ref_presorted=True)
-    d_b, c_b = KNN.knn_launch_batched(*prep_b)
+    prep_b = KNN.knn_prepare(query_b, qvalid_b, map_b, mvalid_b, radius,
+                             ref_presorted=True)
+    d_b, c_b = KNN.knn_launch("knn_coords", *prep_b)
     k4_is_k3 = True
     for s_ in range(LANES):
-        d_s, c_s = KNN.knn_launch(*KNN.knn_prepare(
-            query_b[s_], qvalid_b[s_], map_b[s_], mvalid_b[s_], radius,
-            ref_presorted=True))
-        k4_is_k3 &= torch.equal(d_b[s_], d_s) and torch.equal(c_b[s_], c_s)
-    d_bp, c_bp = KNN.knn_coords_batched_plain(query_b, qvalid_b, map_b,
-                                              mvalid_b)
+        lane = slice(s_, s_ + 1)
+        d_s, c_s = KNN.knn_launch("knn_coords", *KNN.knn_prepare(
+            query_b[lane], qvalid_b[lane], map_b[lane], mvalid_b[lane],
+            radius, ref_presorted=True))
+        k4_is_k3 &= (torch.equal(d_b[lane], d_s)
+                     and torch.equal(c_b[lane], c_s))
+    d_bp, c_bp = KNN.knn_coords_plain(query_b, qvalid_b, map_b, mvalid_b)
     near_b = d_bp < cfg.knn_max_sq_dist
     rel_b = ((d_b - d_bp).abs() / torch.clamp(d_bp.abs(), min=1e-12))[near_b]
     k4_rel = float(rel_b.max()) if rel_b.numel() else 0.0
@@ -3423,9 +3454,9 @@ def main() -> int:
     check(k4_coords_same, "K4 coordinates differ where the gate passes")
 
     # K6 on K3's inputs (its flags are K3's: the radius is sqrt(max_sq_dist))
-    prep_l = tuple(x[None] for x in prep)
     gates = (cfg.knn_max_sq_dist, cfg.eig_ratio, cfg.min_line_sep)
-    lpa_k, lpb_k, ok_k = (x[0] for x in KNN.knn_lines_launch(*prep_l, *gates))
+    lpa_k, lpb_k, ok_k = (x[0] for x in KNN.knn_launch(
+        "knn_lines", *prep, floats=KNN.line_gates(*gates)))
     lpa_p, lpb_p, ok_p = KNN.knn_lines_plain(query, qvalid, map_xyz,
                                              map_valid, KNN.K, *gates)
     both = ok_k & ok_p
@@ -3452,9 +3483,9 @@ def main() -> int:
     tq, tqm, tr, trm = (torch.from_numpy(np.stack([sc[i] for sc in scenes]))
                         .to(dev) for i in range(4))
     ties["tie_scene"] = walk_vs_oracle(
-        KNN.knn_prepare(tq[0], tqm[0], tr[0], trm[0], radius), gates)
+        KNN.knn_prepare(tq[:1], tqm[:1], tr[:1], trm[:1], radius), gates)
     ties[f"tie_scene_b{LANES}"] = walk_vs_oracle(
-        KNN.knn_prepare_batched(tq, tqm, tr, trm, radius), gates)
+        KNN.knn_prepare(tq, tqm, tr, trm, radius), gates)
     for name, tv in ties.items():
         check(tv["d2_equal"] and tv["coords_equal"],
               f"kNN walk ({name}): d2 or coordinates differ from the "
@@ -3545,20 +3576,20 @@ def main() -> int:
         check(same_idx, f"K5 ({name}) indices differ from the plain version")
         check(k5[name]["max_rel_err"] <= 1e-5,
               f"K5 ({name}) d2 rel err {k5[name]['max_rel_err']:.2e}")
-    prep5 = KNN.knn_prepare_batched(s_query[None], ec_k.valid[None],
-                                    s_map[None], s_valid[None], None)
+    prep5 = KNN.knn_prepare(s_query[None], ec_k.valid[None], s_map[None],
+                            s_valid[None], None)
     m5 = s_map.shape[0]
     # every row bit for bit against the keyed selection: the path's call
     # and the tie scenes, without a radius
     k5_rows = {"bench": all(torch.equal(a, b) for a, b in zip(
-        KNN.knn_index_launch(*prep5, m5),
+        KNN.knn_launch("knn_index", *prep5, ints=(m5,)),
         KNN.knn_index_launch_plain(*prep5, m5)))}
-    for name, t_prep in (("tie_scene", KNN.knn_prepare_batched(
+    for name, t_prep in (("tie_scene", KNN.knn_prepare(
             tq[:1], tqm[:1], tr[:1], trm[:1], None)),
-            (f"tie_scene_b{LANES}", KNN.knn_prepare_batched(
+            (f"tie_scene_b{LANES}", KNN.knn_prepare(
                 tq, tqm, tr, trm, None))):
         k5_rows[name] = all(torch.equal(a, b) for a, b in zip(
-            KNN.knn_index_launch(*t_prep, tr.shape[1]),
+            KNN.knn_launch("knn_index", *t_prep, ints=(tr.shape[1],)),
             KNN.knn_index_launch_plain(*t_prep, tr.shape[1])))
     for name, ok in k5_rows.items():
         check(ok, f"K5 ({name}): d2 or indices differ from the (d2, index) "
@@ -3566,7 +3597,7 @@ def main() -> int:
     # one kernel a call: no merge kernel, no partial lists
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as k5_prof:
-        KNN.knn_index_launch(*prep5, m5)
+        KNN.knn_launch("knn_index", *prep5, ints=(m5,))
         torch.cuda.synchronize()
     k5_kernels = [e.name for e in k5_prof.events()
                   if e.device_type == DeviceType.CUDA]
@@ -3576,16 +3607,16 @@ def main() -> int:
     # keyed selection on the bench inputs
     other_k = {}
     for kk in OTHER_K:
-        got3 = KNN.knn_launch(*prep, k=kk)
-        got4 = KNN.knn_launch_batched(*prep_b, k=kk)
-        got5 = KNN.knn_index_launch(*prep5, m5, k=kk)
-        got6 = KNN.knn_lines_launch(*prep_l, *gates, k=kk)
+        got3 = KNN.knn_launch("knn_coords", *prep, kk)
+        got4 = KNN.knn_launch("knn_coords", *prep_b, kk)
+        got5 = KNN.knn_launch("knn_index", *prep5, kk, (m5,))
+        got6 = KNN.knn_launch("knn_lines", *prep, kk,
+                              floats=KNN.line_gates(*gates))
         want3 = KNN.knn_launch_plain(*prep, k=kk)
         want4 = KNN.knn_launch_plain(*prep_b, k=kk)
         want5 = KNN.knn_index_launch_plain(*prep5, m5, k=kk)
-        want6 = KNN.knn_lines_launch_plain(*prep_l, *gates, k=kk)
-        near = want3[1][None]
-        zm = near - near.mean(dim=-2, keepdim=True)
+        want6 = KNN.knn_lines_launch_plain(*prep, *gates, k=kk)
+        zm = want3[1] - want3[1].mean(dim=-2, keepdim=True)
         eigs = NB.sym3_eigenvalues(torch.einsum("...ki,...kj->...ij", zm,
                                                 zm))
         at_ratio = ((eigs[..., 2] - cfg.eig_ratio * eigs[..., 1]).abs()
@@ -3622,17 +3653,18 @@ def main() -> int:
     t_lifted = time.perf_counter()
     any_k_entry = {}
     for kk in (1, 5, 16):
-        got = (KNN.knn_launch_any_k(*prep, k=kk),
-               KNN.knn_launch_batched_any_k(*prep_b, k=kk),
-               KNN.knn_index_launch_any_k(*prep5, m5, k=kk))
         want = (KNN.knn_launch_plain(*prep, k=kk),
                 KNN.knn_launch_plain(*prep_b, k=kk),
                 KNN.knn_index_launch_plain(*prep5, m5, k=kk))
+        got = (list_walk("knn_coords", prep, kk, want[0]),
+               list_walk("knn_coords", prep_b, kk, want[1]),
+               list_walk("knn_index", prep5, kk, want[2], (m5,)))
         same = all(torch.equal(a, b) for g, w_ in zip(got, want)
                    for a, b in zip(g, w_))
         if kk >= 2:
-            g6 = KNN.knn_lines_launch_any_k(*prep_l, *gates, k=kk)
-            w6 = KNN.knn_lines_launch_plain(*prep_l, *gates, k=kk)
+            w6 = KNN.knn_lines_launch_plain(*prep, *gates, k=kk)
+            g6 = list_walk("knn_lines", prep, kk, w6,
+                           floats=KNN.line_gates(*gates))
             same &= torch.equal(g6[0], w6[0]) and torch.equal(g6[1], w6[1])
         name = f"k{kk}"
         any_k_entry[name] = same
@@ -3649,7 +3681,7 @@ def main() -> int:
               "shared memory beside the dynamic size it is sized to")
     lat = [tie_scene(s_, 1000, LIST_EDGE_TILES * KNN.TILE_M)
            for s_ in range(2)]
-    prep_e = KNN.knn_prepare_batched(*(
+    prep_e = KNN.knn_prepare(*(
         torch.from_numpy(np.stack([ln[i] for ln in lat])).to(dev)
         for i in range(4)), 1.0)
     check(prep_e[2].shape[-1] == LIST_EDGE_TILES,
@@ -3658,16 +3690,16 @@ def main() -> int:
     edge = KNN.knn_any_k_list_edge("knn_coords", LIST_EDGE_TILES)
     for kk in (edge, edge + 1):
         shape_e = KNN.knn_any_k_shape("knn_coords", LIST_EDGE_TILES, kk)
-        before = (KNN.knn_launch_batched_any_k.launches,
-                  KNN.knn_index_launch_any_k.launches,
-                  KNN.knn_lines_launch_any_k.launches)
-        got = (KNN.knn_launch_batched(*prep_e, k=kk),
-               KNN.knn_index_launch(*prep_e, m_e, k=kk),
-               KNN.knn_lines_launch(*prep_e, *gates, k=kk)[:2])
-        took = tuple(a - b for a, b in zip(
-            (KNN.knn_launch_batched_any_k.launches,
-             KNN.knn_index_launch_any_k.launches,
-             KNN.knn_lines_launch_any_k.launches), before))
+        before = kernels.launch_counts()
+        got = (KNN.knn_launch("knn_coords", *prep_e, kk),
+               KNN.knn_launch("knn_index", *prep_e, kk, (m_e,)),
+               KNN.knn_launch("knn_lines", *prep_e, kk,
+                              floats=KNN.line_gates(*gates))[:2])
+        after = kernels.launch_counts()
+        took = tuple(after.get(s_, 0) - before.get(s_, 0)
+                     for s_ in ("liodom_knn_coords_any_k",
+                                "liodom_knn_index_any_k",
+                                "liodom_knn_lines_any_k"))
         want = (KNN.knn_launch_plain(*prep_e, k=kk),
                 KNN.knn_index_launch_plain(*prep_e, m_e, k=kk),
                 KNN.knn_lines_launch_plain(*prep_e, *gates, k=kk)[:2])
@@ -3693,7 +3725,7 @@ def main() -> int:
           "local_map_compact_global": compact_wide})
 
     flags = prep[2]
-    n_e, n_m = flags.shape
+    n_e, n_m = flags.shape[1:]
     flagged = int(flags.sum())
     flagged_b = int(prep_b[2].sum())
     flagged5 = int(prep5[2].sum())
@@ -3770,7 +3802,7 @@ def main() -> int:
         w, cfg.scan_regions, cfg.max_edges_per_region),
         f"K2's shared memory {k2_shape} differs from the wrapper's count")
 
-    k3_ms = cuda_ms(lambda: KNN.knn_launch(*prep), 50)
+    k3_ms = cuda_ms(lambda: KNN.knn_launch("knn_coords", *prep), 50)
     k3_wrapper_ms = cuda_ms(lambda: KNN.knn_coords_cuda(
         query, qvalid, map_xyz, map_valid, max_radius=radius,
         ref_presorted=True), 50)
@@ -3782,11 +3814,11 @@ def main() -> int:
                      + e_q * 4 + e_q * KNN.K * 4 * 4,
                      flagged * KNN.TILE_E * KNN.TILE_M * 8)
 
-    k4_ms = cuda_ms(lambda: KNN.knn_launch_batched(*prep_b), 50)
-    k4_wrapper_ms = cuda_ms(lambda: KNN.knn_coords_batched_cuda(
+    k4_ms = cuda_ms(lambda: KNN.knn_launch("knn_coords", *prep_b), 50)
+    k4_wrapper_ms = cuda_ms(lambda: KNN.knn_coords_cuda(
         query_b, qvalid_b, map_b, mvalid_b, max_radius=radius,
         ref_presorted=True), 50)
-    k4_plain = cuda_ms(lambda: KNN.knn_coords_batched_plain(
+    k4_plain = cuda_ms(lambda: KNN.knn_coords_plain(
         query_b, qvalid_b, map_b, mvalid_b), 3, 1)
     e_b = query_b.shape[0] * query_b.shape[1]
     # K3's bytes for each lane and the flagged pairs of all lanes
@@ -3794,7 +3826,8 @@ def main() -> int:
                      + prep_b[2].numel() * 4 + e_b * 4 + e_b * KNN.K * 4 * 4,
                      flagged_b * KNN.TILE_E * KNN.TILE_M * 8)
 
-    k6_ms = cuda_ms(lambda: KNN.knn_lines_launch(*prep_l, *gates), 50)
+    k6_ms = cuda_ms(lambda: KNN.knn_launch(
+        "knn_lines", *prep, floats=KNN.line_gates(*gates)), 50)
     k6_plain = cuda_ms(lambda: KNN.knn_lines_plain(
         query, qvalid, map_xyz, map_valid, KNN.K, *gates), 3, 1)
     # K3's inputs; out two endpoints and a flag a query; K3's flagged-pair
@@ -3804,7 +3837,8 @@ def main() -> int:
                      flagged * KNN.TILE_E * KNN.TILE_M * 8
                      + e_q * K6_OPS_PER_QUERY)
 
-    k5_ms = cuda_ms(lambda: KNN.knn_index_launch(*prep5, m5), 50)
+    k5_ms = cuda_ms(lambda: KNN.knn_launch("knn_index", *prep5,
+                                           ints=(m5,)), 50)
     k5_wrapper_ms = cuda_ms(lambda: KNN.knn_index_cuda(
         s_query, ec_k.valid, s_map, s_valid), 50)
     k5_plain = cuda_ms(lambda: KNN.knn_index_plain(
@@ -3851,14 +3885,16 @@ def main() -> int:
     def err(got, want):
         return float((got - want).abs().max())
 
-    a3 = (lambda: KNN.knn_launch_any_k(*prep, k=kw))
+    a3 = (lambda: KNN.knn_launch("knn_coords", *prep, kw))
     a3_err = err(a3()[0], KNN.knn_launch_plain(*prep, k=kw)[0])
     a3_ms = cuda_ms(a3, 20)
-    a3_ms_at = {kk: cuda_ms(lambda: KNN.knn_launch_any_k(*prep, k=kk),
+    a3_ms_at = {kk: cuda_ms(lambda: KNN.knn_launch("knn_coords", *prep, kk),
                             2 if kk > 100 else 10)
                 for kk in OTHER_K if kk > kw}
-    a3_ms_at.update({kk: cuda_ms(lambda: KNN.knn_launch_any_k(*prep, k=kk),
-                                 20) for kk in (5, 16)})
+    for kk in (5, 16):              # ListWalk where the register walk runs
+        like = KNN.knn_launch_plain(*prep, k=kk)
+        a3_ms_at[kk] = cuda_ms(
+            lambda: list_walk("knn_coords", prep, kk, like), 20)
     a3_plain = cuda_ms(lambda: KNN.knn_coords_plain(
         query, qvalid, map_xyz, map_valid, kw), 3, 1)
     # the bound at each k: the larger of the flagged pairs' operations and
@@ -3869,23 +3905,24 @@ def main() -> int:
                      flagged * KNN.TILE_E * KNN.TILE_M * 8)
 
     a3_bound = a3_bound_at(kw)
-    a4 = (lambda: KNN.knn_launch_batched_any_k(*prep_b, k=kw))
+    a4 = (lambda: KNN.knn_launch("knn_coords", *prep_b, kw))
     a4_err = err(a4()[0], KNN.knn_launch_plain(*prep_b, k=kw)[0])
     a4_ms = cuda_ms(a4, 20)
-    a4_plain = cuda_ms(lambda: KNN.knn_coords_batched_plain(
+    a4_plain = cuda_ms(lambda: KNN.knn_coords_plain(
         query_b, qvalid_b, map_b, mvalid_b, kw), 3, 1)
     a4_bound = bound(prep_b[0].numel() * 4 + prep_b[1].numel() * 4
                      + prep_b[2].numel() * 4 + e_b * 4 + e_b * kw * 4 * 4,
                      flagged_b * KNN.TILE_E * KNN.TILE_M * 8)
-    a5 = (lambda: KNN.knn_index_launch_any_k(*prep5, m5, k=kw))
+    a5 = (lambda: KNN.knn_launch("knn_index", *prep5, kw, (m5,)))
     a5_err = err(a5()[0], KNN.knn_index_launch_plain(*prep5, m5, k=kw)[0])
     a5_ms = cuda_ms(a5, 20)
     a5_plain = cuda_ms(lambda: KNN.knn_index_plain(
         s_query, ec_k.valid, s_map, s_valid, kw), 3, 1)
     a5_bound = bound(sum(t.numel() * 4 for t in prep5) + e5 * kw * 8,
                      int(ec_k.valid.sum()) * int(s_valid.sum()) * 8)
-    a6 = (lambda: KNN.knn_lines_launch_any_k(*prep_l, *gates, k=kw))
-    a6_got, a6_want = a6(), KNN.knn_lines_launch_plain(*prep_l, *gates, k=kw)
+    a6 = (lambda: KNN.knn_launch("knn_lines", *prep, kw,
+                                 floats=KNN.line_gates(*gates)))
+    a6_got, a6_want = a6(), KNN.knn_lines_launch_plain(*prep, *gates, k=kw)
     a6_err = max(err(a6_got[0], a6_want[0]), err(a6_got[1], a6_want[1]))
     a6_ms = cuda_ms(a6, 20)
     a6_plain = cuda_ms(lambda: KNN.knn_lines_plain(
@@ -3894,11 +3931,11 @@ def main() -> int:
                      + e_q * 4 + e_q * (2 * 12 + 1),
                      flagged * KNN.TILE_E * KNN.TILE_M * 8
                      + e_q * K6_OPS_PER_QUERY)
-    any_k_launches = {name: any_k[drive]["launches"][name] for drive, name in
-                      (("image_step", "knn_coords_any_k"),
-                       ("batch", "knn_coords_batched_any_k"),
-                       ("sharded", "knn_index_any_k"),
-                       ("lines", "knn_lines_any_k"))}
+    any_k_launches = {drive: any_k[drive]["launches"][name] for drive, name in
+                      (("image_step", "liodom_knn_coords_any_k"),
+                       ("batch", "liodom_knn_coords_any_k"),
+                       ("sharded", "liodom_knn_index_any_k"),
+                       ("lines", "liodom_knn_lines_any_k"))}
     wide_rings = {k_: v for k_, v in select_wide.items()
                   if k_.startswith("rings64x") and "bound_ms" in v}
     k2w_main = wide_rings[f"rings64x{WIDE_RINGS[0][0]}_slots"
@@ -3908,7 +3945,7 @@ def main() -> int:
         {"name": "smoothness", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/smoothness.cu",
          "replaces": "liodom_tpu/ops/smoothness_pallas.py:22",
-         "launches": counts["smoothness"], "max_abs_err": k1_err,
+         "launches": counts["liodom_smoothness"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
          "whole_image_bound_ms": k1_whole[0],
@@ -3920,7 +3957,7 @@ def main() -> int:
         {"name": "select_edges", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/select.cu",
          "replaces": "liodom_tpu/ops/select_pallas.py:70",
-         "launches": counts["select_edges"], "max_abs_err": k2_err,
+         "launches": counts["liodom_select_edges"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None,
          "latency_bound_ms": k2_latency_ms,
@@ -3929,7 +3966,8 @@ def main() -> int:
         {"name": "knn_coords", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_coords.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:259",
-         "launches": counts["knn_coords"], "max_abs_err": k3_abs,
+         "launches": counts["liodom_knn_coords_batched"],
+         "max_abs_err": k3_abs,
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None,
          "wrapper_ms": k3_wrapper_ms,
@@ -3943,7 +3981,8 @@ def main() -> int:
         {"name": "knn_coords_batched", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_coords.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:526",
-         "launches": lcounts["knn_coords_batched"], "max_abs_err": k4_abs,
+         "launches": lcounts["liodom_knn_coords_batched"],
+         "max_abs_err": k4_abs,
          "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound[0],
          "bound_by": k4_bound[1], "library_ms": None, "batch": LANES,
          "wrapper_ms": k4_wrapper_ms,
@@ -3954,7 +3993,7 @@ def main() -> int:
         {"name": "knn_index", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_index.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:44",
-         "launches": scounts["knn_index"],
+         "launches": scounts["liodom_knn_index"],
          "max_abs_err": k5["no_radius"]["max_abs_err"], "ms": k5_ms,
          "plain_ms": k5_plain, "bound_ms": k5_bound[0],
          "bound_by": k5_bound[1], "library_ms": None,
@@ -3973,7 +4012,7 @@ def main() -> int:
         {"name": "knn_lines", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_lines.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:580",
-         "launches": lines["image_step"]["launches"]["knn_lines"],
+         "launches": lines["image_step"]["launches"]["liodom_knn_lines"],
          "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain,
          "bound_ms": k6_bound[0], "bound_by": k6_bound[1],
          "library_ms": None, "gate_flips": k6_flips,
@@ -3985,7 +4024,7 @@ def main() -> int:
         {"name": "local_map_compact", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/local_map_compact.cu",
          "replaces": "scripts/compact_pallas_experiment.py:50",
-         "launches": ccounts["local_map_compact"],
+         "launches": ccounts["liodom_local_map_compact"],
          "max_abs_err": max(v["max_abs_err"] for v in k7.values()),
          "ms": k7_ms, "plain_ms": k7_plain, "bound_ms": k7_bound[0],
          "bound_by": k7_bound[1], "library_ms": None, "n_hits": k7_hits,
@@ -3996,7 +4035,7 @@ def main() -> int:
          "source": "liodom_tpu_torch/csrc/probe_insert.cu",
          "replaces": "none: liodom_tpu/mapping/grid.py:200 is a "
                      "lax.while_loop, no TPU kernel",
-         "launches": ccounts["probe_insert"],
+         "launches": ccounts["liodom_probe_insert"],
          "max_abs_err": 0.0 if probe_same else float("nan"),
          "ms": probe_ms, "plain_ms": probe_plain,
          "bound_ms": probe_bound[0], "bound_by": probe_bound[1],
@@ -4007,7 +4046,7 @@ def main() -> int:
         {"name": "knn_coords_any_k", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_coords.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:259",
-         "launches": any_k_launches["knn_coords_any_k"],
+         "launches": any_k_launches["image_step"],
          "max_abs_err": a3_err, "ms": a3_ms, "plain_ms": a3_plain,
          "bound_ms": a3_bound[0], "bound_by": a3_bound[1],
          "library_ms": None, "k": kw,
@@ -4021,7 +4060,7 @@ def main() -> int:
         {"name": "knn_coords_batched_any_k", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_coords.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:526",
-         "launches": any_k_launches["knn_coords_batched_any_k"],
+         "launches": any_k_launches["batch"],
          "max_abs_err": a4_err, "ms": a4_ms, "plain_ms": a4_plain,
          "bound_ms": a4_bound[0], "bound_by": a4_bound[1],
          "library_ms": None, "k": kw, "batch": LANES,
@@ -4032,7 +4071,7 @@ def main() -> int:
         {"name": "knn_index_any_k", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_index.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:44",
-         "launches": any_k_launches["knn_index_any_k"],
+         "launches": any_k_launches["sharded"],
          "max_abs_err": a5_err, "ms": a5_ms, "plain_ms": a5_plain,
          "bound_ms": a5_bound[0], "bound_by": a5_bound[1],
          "library_ms": None, "k": kw,
@@ -4042,7 +4081,7 @@ def main() -> int:
         {"name": "knn_lines_any_k", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/knn_lines.cu",
          "replaces": "liodom_tpu/ops/knn_pallas.py:580",
-         "launches": any_k_launches["knn_lines_any_k"],
+         "launches": any_k_launches["lines"],
          "max_abs_err": a6_err, "ms": a6_ms, "plain_ms": a6_plain,
          "bound_ms": a6_bound[0], "bound_by": a6_bound[1],
          "library_ms": None, "k": kw,
@@ -4052,7 +4091,7 @@ def main() -> int:
         {"name": "local_map_compact_global", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/local_map_compact.cu",
          "replaces": "scripts/compact_pallas_experiment.py:50",
-         "launches": k7w_counts["local_map_compact_global"],
+         "launches": k7w_counts["liodom_local_map_compact_global"],
          "max_abs_err": 0.0 if compact_wide[f"cap{cap}"]["bit_exact"]
          else float("nan"),
          "ms": compact_wide["ms"], "plain_ms": compact_wide["plain_ms"],
@@ -4068,7 +4107,7 @@ def main() -> int:
         {"name": "select_edges_global", "route": "cuda",
          "source": "liodom_tpu_torch/csrc/select.cu",
          "replaces": "liodom_tpu/ops/select_pallas.py:70",
-         "launches": wide_counts["select_edges_global"],
+         "launches": wide_counts["liodom_select_edges_global"],
          "max_abs_err": 0.0 if k2w_main["bit_exact"] else float("nan"),
          "ms": k2w_main["ms"], "plain_ms": k2w_main["plain_ms"],
          "bound_ms": k2w_main["bound_ms"], "bound_by": k2w_main["bound_by"],

@@ -146,22 +146,11 @@ knn_coords_any_k_kernel(const float4* __restrict__ q4,
 
 }  // namespace
 
-// q4 (n_e * 64, 4) f32 sorted queries [x y z valid], r4 (n_m * 512, 4) f32
-// encoded refs, flags (n_e, n_m) i32, qperm (n_query,) i32 sorted -> original
-// -> out_d (n_query, k) f32, out_c (n_query, k, 3) f32, 1 <= k <= 16.
+// K3 (batch 1) and K4 over a batch of B pairs, stacked: q4 (B, n_e * 64, 4)
+// f32 sorted queries [x y z valid], r4 (B, n_m * 512, 4) f32 encoded refs,
+// flags (B, n_e, n_m) i32, qperm (B, n_query) i32 sorted -> original ->
+// out_d (B, n_query, k) f32, out_c (B, n_query, k, 3) f32, 1 <= k <= 16.
 // tile_e and tile_m are the caller's layout and must equal the kernel's.
-extern "C" int liodom_knn_coords(const void* q4, const void* r4,
-                                 const void* flags, const void* qperm,
-                                 void* out_d, void* out_c, int n_query,
-                                 int n_e, int n_m, int tile_e, int tile_m,
-                                 int k, void* stream) {
-  return launch_coords(q4, r4, flags, qperm, out_d, out_c, 1, n_query, n_e,
-                       n_m, tile_e, tile_m, k, stream);
-}
-
-// K4: the same over a batch of B pairs, each laid out as K3's and stacked:
-// q4 (B, n_e * 64, 4), r4 (B, n_m * 512, 4), flags (B, n_e, n_m), qperm
-// (B, n_query) -> out_d (B, n_query, k), out_c (B, n_query, k, 3).
 extern "C" int liodom_knn_coords_batched(const void* q4, const void* r4,
                                          const void* flags, const void* qperm,
                                          void* out_d, void* out_c, int batch,

@@ -22,8 +22,7 @@ one kernel (``csrc/probe_insert.cu``) runs every round in one launch, so
 the update never waits on the host; on the CPU the rounds are torch ops.
 The fold after it is frame-sized: on CUDA one launch of
 ``csrc/map_fold.cu`` (``ops/map_fold.py``), on the CPU its plain version
-:func:`_sparse_fold`; :func:`fold_frame`, the capacity-sized fold, is kept
-as the tested alternative.  Local-map extraction (:func:`get_local_map`)
+:func:`_sparse_fold`.  Local-map extraction (:func:`get_local_map`)
 runs K7 (``ops/compact_pallas.py``).
 """
 
@@ -136,22 +135,6 @@ def _packed_codes(xyz: torch.Tensor, ok: torch.Tensor, cfg: MapConfig
     code = ((cux << 45) | (cuy << 33) | (cuz << 21) | (lrx << 14)
             | (lry << 7) | lrz)
     return torch.where(ok, code, EMPTY)
-
-
-def _decode_cell_keys(code: torch.Tensor, cfg: MapConfig) -> torch.Tensor:
-    """Inverse of the cell part of :func:`_packed_codes`: the reference's
-    meter-valued cell key (map.cc:103-105) recovered from the code, as the
-    same float32 expression ``trunc(c*size + size/2)`` of the cell index."""
-    sx, sz = cfg.voxel_xysize, cfg.voxel_zsize
-    half = 1 << (_CELL_BITS - 1)
-    cell = (1 << _CELL_BITS) - 1
-
-    def axis_key(shift, size):
-        c = (((code >> shift) & cell) - half).to(torch.float32)
-        return torch.trunc(c * size + size / 2.0).to(torch.int32)
-
-    return torch.stack([axis_key(45, sx), axis_key(33, sx),
-                        axis_key(21, sz)], dim=-1)
 
 
 def _slot_sums(slot: torch.Tensor, payload: torch.Tensor, cap: int
@@ -268,11 +251,8 @@ def _sparse_fold(state: MapState, valid: torch.Tensor, ins: Inserted,
     centroid gathered, updated and written back; ``key`` and ``valid``
     stamped only at the slots this call claimed (a matched slot carries
     them already), the key the reference expression (:func:`cell_keys`) on
-    the claiming point, which is :func:`fold_frame`'s decode of the packed
-    code for every cell the code does not alias.  Same slots, keys,
-    validity, table and overflow as :func:`fold_frame`, and the same
-    centroids: the same sums, added in the same order.  With
-    ``with_folded`` the slots folded (() int32) come after the state."""
+    the claiming point.  With ``with_folded`` the slots folded (() int32)
+    come after the state."""
     cap = state.xyz.shape[0]
     dtype = state.xyz.dtype
     new_xyz, tab, slot, claimed, failed = ins
@@ -306,40 +286,6 @@ def _sparse_fold(state: MapState, valid: torch.Tensor, ins: Inserted,
     if not with_folded:
         return out
     return out, (tgt < cap).sum(dtype=torch.int32)
-
-
-def fold_frame(state: MapState, valid: torch.Tensor, ins: Inserted,
-               cfg: MapConfig) -> MapState:
-    """The capacity-sized fold, the tested alternative to :func:`_fold`
-    (``scripts/map_fold_split.py``, ``chip_smoke.py``): the
-    per-slot sums of the inserted frame scattered into a zeroed (C, 4)
-    accumulator and folded into the stored centroids by passes over every
-    slot, ``key`` and ``valid`` decoded from the whole table, the dropped
-    points counted.  The same state as :func:`_fold`; at 2^22 slots it took
-    1.12 ms a frame on the H100 where the frame-sized sums take 0.12."""
-    cap = state.xyz.shape[0]
-    dtype = state.xyz.dtype
-    new_xyz, tab, slot, failed = ins.xyz, ins.table, ins.slot, ins.failed
-    ok = valid & ~failed
-    slot_c = torch.where(ok, slot.to(torch.int64), cap)  # cap: spare, dropped
-
-    payload = torch.cat([torch.where(ok[:, None], new_xyz, 0.0),
-                         ok[:, None].to(dtype)], dim=1)        # (E, 4)
-    seg_slot, sums = _slot_sums(slot_c, payload, cap)
-    acc = torch.zeros((cap + 1, 4), dtype=dtype, device=new_xyz.device)
-    acc = acc.index_copy_(0, seg_slot, sums)[:cap]
-    add_sum, add_cnt = acc[:, :3], acc[:, 3]
-    base_w = state.valid.to(dtype)                  # stored centroid weight
-    touched = add_cnt > 0
-    out_xyz = torch.where(touched[:, None],
-                          (state.xyz * base_w[:, None] + add_sum)
-                          / (base_w + add_cnt)[:, None],
-                          state.xyz)
-    out_valid = tab != EMPTY
-    out_key = torch.where(out_valid[:, None], _decode_cell_keys(tab, cfg), 0)
-
-    dropped = (valid & failed).sum(dtype=torch.int32)
-    return MapState(out_xyz, out_key, out_valid, state.overflow + dropped, tab)
 
 
 def update_map_full(state: MapState, pts: torch.Tensor, valid: torch.Tensor,

@@ -25,7 +25,6 @@ Neither synchronises with the host: no ``nonzero``, no data-dependent shape.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -48,14 +47,6 @@ FENCE_BYTES = 32768
 
 # (rows x targets) compares a chunk of the plain membership
 MEMBERSHIP_CHUNK = 1 << 24
-
-_SIG = [("liodom_local_map_compact", [ctypes.c_void_p] * 5
-         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5),
-        ("liodom_local_map_compact_global", [ctypes.c_void_p] * 5
-         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5),
-        ("liodom_local_map_compact_shape", [ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p]),
-        ("liodom_local_map_fence", [ctypes.c_int, ctypes.c_void_p])]
 
 
 def compact_rows_plain(xyz: torch.Tensor, hit: torch.Tensor, capacity: int
@@ -267,18 +258,16 @@ def _library_fence(n_targets: int) -> Tuple[int, int, int]:
     for ``n_targets`` targets, as the built library lays it out
     (``liodom_local_map_fence``): the stride the wrapper lays the buffer
     out at is the one the kernel searches at."""
-    lib = kernels.load("local_map_compact", _SIG)
-    fence = (ctypes.c_int * 3)()
-    lib.liodom_local_map_fence(n_targets, fence)
-    return fence[0], fence[1], fence[2]
+    return tuple(kernels.query("local_map_compact", "liodom_local_map_fence",
+                               n_targets, size=3))
 
 
 def compact_shape(rows: int, n_targets: int) -> dict:
     """K7's launch as the built library sets it for ``rows`` rows and
     ``n_targets`` targets (CUDA only); ``fence_*`` the global path's."""
-    lib = kernels.load("local_map_compact", _SIG)
-    out = (ctypes.c_int * 5)()
-    lib.liodom_local_map_compact_shape(rows, n_targets, out)
+    out = kernels.query("local_map_compact",
+                        "liodom_local_map_compact_shape", rows, n_targets,
+                        size=5)
     fence = _library_fence(n_targets)
     return {"tiles": out[0], "threads": out[1], "rows_per_thread": out[2],
             "smem_bytes": out[3], "max_targets": out[4],
@@ -320,14 +309,10 @@ def _launch(symbol, xyz, key, valid, base, offs, d_offs, capacity):
     out = torch.empty((capacity, 3), dtype=torch.float32, device=dev)
     out_valid = torch.empty(capacity, dtype=torch.bool, device=dev)
     n_hits = torch.empty((), dtype=torch.int32, device=dev)
-    lib = kernels.load("local_map_compact", _SIG)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, symbol)(
-            xyz.data_ptr(), key.data_ptr(), valid.data_ptr(), base.data_ptr(),
-            d_offs.data_ptr(), len(offs), c, capacity, state.data_ptr(),
-            out.data_ptr(), out_valid.data_ptr(), n_hits.data_ptr(), stream)
-    kernels.check(err, symbol)
+    kernels.launch(symbol, dev, xyz.data_ptr(), key.data_ptr(),
+                   valid.data_ptr(), base.data_ptr(), d_offs.data_ptr(),
+                   len(offs), c, capacity, state.data_ptr(), out.data_ptr(),
+                   out_valid.data_ptr(), n_hits.data_ptr())
     return out, out_valid, n_hits
 
 
@@ -346,13 +331,8 @@ def compact_hits_cuda(xyz: torch.Tensor, key: torch.Tensor,
     if len(offs) > MAX_TARGETS:
         return compact_hits_global_cuda(xyz, key, valid, base, offs,
                                         capacity)
-    out = _launch("liodom_local_map_compact", xyz, key, valid, base, offs,
-                  _device_offsets(offs.tobytes(), xyz.device), capacity)
-    compact_hits_cuda.launches += 1
-    return out
-
-
-compact_hits_cuda.launches = 0
+    return _launch("liodom_local_map_compact", xyz, key, valid, base, offs,
+                   _device_offsets(offs.tobytes(), xyz.device), capacity)
 
 
 def compact_hits_global_cuda(xyz: torch.Tensor, key: torch.Tensor,
@@ -370,16 +350,11 @@ def compact_hits_global_cuda(xyz: torch.Tensor, key: torch.Tensor,
     offs, xyz, key, valid, base = _checked("compact_hits_global_cuda", xyz,
                                            key, valid, base, offsets,
                                            capacity)
-    out = _launch("liodom_local_map_compact_global", xyz, key, valid, base,
-                  offs, _device_fenced_offsets(
-                      offs.tobytes(), _library_fence(len(offs))[0],
-                      xyz.device),
-                  capacity)
-    compact_hits_global_cuda.launches += 1
-    return out
-
-
-compact_hits_global_cuda.launches = 0
+    return _launch("liodom_local_map_compact_global", xyz, key, valid, base,
+                   offs, _device_fenced_offsets(
+                       offs.tobytes(), _library_fence(len(offs))[0],
+                       xyz.device),
+                   capacity)
 
 
 def compact_hits(xyz: torch.Tensor, key: torch.Tensor, valid: torch.Tensor,

@@ -11,8 +11,8 @@ coordinates, so the kernels return those (K3, K4) or the fitted line itself
 (K6).  k is the caller's (``LiodomConfig.knn_k``, 5 by default), any k
 from 1 to the number of refs: the register walk is built for every 1 <= k
 <= ``MAX_K`` and a larger k takes the run-time-k walk (``ListWalk``, the
-``*_any_k`` launches: the same split over a cluster, partial lists kept
-by merging 8-ref batches, one keyed merge), whose lists sit in shared
+``*_any_k`` entry points: the same split over a cluster, partial lists
+kept by merging 8-ref batches, one keyed merge), whose lists sit in shared
 memory or, above ~210 neighbours, in a device scratch
 (:func:`knn_any_k_shape`).
 The map-sharded step (``parallel/sharded.py``) gathers its neighbours' rows
@@ -27,24 +27,25 @@ visit the flagged pairs only:
 a cluster of blocks a query tile deals its flagged ref tiles over its
 blocks, thread groups a block split each staged tile, and the partial lists
 merge (``csrc/knn_search.cuh``; :func:`knn_walk_shape` reads the split).
-:func:`knn_launch_plain` and :func:`knn_lines_launch_plain` compute what
-those launches return from the same prepared tensors, exactly.
+Every search is a batch: :func:`knn_prepare` gives each element its own
+sort, boxes and flags, :func:`knn_launch` picks the walk from k and
+launches it once, and a pair (K3) is a batch of one, in views.
+:func:`knn_launch_plain`, :func:`knn_lines_launch_plain` and
+:func:`knn_index_launch_plain` compute what the launch returns from the
+same prepared tensors, exactly.
 Invalid refs are displaced by ``2 * _FAR`` and read back through
 ``_FAR_PICK_D2``.  Neighbours within ``max_radius`` are exact; beyond it a
 distance may read ``_BIG``, which the consumer's accept gate
-(``d2[k-1] < max_sq_dist``) treats the same.  Every helper takes a leading
-batch dimension: a batch element gets its own sort, boxes and flags
-(:func:`knn_prepare_batched`), and K3's :func:`knn_prepare` is its B = 1 case.
+(``d2[k-1] < max_sq_dist``) treats the same.
 
 CPU route (:func:`knn_coords_plain`): exact brute force over ref chunks with
-``torch.topk``, invalid refs at ``_BIG``; K4's and K6's plain versions loop
-it over the batch (and K6's adds ``neighbors._line_fit``).
+``torch.topk``, invalid refs at ``_BIG``; a batch is looped, and K6's plain
+version adds ``neighbors._line_fit``.
 
 K5 (``csrc/knn_index.cu``, the same walk with an index epilogue, one launch
 a call) searches without a radius on the sharded path: nothing is sorted
 then, so its indices address the caller's ref directly, and the flags only
-skip empty tiles; :func:`knn_index_launch_plain` computes what its launch
-returns.  With a radius both sides are sorted
+skip empty tiles.  With a radius both sides are sorted
 and the indices are mapped back through the ref permutation, as
 ``knn_pallas.py:249-255`` does.  Its plain version (:func:`knn_index_plain`)
 selects on int64 keys ``(d2 bits << 32) | index``, so that equal distances
@@ -53,7 +54,6 @@ go to the lower index, the TPU kernel's tie order, as a stable sort would.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -77,23 +77,16 @@ SORT_CELL = 2.0  # metres; the spatial sort's cell on the CUDA route
 _CHUNK = 4096    # refs per brute-force chunk of the plain version
 _QBLOCK = 512    # queries per block of the plain version
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
-_SHAPE_SIG = ("liodom_knn_walk_shape", [_INT, _PTR])
-_ANY_K_SHAPE_SIG = ("liodom_knn_any_k_shape", [_INT, _INT, _PTR])
-_SIG = [("liodom_knn_coords", [_PTR] * 6 + [_INT] * 6 + [_PTR]),
-        ("liodom_knn_coords_batched", [_PTR] * 6 + [_INT] * 7 + [_PTR]),
-        ("liodom_knn_coords_any_k", [_PTR] * 7 + [_INT] * 7 + [_PTR]),
-        _SHAPE_SIG, _ANY_K_SHAPE_SIG]
-_LINES_SIG = [("liodom_knn_lines", [_PTR] * 7 + [_INT] * 7
-               + [ctypes.c_float] * 3 + [_PTR]),
-              ("liodom_knn_lines_any_k", [_PTR] * 8 + [_INT] * 7
-               + [ctypes.c_float] * 3 + [_PTR]),
-              _SHAPE_SIG, _ANY_K_SHAPE_SIG]
-_INDEX_SIG = [("liodom_knn_index", [_PTR] * 6 + [_INT] * 8 + [_PTR]),
-              ("liodom_knn_index_any_k", [_PTR] * 7 + [_INT] * 8 + [_PTR]),
-              _SHAPE_SIG, _ANY_K_SHAPE_SIG]
-_SIGS = {"knn_coords": _SIG, "knn_lines": _LINES_SIG,
-         "knn_index": _INDEX_SIG}
+# each source's entry points: the register walk (k <= MAX_K) and ListWalk
+_ENTRIES = {"knn_coords": ("liodom_knn_coords_batched",
+                           "liodom_knn_coords_any_k"),
+            "knn_lines": ("liodom_knn_lines", "liodom_knn_lines_any_k"),
+            "knn_index": ("liodom_knn_index", "liodom_knn_index_any_k")}
+
+
+def _stacked(outs) -> tuple:
+    """Per-element results (tuples of tensors) stacked on a batch axis."""
+    return tuple(torch.stack(t) for t in zip(*outs))
 
 
 def _rows(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -157,8 +150,9 @@ def spatial_sort_points(xyz: torch.Tensor, mask: torch.Tensor
 def knn_coords_plain(query: torch.Tensor, qmask: torch.Tensor,
                      ref: torch.Tensor, rmask: torch.Tensor, k: int = K
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact k-NN by brute force over ref chunks: query (E, 3), qmask (E,),
-    ref (M, 3), rmask (M,) -> (d2 (E, k) ascending, coords (E, k, 3)).
+    """Exact k-NN by brute force over ref chunks: query (..., E, 3), qmask
+    (..., E), ref (..., M, 3), rmask (..., M) -> (d2 (..., E, k) ascending,
+    coords (..., E, k, 3)); a leading batch dimension is looped.
 
     d2 is ``(dx*dx + dy*dy) + dz*dz`` with each operation rounded, the
     kernel's expression.  Invalid refs sit at ``_BIG``; invalid queries get
@@ -169,6 +163,10 @@ def knn_coords_plain(query: torch.Tensor, qmask: torch.Tensor,
     cache-sized, and blocks without a valid query are skipped (their rows
     read ``_BIG`` either way).  Rows with fewer than k valid refs keep
     ``_BIG`` entries with zero coordinates."""
+    if query.ndim == 3:
+        return _stacked(knn_coords_plain(query[b], qmask[b], ref[b],
+                                         rmask[b], k)
+                        for b in range(query.shape[0]))
     e = query.shape[0]
     best_d = torch.full((e, k), _BIG, dtype=query.dtype, device=query.device)
     best_c = torch.zeros((e, k, 3), dtype=query.dtype, device=query.device)
@@ -205,23 +203,10 @@ def knn_coords_plain(query: torch.Tensor, qmask: torch.Tensor,
     return torch.clamp(best_d, min=0.0), best_c
 
 
-def knn_coords_batched_plain(query: torch.Tensor, qmask: torch.Tensor,
-                             ref: torch.Tensor, rmask: torch.Tensor,
-                             k: int = K) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4's plain version: :func:`knn_coords_plain` on each of B independent
-    (query, ref) pairs, query (B, E, 3) ... -> (d2 (B, E, k),
-    coords (B, E, k, 3))."""
-    outs = [knn_coords_plain(query[b], qmask[b], ref[b], rmask[b], k)
-            for b in range(query.shape[0])]
-    return (torch.stack([d for d, _ in outs]),
-            torch.stack([c for _, c in outs]))
-
-
-def knn_prepare_batched(query: torch.Tensor, qmask: torch.Tensor,
-                        ref: torch.Tensor, rmask: torch.Tensor,
-                        max_radius: Optional[float],
-                        ref_presorted: bool = False):
-    """The wrappers' tensor work before a launch, all on the device, for B
+def knn_prepare(query: torch.Tensor, qmask: torch.Tensor, ref: torch.Tensor,
+                rmask: torch.Tensor, max_radius: Optional[float],
+                ref_presorted: bool = False):
+    """The tensor work before a launch, all on the device, for B
     independent pairs (query (B, E, 3), qmask (B, E), ref (B, M, 3), rmask
     (B, M)): sorted and padded queries ``q4`` (B, Ep, 4) [x y z valid],
     encoded and padded refs ``r4`` (B, Mp, 4), the (B, n_e, n_m) pair flags
@@ -229,16 +214,8 @@ def knn_prepare_batched(query: torch.Tensor, qmask: torch.Tensor,
     and flags (``knn_pallas.py:464-494``).  Without ``max_radius`` nothing
     is sorted (``knn_pallas.py:182-187``): the permutation is the identity
     and the flags only mark the non-empty tile pairs."""
-    return _prepare_batched(query, qmask, ref, rmask, max_radius,
-                            ref_presorted)[:4]
-
-
-def _prepare_batched(query, qmask, ref, rmask, max_radius, ref_presorted):
-    """:func:`knn_prepare_batched` plus the ref permutation it applied (B,
-    M), or None where the refs kept the caller's order."""
     b, e, m = query.shape[0], query.shape[1], ref.shape[1]
     dev = query.device
-    rperm = None
     if max_radius is None:
         qperm = torch.arange(e, device=dev).expand(b, e)
         qs, qms = query, qmask
@@ -262,22 +239,14 @@ def _prepare_batched(query, qmask, ref, rmask, max_radius, ref_presorted):
     qlo, qhi, qne = _tile_aabbs(q4[..., :3], qm_p, TILE_E)
     rlo, rhi, rne = _tile_aabbs(r4[..., :3], rm_p, TILE_M)
     flags = _pair_flags(qlo, qhi, qne, rlo, rhi, rne, max_radius).contiguous()
-    return q4, r4, flags, qperm.to(torch.int32).contiguous(), rperm
-
-
-def knn_prepare(query: torch.Tensor, qmask: torch.Tensor, ref: torch.Tensor,
-                rmask: torch.Tensor, max_radius: Optional[float],
-                ref_presorted: bool = False):
-    """:func:`knn_prepare_batched` for one pair: q4 (Ep, 4), r4 (Mp, 4),
-    flags (n_e, n_m), qperm (E,)."""
-    prep = knn_prepare_batched(query[None], qmask[None], ref[None],
-                               rmask[None], max_radius, ref_presorted)
-    return tuple(t[0] for t in prep)
+    return q4, r4, flags, qperm.to(torch.int32).contiguous()
 
 
 def _check_prepared(q4, r4, flags, qperm, what: str) -> Tuple[int, int, int]:
-    """Validate tensors laid out by :func:`knn_prepare_batched` (with or
-    without the batch dimension); returns (E, n_e, n_m)."""
+    """Validate a batch laid out by :func:`knn_prepare` (flags (B, n_e,
+    n_m)); returns (E, n_e, n_m)."""
+    if flags.ndim != 3:
+        raise ValueError(f"{what} takes a batch, flags {tuple(flags.shape)}")
     if not all(t.is_cuda and t.device == q4.device
                for t in (q4, r4, flags, qperm)):
         raise ValueError(f"{what} needs all tensors on one CUDA device")
@@ -305,26 +274,20 @@ def knn_walk_shape(source: str, n_m: int) -> dict:
     it: blocks a query tile's cluster, thread groups a block, and a block's
     dynamic shared memory for ``n_m`` ref tiles at k = 5.  Builds the
     library if needed; launches nothing."""
-    lib = kernels.load(source, _SIGS[source])
-    out = (ctypes.c_int * 3)()
-    kernels.check(lib.liodom_knn_walk_shape(n_m, ctypes.addressof(out)),
-                  "liodom_knn_walk_shape")
+    out = kernels.query(source, "liodom_knn_walk_shape", n_m, size=3)
     return {"cluster_blocks": out[0], "thread_groups_per_block": out[1],
             "dynamic_smem_bytes": out[2]}
 
 
 def knn_any_k_shape(source: str, n_m: int, k: int) -> dict:
-    """``ListWalk`` (the ``*_any_k`` launches) as the built library of
+    """``ListWalk`` (the ``*_any_k`` entry points) as the built library of
     ``source`` has it for ``n_m`` ref tiles and ``k`` neighbours: threads a
     block, blocks a query tile's cluster, thread groups a block, whether a
     block's lists fit its shared memory, a block's dynamic shared memory as
     launched, and otherwise the scratch bytes a query tile (a list for each
     of the cluster's blocks and groups).  Builds the library if needed;
     launches nothing."""
-    lib = kernels.load(source, _SIGS[source])
-    out = (ctypes.c_int * 6)()
-    kernels.check(lib.liodom_knn_any_k_shape(n_m, k, ctypes.addressof(out)),
-                  "liodom_knn_any_k_shape")
+    out = kernels.query(source, "liodom_knn_any_k_shape", n_m, k, size=6)
     return {"threads": out[0], "cluster_blocks": out[4],
             "thread_groups_per_block": out[5],
             "lists_in_smem": bool(out[1]), "dynamic_smem_bytes": out[2],
@@ -349,152 +312,75 @@ def knn_any_k_list_edge(source: str, n_m: int) -> int:
     return fits
 
 
-def _check_k(k: int, refs: int, what: str) -> None:
-    """Any k from 1 to the number of ref rows the walk sees (the refs
-    padded to whole tiles), as ``torch.topk`` and ``lax.top_k`` take."""
-    if not 1 <= k <= refs:
-        raise ValueError(f"{what}: k={k} outside 1..{refs}, the ref rows")
+def _check_k(k: int, refs: int, what: str, least: int = 1) -> None:
+    """Any k from ``least`` (1; a line needs 2) to the number of ref rows
+    the walk sees (the refs padded to whole tiles), as ``torch.topk`` and
+    ``lax.top_k`` take."""
+    if not least <= k <= refs:
+        raise ValueError(f"{what}: k={k} outside {least}..{refs}, the ref "
+                         f"rows")
 
 
-def _any_k(source: str, symbol: str, q4, r4, flags, qperm, k, outs,
-           extra_ints=(), extra_floats=()) -> None:
-    """Launch ``symbol`` of ``source`` (a ``ListWalk`` entry point) on
-    prepared tensors with a leading batch dimension, the lists in shared
-    memory where the library says they fit, else in the device scratch."""
-    b, n_e, n_m = flags.shape
-    shape = knn_any_k_shape(source, n_m, k)
-    scratch = None
-    if not shape["lists_in_smem"]:
-        # one buffer a device, written before it is read, never cleared
-        scratch = kernels.device_scratch(
-            "knn_lists", q4.device,
-            b * n_e * shape["scratch_bytes_per_tile"] // 4, torch.float32,
-            floor=1 << 20)
-    lib = kernels.load(source, _SIGS[source])
-    with torch.cuda.device(q4.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, symbol)(
-            q4.data_ptr(), r4.data_ptr(), flags.data_ptr(), qperm.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            *(t.data_ptr() for t in outs), b, qperm.shape[-1], n_e, n_m,
-            *extra_ints, TILE_E, TILE_M, k, *extra_floats, stream)
-    kernels.check(err, symbol)
+def knn_launch(source: str, q4: torch.Tensor, r4: torch.Tensor,
+               flags: torch.Tensor, qperm: torch.Tensor, k: int = K,
+               ints: Tuple[int, ...] = (), floats: Tuple[float, ...] = ()
+               ) -> Tuple[torch.Tensor, ...]:
+    """One launch of ``source``'s walk on tensors from :func:`knn_prepare`
+    (flags (B, n_e, n_m)) -> its outputs, each row at its query's index:
 
+    * ``"knn_coords"`` (K3, K4): (d2 (B, E, k), coords (B, E, k, 3));
+    * ``"knn_index"`` (K5, ``ints`` = (m,), the refs before padding):
+      (d2 (B, E, k), idx (B, E, k) int32 into the r4 rows, clamped to
+      ``m - 1``);
+    * ``"knn_lines"`` (K6, ``floats`` = :func:`line_gates`, the flags at
+      radius ``sqrt(max_sq_dist)``):
+      (lpa (B, E, 3), lpb (B, E, 3), valid (B, E)), ``valid`` including the
+      query mask; k >= 2.
 
-def knn_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
-               qperm: torch.Tensor, k: int = K
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K3 on the prepared tensors -> (d2 (E, k), coords (E, k, 3)) in
-    the caller's query order; k above ``MAX_K`` launches
-    :func:`knn_launch_any_k`."""
-    if flags.ndim != 2:
-        raise ValueError(f"knn_launch takes one pair, flags "
-                         f"{tuple(flags.shape)}")
-    e, n_e, n_m = _check_prepared(q4, r4, flags, qperm, "knn_launch")
-    _check_k(k, r4.shape[0], "knn_launch")
+    k up to ``MAX_K`` takes the register walk, a larger k ``ListWalk``
+    (the ``*_any_k`` entry point), its lists in a block's shared memory
+    where the library says they fit, else in the device scratch."""
+    e, n_e, n_m = _check_prepared(q4, r4, flags, qperm, source)
+    _check_k(k, r4.shape[1], source, 2 if source == "knn_lines" else 1)
+    if source == "knn_index" and not (len(ints) == 1
+                                      and 0 < ints[0] <= r4.shape[1]):
+        raise ValueError(f"knn_index: {ints} refs in {r4.shape[1]} rows")
+    b, dev = flags.shape[0], q4.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    if source == "knn_lines":
+        outs = (torch.empty((b, e, 3), **f32), torch.empty((b, e, 3), **f32),
+                torch.empty((b, e), dtype=torch.bool, device=dev))
+    elif source == "knn_index":
+        outs = (torch.empty((b, e, k), **f32),
+                torch.empty((b, e, k), dtype=torch.int32, device=dev))
+    else:
+        outs = (torch.empty((b, e, k), **f32),
+                torch.empty((b, e, k, 3), **f32))
+    symbol, scratch = _ENTRIES[source][0], ()
     if k > MAX_K:
-        return knn_launch_any_k(q4, r4, flags, qperm, k)
-    out_d = torch.empty((e, k), dtype=torch.float32, device=q4.device)
-    out_c = torch.empty((e, k, 3), dtype=torch.float32, device=q4.device)
-    lib = kernels.load("knn_coords", _SIG)
-    with torch.cuda.device(q4.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.liodom_knn_coords(
-            q4.data_ptr(), r4.data_ptr(), flags.data_ptr(), qperm.data_ptr(),
-            out_d.data_ptr(), out_c.data_ptr(), e, n_e, n_m, TILE_E, TILE_M,
-            k, stream)
-    kernels.check(err, "liodom_knn_coords")
-    knn_launch.launches += 1
-    return out_d, out_c
+        shape = knn_any_k_shape(source, n_m, k)
+        symbol, scratch = _ENTRIES[source][1], (None,)
+        if not shape["lists_in_smem"]:
+            # one buffer a device, written before it is read, never cleared
+            scratch = (kernels.device_scratch(
+                "knn_lists", dev,
+                b * n_e * shape["scratch_bytes_per_tile"] // 4,
+                torch.float32, floor=1 << 20).data_ptr(),)
+    kernels.launch(symbol, dev, q4.data_ptr(), r4.data_ptr(),
+                   flags.data_ptr(), qperm.data_ptr(), *scratch,
+                   *(t.data_ptr() for t in outs), b, e, n_e, n_m, *ints,
+                   TILE_E, TILE_M, k, *floats)
+    return outs
 
 
-knn_launch.launches = 0
-
-
-def knn_launch_any_k(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
-                     qperm: torch.Tensor, k: int = K
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 on ``ListWalk`` (``liodom_knn_coords_any_k``) at any k, the same
-    contract as :func:`knn_launch`."""
-    if flags.ndim != 2:
-        raise ValueError(f"knn_launch_any_k takes one pair, flags "
-                         f"{tuple(flags.shape)}")
-    e, _, _ = _check_prepared(q4, r4, flags, qperm, "knn_launch_any_k")
-    _check_k(k, r4.shape[0], "knn_launch_any_k")
-    out_d = torch.empty((1, e, k), dtype=torch.float32, device=q4.device)
-    out_c = torch.empty((1, e, k, 3), dtype=torch.float32, device=q4.device)
-    _any_k("knn_coords", "liodom_knn_coords_any_k", q4, r4, flags[None],
-           qperm, k, (out_d, out_c))
-    knn_launch_any_k.launches += 1
-    return out_d[0], out_c[0]
-
-
-knn_launch_any_k.launches = 0
-
-
-def knn_launch_batched(q4: torch.Tensor, r4: torch.Tensor,
-                       flags: torch.Tensor, qperm: torch.Tensor, k: int = K
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K4 on tensors from :func:`knn_prepare_batched` -> (d2 (B, E,
-    k), coords (B, E, k, 3)) in each element's query order; k above
-    ``MAX_K`` launches :func:`knn_launch_batched_any_k`."""
-    if flags.ndim != 3:
-        raise ValueError(f"knn_launch_batched takes a batch, flags "
-                         f"{tuple(flags.shape)}")
-    e, n_e, n_m = _check_prepared(q4, r4, flags, qperm, "knn_launch_batched")
-    _check_k(k, r4.shape[1], "knn_launch_batched")
-    if k > MAX_K:
-        return knn_launch_batched_any_k(q4, r4, flags, qperm, k)
-    b = flags.shape[0]
-    out_d = torch.empty((b, e, k), dtype=torch.float32, device=q4.device)
-    out_c = torch.empty((b, e, k, 3), dtype=torch.float32, device=q4.device)
-    lib = kernels.load("knn_coords", _SIG)
-    with torch.cuda.device(q4.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.liodom_knn_coords_batched(
-            q4.data_ptr(), r4.data_ptr(), flags.data_ptr(), qperm.data_ptr(),
-            out_d.data_ptr(), out_c.data_ptr(), b, e, n_e, n_m, TILE_E,
-            TILE_M, k, stream)
-    kernels.check(err, "liodom_knn_coords_batched")
-    knn_launch_batched.launches += 1
-    return out_d, out_c
-
-
-knn_launch_batched.launches = 0
-
-
-def knn_launch_batched_any_k(q4: torch.Tensor, r4: torch.Tensor,
-                             flags: torch.Tensor, qperm: torch.Tensor,
-                             k: int = K
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4 on ``ListWalk`` at any k, the same contract as
-    :func:`knn_launch_batched`."""
-    if flags.ndim != 3:
-        raise ValueError(f"knn_launch_batched_any_k takes a batch, flags "
-                         f"{tuple(flags.shape)}")
-    e, _, _ = _check_prepared(q4, r4, flags, qperm,
-                              "knn_launch_batched_any_k")
-    _check_k(k, r4.shape[1], "knn_launch_batched_any_k")
-    b = flags.shape[0]
-    out_d = torch.empty((b, e, k), dtype=torch.float32, device=q4.device)
-    out_c = torch.empty((b, e, k, 3), dtype=torch.float32, device=q4.device)
-    _any_k("knn_coords", "liodom_knn_coords_any_k", q4, r4, flags, qperm, k,
-           (out_d, out_c))
-    knn_launch_batched_any_k.launches += 1
-    return out_d, out_c
-
-
-knn_launch_batched_any_k.launches = 0
-
-
-def _check_points(query, qmask, ref, rmask, k: int, batched: bool,
-                  what: str) -> None:
-    _check_k(k, ref.shape[-2] + (-ref.shape[-2]) % TILE_M, what)
+def _check_points(query, qmask, ref, rmask, what: str) -> None:
+    """Float32 points, a pair (query (E, 3), qmask (E,), ref (M, 3), rmask
+    (M,)) or a batch (a leading B on each)."""
     if query.dtype != torch.float32 or ref.dtype != torch.float32:
         raise TypeError(f"{what} takes float32 points")
-    nd = 3 if batched else 2
-    if (query.ndim != nd or query.shape[-1] != 3 or ref.ndim != nd
-            or ref.shape[-1] != 3 or ref.shape[:-2] != query.shape[:-2]
+    if (query.ndim not in (2, 3) or query.shape[-1] != 3
+            or ref.ndim != query.ndim or ref.shape[-1] != 3
+            or ref.shape[:-2] != query.shape[:-2]
             or qmask.shape != query.shape[:-1]
             or rmask.shape != ref.shape[:-1]):
         raise ValueError(f"{what} shapes: query {tuple(query.shape)}, qmask "
@@ -502,30 +388,34 @@ def _check_points(query, qmask, ref, rmask, k: int, batched: bool,
                          f"rmask {tuple(rmask.shape)}")
 
 
+def _launch_points(source: str, query, qmask, ref, rmask, k: int,
+                   max_radius: Optional[float], ref_presorted: bool,
+                   ints=(), floats=()) -> Tuple[torch.Tensor, ...]:
+    """:func:`knn_prepare` and :func:`knn_launch` on checked points, a pair
+    or a batch; the outputs with the query's leading shape (a pair goes as
+    a batch of one, in views)."""
+    batched = query.ndim == 3
+    if not batched:
+        query, qmask, ref, rmask = (t[None] for t in (query, qmask, ref,
+                                                      rmask))
+    outs = knn_launch(source, *knn_prepare(query, qmask, ref, rmask,
+                                           max_radius, ref_presorted),
+                      k, ints, floats)
+    return outs if batched else tuple(t[0] for t in outs)
+
+
 def knn_coords_cuda(query: torch.Tensor, qmask: torch.Tensor,
                     ref: torch.Tensor, rmask: torch.Tensor, k: int = K,
                     max_radius: Optional[float] = None,
                     ref_presorted: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 on CUDA tensors (see the module docstring for the contract)."""
-    _check_points(query, qmask, ref, rmask, k, False, "knn_coords_cuda")
-    q4, r4, flags, qperm = knn_prepare(query, qmask, ref, rmask, max_radius,
-                                       ref_presorted)
-    return knn_launch(q4, r4, flags, qperm, k)
-
-
-def knn_coords_batched_cuda(query: torch.Tensor, qmask: torch.Tensor,
-                            ref: torch.Tensor, rmask: torch.Tensor,
-                            k: int = K, max_radius: Optional[float] = None,
-                            ref_presorted: bool = False
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4 on CUDA tensors: K3 over B independent (query, ref) pairs in one
-    launch, query (B, E, 3), qmask (B, E), ref (B, M, 3), rmask (B, M) ->
-    (d2 (B, E, k), coords (B, E, k, 3))."""
-    _check_points(query, qmask, ref, rmask, k, True,
-                  "knn_coords_batched_cuda")
-    return knn_launch_batched(*knn_prepare_batched(query, qmask, ref, rmask, max_radius,
-                                       ref_presorted), k)
+    """K3 on CUDA tensors, one pair (query (E, 3), qmask (E,), ref (M, 3),
+    rmask (M,)) -> (d2 (E, k), coords (E, k, 3)), or K4 on B independent
+    pairs (a leading B on each) in the same one launch (see the module
+    docstring for the contract)."""
+    _check_points(query, qmask, ref, rmask, "knn_coords_cuda")
+    return _launch_points("knn_coords", query, qmask, ref, rmask, k,
+                          max_radius, ref_presorted)
 
 
 def knn_coords(query: torch.Tensor, qmask: torch.Tensor, ref: torch.Tensor,
@@ -533,8 +423,9 @@ def knn_coords(query: torch.Tensor, qmask: torch.Tensor, ref: torch.Tensor,
                max_radius: Optional[float] = None,
                ref_presorted: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 on the tensors' device: the CUDA kernel for CUDA tensors, the
-    plain brute force for CPU tensors (which needs no sort or pruning)."""
+    """K3 (a pair) or K4 (a batch) on the tensors' device: the CUDA kernel
+    for CUDA tensors, the plain brute force for CPU tensors (which needs no
+    sort or pruning)."""
     if query.is_cuda:
         return knn_coords_cuda(query, qmask, ref, rmask, k, max_radius,
                                ref_presorted)
@@ -542,89 +433,12 @@ def knn_coords(query: torch.Tensor, qmask: torch.Tensor, ref: torch.Tensor,
     return knn_coords_plain(query, qmask, ref, rmask, k)
 
 
-def knn_coords_batched(query: torch.Tensor, qmask: torch.Tensor,
-                       ref: torch.Tensor, rmask: torch.Tensor, k: int = K,
-                       max_radius: Optional[float] = None,
-                       ref_presorted: bool = False
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4 on the tensors' device: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
-    if query.is_cuda:
-        return knn_coords_batched_cuda(query, qmask, ref, rmask, k,
-                                       max_radius, ref_presorted)
-    kernels.require_cpu(query, "knn_coords_batched")
-    return knn_coords_batched_plain(query, qmask, ref, rmask, k)
-
-
-def knn_lines_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
-                     qperm: torch.Tensor, max_sq_dist: float,
-                     eig_ratio: float, min_line_sep: float, k: int = K
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K6 on tensors from :func:`knn_prepare_batched` (flags radius
-    ``sqrt(max_sq_dist)``) -> (lpa (B, E, 3), lpb (B, E, 3), valid (B, E))
-    in each element's query order; ``valid`` includes the query mask.  The
-    line fit needs k >= 2; k above ``MAX_K`` launches
-    :func:`knn_lines_launch_any_k`."""
-    if flags.ndim != 3:
-        raise ValueError(f"knn_lines_launch takes a batch, flags "
-                         f"{tuple(flags.shape)}")
-    e, n_e, n_m = _check_prepared(q4, r4, flags, qperm, "knn_lines_launch")
-    _check_lines_k(k, r4.shape[1], "knn_lines_launch")
-    if k > MAX_K:
-        return knn_lines_launch_any_k(q4, r4, flags, qperm, max_sq_dist,
-                                      eig_ratio, min_line_sep, k)
-    b = flags.shape[0]
-    lpa = torch.empty((b, e, 3), dtype=torch.float32, device=q4.device)
-    lpb = torch.empty((b, e, 3), dtype=torch.float32, device=q4.device)
-    ok = torch.empty((b, e), dtype=torch.bool, device=q4.device)
-    lib = kernels.load("knn_lines", _LINES_SIG)
-    with torch.cuda.device(q4.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.liodom_knn_lines(
-            q4.data_ptr(), r4.data_ptr(), flags.data_ptr(), qperm.data_ptr(),
-            lpa.data_ptr(), lpb.data_ptr(), ok.data_ptr(), b, e, n_e, n_m,
-            TILE_E, TILE_M, k, float(max_sq_dist), float(eig_ratio),
-            float(min_line_sep) * float(min_line_sep), stream)
-    kernels.check(err, "liodom_knn_lines")
-    knn_lines_launch.launches += 1
-    return lpa, lpb, ok
-
-
-knn_lines_launch.launches = 0
-
-
-def _check_lines_k(k: int, refs: int, what: str) -> None:
-    _check_k(k, refs, what)
-    if k < 2:
-        raise ValueError(f"{what}: k={k}, a line needs 2 neighbours")
-
-
-def knn_lines_launch_any_k(q4: torch.Tensor, r4: torch.Tensor,
-                           flags: torch.Tensor, qperm: torch.Tensor,
-                           max_sq_dist: float, eig_ratio: float,
-                           min_line_sep: float, k: int = K
-                           ) -> Tuple[torch.Tensor, torch.Tensor,
-                                      torch.Tensor]:
-    """K6 on ``ListWalk`` at any k >= 2, the same contract as
-    :func:`knn_lines_launch`."""
-    if flags.ndim != 3:
-        raise ValueError(f"knn_lines_launch_any_k takes a batch, flags "
-                         f"{tuple(flags.shape)}")
-    e, _, _ = _check_prepared(q4, r4, flags, qperm, "knn_lines_launch_any_k")
-    _check_lines_k(k, r4.shape[1], "knn_lines_launch_any_k")
-    b = flags.shape[0]
-    lpa = torch.empty((b, e, 3), dtype=torch.float32, device=q4.device)
-    lpb = torch.empty((b, e, 3), dtype=torch.float32, device=q4.device)
-    ok = torch.empty((b, e), dtype=torch.bool, device=q4.device)
-    _any_k("knn_lines", "liodom_knn_lines_any_k", q4, r4, flags, qperm, k,
-           (lpa, lpb, ok),
-           extra_floats=(float(max_sq_dist), float(eig_ratio),
-                         float(min_line_sep) * float(min_line_sep)))
-    knn_lines_launch_any_k.launches += 1
-    return lpa, lpb, ok
-
-
-knn_lines_launch_any_k.launches = 0
+def line_gates(max_sq_dist: float, eig_ratio: float, min_line_sep: float
+               ) -> Tuple[float, float, float]:
+    """K6's gates as its entry points take them (:func:`knn_launch`'s
+    ``floats``): the separation of the endpoints squared."""
+    return (float(max_sq_dist), float(eig_ratio),
+            float(min_line_sep) * float(min_line_sep))
 
 
 def knn_lines_cuda(query: torch.Tensor, qmask: torch.Tensor,
@@ -636,15 +450,11 @@ def knn_lines_cuda(query: torch.Tensor, qmask: torch.Tensor,
     (B, E, 3), ...) -> (lpa, lpb, valid) with the query's leading shape.
     Radius pruning always uses ``sqrt(max_sq_dist)`` (``knn_pallas.py:733``):
     the distance gate drops any farther edge anyway."""
-    batched = query.ndim == 3
-    _check_points(query, qmask, ref, rmask, k, batched, "knn_lines_cuda")
-    if not batched:
-        query, qmask, ref, rmask = (t[None] for t in (query, qmask, ref,
-                                                      rmask))
-    prep = knn_prepare_batched(query, qmask, ref, rmask,
-                               float(max_sq_dist) ** 0.5, ref_presorted)
-    out = knn_lines_launch(*prep, max_sq_dist, eig_ratio, min_line_sep, k)
-    return out if batched else tuple(t[0] for t in out)
+    _check_points(query, qmask, ref, rmask, "knn_lines_cuda")
+    return _launch_points(
+        "knn_lines", query, qmask, ref, rmask, k, float(max_sq_dist) ** 0.5,
+        ref_presorted, floats=line_gates(max_sq_dist, eig_ratio,
+                                         min_line_sep))
 
 
 def knn_lines_plain(query: torch.Tensor, qmask: torch.Tensor,
@@ -656,8 +466,7 @@ def knn_lines_plain(query: torch.Tensor, qmask: torch.Tensor,
     batched) followed by ``neighbors._line_fit``."""
     # imported here: neighbors builds on this module
     from liodom_tpu_torch.ops.neighbors import _line_fit
-    knn = knn_coords_batched_plain if query.ndim == 3 else knn_coords_plain
-    d2, near = knn(query, qmask, ref, rmask, k)
+    d2, near = knn_coords_plain(query, qmask, ref, rmask, k)
     return tuple(_line_fit(near, d2[..., k - 1], qmask, max_sq_dist,
                            eig_ratio, min_line_sep))
 
@@ -736,17 +545,16 @@ def _read_back(d2: torch.Tensor, q4: torch.Tensor) -> torch.Tensor:
 def knn_launch_plain(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
                      qperm: torch.Tensor, k: int = K
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What K3 (flags (n_e, n_m)) or K4 (a leading batch dimension) returns
-    on tensors from :func:`knn_prepare_batched`, in plain PyTorch: the
-    walk's lists (:func:`_walk_plain`), then the read-back rules (a FAR pick
-    or an invalid query reads ``_BIG``, d2 is clamped at 0, an empty slot
-    reads ``_BIG`` with zero coordinates) and each row at its query's
-    original index.  A reference for checks, not a route."""
+    """What the ``"knn_coords"`` launch returns on tensors from
+    :func:`knn_prepare` (or on one element of them, flags (n_e, n_m)), in
+    plain PyTorch: the walk's lists (:func:`_walk_plain`), then the
+    read-back rules (a FAR pick or an invalid query reads ``_BIG``, d2 is
+    clamped at 0, an empty slot reads ``_BIG`` with zero coordinates) and
+    each row at its query's original index.  A reference for checks, not a
+    route."""
     if flags.ndim == 3:
-        outs = [knn_launch_plain(q4[b], r4[b], flags[b], qperm[b], k)
-                for b in range(flags.shape[0])]
-        return (torch.stack([d for d, _ in outs]),
-                torch.stack([c for _, c in outs]))
+        return _stacked(knn_launch_plain(q4[b], r4[b], flags[b], qperm[b], k)
+                        for b in range(flags.shape[0]))
     e = qperm.shape[0]
     d2, idx = _walk_plain(q4, r4, flags, k)
     empty = idx == _NONE
@@ -762,9 +570,9 @@ def knn_launch_plain(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
 def knn_index_launch_plain(q4: torch.Tensor, r4: torch.Tensor,
                            flags: torch.Tensor, qperm: torch.Tensor, m: int,
                            k: int = K) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What K5 (:func:`knn_index_launch`) returns on tensors from
-    :func:`knn_prepare_batched` (flags (B, n_e, n_m), ``m`` refs before
-    padding), in plain PyTorch: the walk's lists read back as
+    """What the ``"knn_index"`` launch (K5) returns on tensors from
+    :func:`knn_prepare` (flags (B, n_e, n_m), ``m`` refs before padding),
+    in plain PyTorch: the walk's lists read back as
     :func:`knn_launch_plain` does, the indices clamped to ``m - 1`` and an
     empty slot at index 0 (the TPU kernel's initial index).  A reference
     for checks, not a route."""
@@ -778,8 +586,7 @@ def knn_index_launch_plain(q4: torch.Tensor, r4: torch.Tensor,
         out_d[qperm[b].long()] = _read_back(d2, q4[b])[:e]
         out_i[qperm[b].long()] = idx[:e].to(torch.int32)
         outs.append((out_d, out_i))
-    return (torch.stack([d for d, _ in outs]),
-            torch.stack([i for _, i in outs]))
+    return _stacked(outs)
 
 
 def knn_lines_launch_plain(q4: torch.Tensor, r4: torch.Tensor,
@@ -788,10 +595,10 @@ def knn_lines_launch_plain(q4: torch.Tensor, r4: torch.Tensor,
                            min_line_sep: float, k: int = K
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
-    """What K6 returns on tensors from :func:`knn_prepare_batched` (flags
-    (B, n_e, n_m)): :func:`knn_launch_plain`'s neighbours through
-    ``neighbors._line_fit`` with each query's own mask -> (lpa, lpb, valid)
-    (B, E, ...)."""
+    """What the ``"knn_lines"`` launch (K6) returns on tensors from
+    :func:`knn_prepare` (flags (B, n_e, n_m)): :func:`knn_launch_plain`'s
+    neighbours through ``neighbors._line_fit`` with each query's own mask
+    -> (lpa, lpb, valid) (B, E, ...)."""
     # imported here: neighbors builds on this module
     from liodom_tpu_torch.ops.neighbors import _line_fit
     d2, near = knn_launch_plain(q4, r4, flags, qperm, k)
@@ -817,10 +624,9 @@ def knn_index_plain(query: torch.Tensor, qmask: torch.Tensor,
     only the valid refs are searched, and blocks of queries without a valid
     one are skipped."""
     if query.ndim == 3:
-        outs = [knn_index_plain(query[b], qmask[b], ref[b], rmask[b], k)
-                for b in range(query.shape[0])]
-        return (torch.stack([d for d, _ in outs]),
-                torch.stack([i for _, i in outs]))
+        return _stacked(knn_index_plain(query[b], qmask[b], ref[b],
+                                        rmask[b], k)
+                        for b in range(query.shape[0]))
     e, m = query.shape[0], ref.shape[0]
     dev = query.device
     keep = torch.nonzero(rmask).squeeze(1)              # valid refs, in order
@@ -856,67 +662,6 @@ def knn_index_plain(query: torch.Tensor, qmask: torch.Tensor,
     return torch.clamp(d2, min=0.0), idx
 
 
-def knn_index_launch(q4: torch.Tensor, r4: torch.Tensor, flags: torch.Tensor,
-                     qperm: torch.Tensor, m: int, k: int = K
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K5 on tensors from :func:`knn_prepare_batched` (``m`` refs
-    before padding) -> (d2 (B, E, k), idx (B, E, k) int32 into the r4 rows,
-    clamped to ``m - 1``) in each element's query order: one kernel
-    launch; k above ``MAX_K`` launches :func:`knn_index_launch_any_k`."""
-    if flags.ndim != 3:
-        raise ValueError(f"knn_index_launch takes a batch, flags "
-                         f"{tuple(flags.shape)}")
-    e, n_e, n_m = _check_prepared(q4, r4, flags, qperm, "knn_index_launch")
-    _check_k(k, r4.shape[1], "knn_index_launch")
-    if not 0 < m <= r4.shape[1]:
-        raise ValueError(f"knn_index_launch: {m} refs in {r4.shape[1]} rows")
-    if k > MAX_K:
-        return knn_index_launch_any_k(q4, r4, flags, qperm, m, k)
-    b = flags.shape[0]
-    dev = q4.device
-    out_d = torch.empty((b, e, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, e, k), dtype=torch.int32, device=dev)
-    lib = kernels.load("knn_index", _INDEX_SIG)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.liodom_knn_index(
-            q4.data_ptr(), r4.data_ptr(), flags.data_ptr(), qperm.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(), b, e, n_e, n_m, m, TILE_E,
-            TILE_M, k, stream)
-    kernels.check(err, "liodom_knn_index")
-    knn_index_launch.launches += 1
-    return out_d, out_i
-
-
-knn_index_launch.launches = 0
-
-
-def knn_index_launch_any_k(q4: torch.Tensor, r4: torch.Tensor,
-                           flags: torch.Tensor, qperm: torch.Tensor, m: int,
-                           k: int = K
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5 on ``ListWalk`` at any k, the same contract as
-    :func:`knn_index_launch`."""
-    if flags.ndim != 3:
-        raise ValueError(f"knn_index_launch_any_k takes a batch, flags "
-                         f"{tuple(flags.shape)}")
-    e, _, _ = _check_prepared(q4, r4, flags, qperm, "knn_index_launch_any_k")
-    _check_k(k, r4.shape[1], "knn_index_launch_any_k")
-    if not 0 < m <= r4.shape[1]:
-        raise ValueError(f"knn_index_launch_any_k: {m} refs in "
-                         f"{r4.shape[1]} rows")
-    b = flags.shape[0]
-    out_d = torch.empty((b, e, k), dtype=torch.float32, device=q4.device)
-    out_i = torch.empty((b, e, k), dtype=torch.int32, device=q4.device)
-    _any_k("knn_index", "liodom_knn_index_any_k", q4, r4, flags, qperm, k,
-           (out_d, out_i), extra_ints=(m,))
-    knn_index_launch_any_k.launches += 1
-    return out_d, out_i
-
-
-knn_index_launch_any_k.launches = 0
-
-
 def knn_index_cuda(query: torch.Tensor, qmask: torch.Tensor,
                    ref: torch.Tensor, rmask: torch.Tensor, k: int = K,
                    max_radius: Optional[float] = None,
@@ -927,18 +672,18 @@ def knn_index_cuda(query: torch.Tensor, qmask: torch.Tensor,
     contract of ``knn_pallas.py:144-256``: idx int32 into the caller's ref.
     With ``max_radius`` neighbours within it are exact and farther ones may
     read ``_BIG``; both sides are sorted and the indices mapped back."""
-    batched = query.ndim == 3
-    _check_points(query, qmask, ref, rmask, k, batched, "knn_index_cuda")
-    if not batched:
-        query, qmask, ref, rmask = (t[None] for t in (query, qmask, ref,
-                                                      rmask))
-    *prep, rperm = _prepare_batched(query, qmask, ref, rmask, max_radius,
-                                    ref_presorted)
-    d2, idx = knn_index_launch(*prep, ref.shape[1], k)
+    _check_points(query, qmask, ref, rmask, "knn_index_cuda")
+    rperm = None
+    if max_radius is not None and not ref_presorted:
+        # the refs sorted here, where their permutation maps the indices back
+        rperm = _spatial_order(ref, rmask)
+        ref, rmask = _rows(ref, rperm), _rows(rmask, rperm)
+    d2, idx = _launch_points("knn_index", query, qmask, ref, rmask, k,
+                             max_radius, True, ints=(ref.shape[-2],))
     if rperm is not None:
-        idx = rperm.gather(1, idx.flatten(1).long()).view(idx.shape).to(
+        idx = rperm.gather(-1, idx.flatten(-2).long()).view(idx.shape).to(
             torch.int32)
-    return (d2, idx) if batched else (d2[0], idx[0])
+    return d2, idx
 
 
 def knn_index(query: torch.Tensor, qmask: torch.Tensor, ref: torch.Tensor,

@@ -15,16 +15,11 @@ three copies of the state that the result starts from.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
 
 from liodom_tpu_torch import kernels
-
-_SIG = [("liodom_map_fold", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
-         + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 6),
-        ("liodom_map_fold_shape", [ctypes.c_int, ctypes.c_void_p])]
 
 # The most rows a launch takes: csrc/map_fold.cu's kBlockRows * kMaxCluster
 # (12,288 rows a sorting block, 16 blocks), which its entry point refuses
@@ -37,8 +32,7 @@ def map_fold_shape(e: int) -> dict:
     it (CUDA only): blocks of its one cluster, of them the blocks that sort
     the rows, threads a block, rows a sorting block, a block's dynamic
     shared memory in bytes, the most rows a launch takes."""
-    out = (ctypes.c_int * 6)()
-    kernels.load("map_fold", _SIG).liodom_map_fold_shape(e, out)
+    out = kernels.query("map_fold", "liodom_map_fold_shape", e, size=6)
     return {"cluster_blocks": out[0], "sort_blocks": out[1],
             "threads": out[2], "rows_per_block": out[3],
             "smem_bytes": out[4], "max_rows": out[5]}
@@ -77,7 +71,6 @@ def map_fold_cuda(xyz: torch.Tensor, key: torch.Tensor, valid: torch.Tensor,
                    for t in (pts_valid, slot, claimed, failed))):
         raise ValueError(f"map_fold_cuda shapes: xyz {tuple(xyz.shape)}, "
                          f"key {tuple(key.shape)}, pts {tuple(pts.shape)}")
-    lib = kernels.load("map_fold", _SIG)
     if e > MAX_ROWS:
         raise ValueError(f"map_fold_cuda: a frame of {e} rows exceeds the "
                          f"kernel's {MAX_ROWS}")
@@ -96,20 +89,12 @@ def map_fold_cuda(xyz: torch.Tensor, key: torch.Tensor, valid: torch.Tensor,
     pts, pts_valid, slot = pts.contiguous(), pts_valid.contiguous(), \
         slot.contiguous()
     claimed, failed = claimed.contiguous(), failed.contiguous()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.liodom_map_fold(
-            xyz_in.data_ptr(), valid_in.data_ptr(), overflow.data_ptr(),
-            pts.data_ptr(), pts_valid.data_ptr(), slot.data_ptr(),
-            claimed.data_ptr(), failed.data_ptr(), c, e,
-            voxel_xysize, voxel_xysize / 2.0, voxel_zsize, voxel_zsize / 2.0,
-            out_xyz.data_ptr(), out_key.data_ptr(), out_valid.data_ptr(),
-            out_overflow.data_ptr(),
-            folded.data_ptr() if with_folded else None, stream)
-    kernels.check(err, "liodom_map_fold")
-    map_fold_cuda.launches += 1
+    kernels.launch(
+        "liodom_map_fold", dev, xyz_in.data_ptr(), valid_in.data_ptr(),
+        overflow.data_ptr(), pts.data_ptr(), pts_valid.data_ptr(),
+        slot.data_ptr(), claimed.data_ptr(), failed.data_ptr(), c, e,
+        voxel_xysize, voxel_xysize / 2.0, voxel_zsize, voxel_zsize / 2.0,
+        out_xyz.data_ptr(), out_key.data_ptr(), out_valid.data_ptr(),
+        out_overflow.data_ptr(), folded.data_ptr() if with_folded else None)
     res = (out_xyz, out_key, out_valid, out_overflow)
     return res + (folded,) if with_folded else res
-
-
-map_fold_cuda.launches = 0

@@ -17,9 +17,8 @@ from typing import NamedTuple
 
 import torch
 
-from liodom_tpu_torch.ops.knn_pallas import (knn_coords, knn_coords_batched,
-                                             knn_index, knn_index_plain,
-                                             knn_lines)
+from liodom_tpu_torch.ops.knn_pallas import (knn_coords, knn_index,
+                                             knn_index_plain, knn_lines)
 
 # The index-returning exact kNN under the JAX package's names: ``knn_auto``
 # (neighbors.py:69) runs K5 for CUDA tensors and ``knn`` (neighbors.py:87),
@@ -124,9 +123,8 @@ def line_correspondences(edges_world: torch.Tensor, emask: torch.Tensor,
             edges_world, emask, map_pts, mmask, k=k, max_sq_dist=max_sq_dist,
             eig_ratio=eig_ratio, min_line_sep=min_line_sep,
             ref_presorted=map_presorted))
-    knn = knn_coords_batched if edges_world.ndim == 3 else knn_coords
-    d2, near = knn(edges_world, emask, map_pts, mmask, k=k,
-                   max_radius=float(max_sq_dist) ** 0.5,
-                   ref_presorted=map_presorted)
+    d2, near = knn_coords(edges_world, emask, map_pts, mmask, k=k,
+                          max_radius=float(max_sq_dist) ** 0.5,
+                          ref_presorted=map_presorted)
     return _line_fit(near, d2[..., k - 1], emask, max_sq_dist, eig_ratio,
                      min_line_sep)

@@ -17,7 +17,6 @@ tensors' device: a CUDA tensor launches the kernel, a CPU tensor takes
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -29,12 +28,6 @@ MAX_PROBES = 64
 _K2_BITS = 26           # the JAX package's minor word: code & (2^26 - 1)
 _K2_MASK = (1 << _K2_BITS) - 1
 _U32 = 0xFFFFFFFF
-
-_SIG = [("liodom_probe_insert", [ctypes.c_void_p, ctypes.c_int,
-                                 ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_int, ctypes.c_int]
-         + [ctypes.c_void_p] * 6),
-        ("liodom_probe_insert_shape", [ctypes.c_void_p])]
 
 
 def mul32(a: torch.Tensor, m: int) -> torch.Tensor:
@@ -147,8 +140,7 @@ def probe_shape() -> dict:
     """The probe kernel's launch as the built library reports it (CUDA
     only): blocks of its one cluster, threads a block, rows a thread keeps
     on chip, rows on chip in all."""
-    out = (ctypes.c_int * 4)()
-    kernels.load("probe_insert", _SIG).liodom_probe_insert_shape(out)
+    out = kernels.query("probe_insert", "liodom_probe_insert_shape", size=4)
     return {"cluster_blocks": out[0], "threads": out[1],
             "rows_per_thread": out[2], "rows_on_chip": out[3]}
 
@@ -184,21 +176,13 @@ def probe_insert_cuda(tab: torch.Tensor, code: torch.Tensor,
     # the kernel writes the rounds; with no code it is not launched
     rounds = (torch.empty if e > 0 else torch.zeros)(
         (), dtype=torch.int32, device=tab.device)
-    lib = kernels.load("probe_insert", _SIG)
-    with torch.cuda.device(tab.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.liodom_probe_insert(
-            out.data_ptr(), n, code.data_ptr(), active.data_ptr(), e,
-            MAX_PROBES, slot.data_ptr(), spill.data_ptr(),
-            claimed.data_ptr(), failed.data_ptr(), rounds.data_ptr(), stream)
-    kernels.check(err, "liodom_probe_insert")
     if e > 0:                       # no codes: the library launches nothing
-        probe_insert_cuda.launches += 1
+        kernels.launch("liodom_probe_insert", tab.device, out.data_ptr(), n,
+                       code.data_ptr(), active.data_ptr(), e, MAX_PROBES,
+                       slot.data_ptr(), spill.data_ptr(), claimed.data_ptr(),
+                       failed.data_ptr(), rounds.data_ptr())
     res = (out, slot, claimed, failed)
     return res + (rounds,) if with_rounds else res
-
-
-probe_insert_cuda.launches = 0
 
 
 def probe_insert(tab: torch.Tensor, code: torch.Tensor, active: torch.Tensor,

@@ -48,15 +48,6 @@ _WARP = 32             # entries a step of the kernel's walk
 RADIX_BITS = 8
 COUNT_MAX = 256
 
-_SIG = [("liodom_select_edges", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-         + [ctypes.c_float] * 2 + [ctypes.c_void_p]),
-        ("liodom_select_edges_global", [ctypes.c_void_p] * 7
-         + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p]),
-        ("liodom_select_shape", [ctypes.c_int] * 3 + [ctypes.c_void_p]),
-        ("liodom_select_global_shape", [ctypes.c_int] * 3
-         + [ctypes.c_void_p])]
-
-
 def f32(x: float) -> float:
     """``x`` rounded to float32, as a Python float: a threshold the JAX
     package applies to float32 arrays as a float32 value."""
@@ -416,16 +407,11 @@ def _select_launch(symbol: str, img: RingImage, smooth: torch.Tensor,
     bidx = torch.empty((r, s), dtype=torch.int32, device=xyz.device)
     bval = torch.empty((r, s), dtype=torch.int32, device=xyz.device)
     pts = torch.empty((r, s, 3), dtype=torch.float32, device=xyz.device)
-    lib = kernels.load("select", _SIG)
-    with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, symbol)(
-            smooth.data_ptr(), count.data_ptr(), xyz.data_ptr(),
-            bidx.data_ptr(), bval.data_ptr(), pts.data_ptr(),
-            *(t.data_ptr() for t in scratch), r, w, n_regions, max_picks,
-            cfg.min_points_per_scan, f32(cfg.smoothness_threshold),
-            f32(cfg.neighbor_gap_sq), stream)
-    kernels.check(err, symbol)
+    kernels.launch(symbol, xyz.device, smooth.data_ptr(), count.data_ptr(),
+                   xyz.data_ptr(), bidx.data_ptr(), bval.data_ptr(),
+                   pts.data_ptr(), *(t.data_ptr() for t in scratch), r, w,
+                   n_regions, max_picks, cfg.min_points_per_scan,
+                   f32(cfg.smoothness_threshold), f32(cfg.neighbor_gap_sq))
     return bidx, bval, pts
 
 
@@ -446,12 +432,7 @@ def select_edges_cuda(img: RingImage, smooth: torch.Tensor,
     if select_smem_bytes(img.xyz.shape[1], cfg.scan_regions,
                          cfg.max_edges_per_region) > _SMEM_LIMIT:
         return select_edges_global_cuda(img, smooth, cfg)
-    out = _edges(_select_launch("liodom_select_edges", img, smooth, cfg))
-    select_edges_cuda.launches += 1
-    return out
-
-
-select_edges_cuda.launches = 0
+    return _edges(_select_launch("liodom_select_edges", img, smooth, cfg))
 
 
 def select_global_shape(width: int, n_regions: int, max_picks: int) -> dict:
@@ -462,11 +443,8 @@ def select_global_shape(width: int, n_regions: int, max_picks: int) -> dict:
     shared memory in bytes, the scratch's bytes a ring, the radix digit's
     bits and the blocks of a ring's cluster.  Builds the library if
     needed; launches nothing."""
-    lib = kernels.load("select", _SIG)
-    out = (ctypes.c_longlong * 6)()
-    kernels.check(lib.liodom_select_global_shape(
-        width, n_regions, max_picks, ctypes.addressof(out)),
-        "liodom_select_global_shape")
+    out = kernels.query("select", "liodom_select_global_shape", width,
+                        n_regions, max_picks, size=6, ctype=ctypes.c_longlong)
     return {"lists_in_scratch": bool(out[0]), "keys_in_smem": out[1],
             "dynamic_smem_bytes": out[2], "scratch_bytes_per_ring": out[3],
             "radix_bits": out[4], "cluster_blocks": out[5]}
@@ -476,8 +454,8 @@ def select_slots_global(img: RingImage, smooth: torch.Tensor,
                         cfg: LiodomConfig
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One launch of K2's device-memory path -> its slots (bidx (R, S)
-    i32, bval (R, S) i32, pts (R, S, 3)), :func:`select_plain`'s layout;
-    counts nothing (:func:`select_edges_global_cuda` is the route)."""
+    i32, bval (R, S) i32, pts (R, S, 3)), :func:`select_plain`'s layout
+    (:func:`select_edges_global_cuda` is the route)."""
     _check_cuda(img, smooth, "select_slots_global")
     r, w = img.xyz.shape[0], img.xyz.shape[1]
     per_ring = select_global_shape(w, cfg.scan_regions,
@@ -496,12 +474,7 @@ def select_edges_global_cuda(img: RingImage, smooth: torch.Tensor,
     (``liodom_select_edges_global``), at any ring width up to 2^24 - 1 and
     any slot count; the same contract, slots and picks as
     :func:`select_edges_cuda`, one launch."""
-    out = _edges(select_slots_global(img, smooth, cfg))
-    select_edges_global_cuda.launches += 1
-    return out
-
-
-select_edges_global_cuda.launches = 0
+    return _edges(select_slots_global(img, smooth, cfg))
 
 
 def select_shape(width: int, n_regions: int, max_picks: int) -> dict:
@@ -509,11 +482,8 @@ def select_shape(width: int, n_regions: int, max_picks: int) -> dict:
     layout: blocks a ring's cluster, entries a region's list and a block's
     dynamic shared memory.  Builds the library if needed; launches
     nothing."""
-    lib = kernels.load("select", _SIG)
-    out = (ctypes.c_int * 3)()
-    kernels.check(lib.liodom_select_shape(width, n_regions, max_picks,
-                                          ctypes.addressof(out)),
-                  "liodom_select_shape")
+    out = kernels.query("select", "liodom_select_shape", width, n_regions,
+                        max_picks, size=3)
     return {"cluster_blocks": out[0], "list_entries": out[1],
             "dynamic_smem_bytes": out[2]}
 

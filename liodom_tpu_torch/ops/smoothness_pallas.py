@@ -14,15 +14,9 @@ segment of 512 columns, 4 columns a thread); it takes any width, with
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from liodom_tpu_torch import kernels
-
-_SIG = [("liodom_smoothness", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-         + [ctypes.c_void_p]),
-        ("liodom_smoothness_shape", [ctypes.c_void_p])]
 
 
 def smoothness_plain(xyz: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
@@ -58,26 +52,15 @@ def smoothness_cuda(xyz: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
         raise ValueError("smoothness_cuda needs contiguous tensors")
     r, w = xyz.shape[0], xyz.shape[1]
     out = torch.empty((r, w), dtype=torch.float32, device=xyz.device)
-    lib = kernels.load("smoothness", _SIG)
-    with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.liodom_smoothness(xyz.data_ptr(), count.data_ptr(),
-                                    out.data_ptr(), r, w, stream)
-    kernels.check(err, "liodom_smoothness")
-    smoothness_cuda.launches += 1
+    kernels.launch("liodom_smoothness", xyz.device, xyz.data_ptr(),
+                   count.data_ptr(), out.data_ptr(), r, w)
     return out
-
-
-smoothness_cuda.launches = 0
 
 
 def smoothness_shape() -> dict:
     """The built kernel's launch shape: threads a block, columns a thread
     and a block (a block owns one segment of a ring)."""
-    lib = kernels.load("smoothness", _SIG)
-    out = (ctypes.c_int * 3)()
-    kernels.check(lib.liodom_smoothness_shape(ctypes.addressof(out)),
-                  "liodom_smoothness_shape")
+    out = kernels.query("smoothness", "liodom_smoothness_shape", size=3)
     return {"threads": out[0], "cols_per_thread": out[1],
             "cols_per_block": out[2]}
 

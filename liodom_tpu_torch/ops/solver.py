@@ -28,7 +28,6 @@ The residual follows factors.hpp:71-105, including the distance weight
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
@@ -227,13 +226,6 @@ def lm_solve_plain(pose0: Pose, cp: torch.Tensor, lpa: torch.Tensor,
     return Pose(q, t)
 
 
-_SIG = [("liodom_lm_solve", [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
-                                                    ctypes.c_void_p]
-         + [ctypes.c_int] * 3 + [ctypes.c_float] * 7
-         + [ctypes.c_void_p] * 3),
-        ("liodom_lm_solve_shape", [ctypes.c_int, ctypes.c_void_p])]
-
-
 def _row_stride(x: torch.Tensor):
     """The floats between the rows of ``x`` (..., E, 3) when they are 3
     floats each at one stride of at least 3, the leading dimensions packed
@@ -300,31 +292,20 @@ def lm_solve_cuda(pose0: Pose, cp: torch.Tensor, lpa: torch.Tensor,
     if b == 0:
         return Pose(q, t)
     span = max_range - min_range
-    lib = kernels.load("lm_solve", _SIG)
-    with torch.cuda.device(t0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.liodom_lm_solve(
-            q0.data_ptr(), t0.data_ptr(), cp.data_ptr(), lpa.data_ptr(),
-            lpb.data_ptr(), _row_stride(lpa), valid.data_ptr(), b, e, iters,
-            init_lambda, min_range, 1.0 / span, span, huber_delta,
-            huber_delta * huber_delta, 2.0 * huber_delta, q.data_ptr(),
-            t.data_ptr(), stream)
-    kernels.check(err, "liodom_lm_solve")
-    lm_solve_cuda.launches += 1
+    kernels.launch(
+        "liodom_lm_solve", t0.device, q0.data_ptr(), t0.data_ptr(),
+        cp.data_ptr(), lpa.data_ptr(), lpb.data_ptr(), _row_stride(lpa),
+        valid.data_ptr(), b, e, iters, init_lambda, min_range, 1.0 / span,
+        span, huber_delta, huber_delta * huber_delta, 2.0 * huber_delta,
+        q.data_ptr(), t.data_ptr())
     return Pose(q, t)
-
-
-lm_solve_cuda.launches = 0
 
 
 def lm_solve_shape(e: int) -> dict:
     """The built kernel's launch for ``e`` edges a lane: blocks in a lane's
     cluster, threads a block, a block's share of the edges, the edges it
     keeps in shared memory, its dynamic shared memory in bytes."""
-    lib = kernels.load("lm_solve", _SIG)
-    out = (ctypes.c_int * 5)()
-    kernels.check(lib.liodom_lm_solve_shape(e, ctypes.addressof(out)),
-                  "liodom_lm_solve_shape")
+    out = kernels.query("lm_solve", "liodom_lm_solve_shape", e, size=5)
     return dict(zip(("cluster", "threads", "share", "cached", "smem_bytes"),
                     out))
 

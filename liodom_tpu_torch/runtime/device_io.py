@@ -221,30 +221,6 @@ def path_kernels(mapping: bool, sharded: bool = False) -> Tuple[str, ...]:
         ("local_map_compact", "probe_insert", "map_fold") if mapping else ())
 
 
-def _load_library(name: str) -> None:
-    """Load a built library through its op module's bindings, launching
-    nothing."""
-    from liodom_tpu_torch.ops import (compact_pallas, knn_pallas, map_fold,
-                                      probe_insert, select_pallas,
-                                      smoothness_pallas, solver)
-    if name == "smoothness":
-        smoothness_pallas.smoothness_shape()
-    elif name == "select":
-        select_pallas.select_shape(512, 8, 11)
-    elif name in ("knn_coords", "knn_lines", "knn_index"):
-        knn_pallas.knn_walk_shape(name, 1)
-    elif name == "local_map_compact":
-        compact_pallas.compact_shape(1, 1)
-    elif name == "probe_insert":
-        probe_insert.probe_shape()
-    elif name == "map_fold":
-        map_fold.map_fold_shape(1)
-    elif name == "lm_solve":
-        solver.lm_solve_shape(1)
-    else:
-        raise ValueError(f"no kernel source {name!r}")
-
-
 def prepare_kernels(names: Sequence[str], device: torch.device) -> dict:
     """On CUDA, build every named source that has no library yet (one
     ``nvcc`` a source, all started together) and load each library, before
@@ -257,7 +233,7 @@ def prepare_kernels(names: Sequence[str], device: torch.device) -> dict:
     t0 = time.perf_counter()
     compiled = sorted(kernels.build_all(names))
     for name in names:
-        _load_library(name)
+        kernels.load(name)
     out = {"kernel_build_s": time.perf_counter() - t0,
            "kernel_build": "cold" if compiled else "warm",
            "compiled": compiled, "kernels": list(names)}

@@ -199,18 +199,19 @@ def stages(it: Intermediates, cfg: LiodomConfig, mcfg: MapConfig
     k = cfg.knn_k
     radius = float(cfg.knn_max_sq_dist) ** 0.5
     cuda = dev.type == "cuda"
-    launch = KNN.knn_launch if cuda else KNN.knn_launch_plain
+    launch = ((lambda *prep: KNN.knn_launch("knn_coords", *prep)) if cuda
+              else KNN.knn_launch_plain)
     co, cm = it.comb
     ev = it.edges_c.valid
     knn_args = (it.edges_world, ev, it.match_xyz, it.match_valid)
     map_args = (cm, it.edges_c.xyz, ev, it.cpose)
 
-    def knn_prepare(ew, e_valid, mx, mv):
-        return KNN.knn_prepare(ew, e_valid, mx, mv, radius,
-                               ref_presorted=cuda)
+    def knn_prepare(ew, e_valid, mx, mv):          # K3: a batch of one
+        return KNN.knn_prepare(ew[None], e_valid[None], mx[None], mv[None],
+                               radius, ref_presorted=cuda)
 
     def knn_launch(q4, r4, flags, qperm):
-        return launch(q4, r4, flags, qperm, k)
+        return tuple(t[0] for t in launch(q4, r4, flags, qperm, k))
 
     def line_fit(near, dk, e_valid):
         return NB._line_fit(near, dk, e_valid, cfg.knn_max_sq_dist,
@@ -452,8 +453,8 @@ def roofline(stage_ms: dict, it: Intermediates, cfg: LiodomConfig,
     m = cfg.local_map_size * cfg.max_edges
     radius = float(cfg.knn_max_sq_dist) ** 0.5
     q4, r4, flags, qperm = KNN.knn_prepare(
-        it.edges_world, it.edges_c.valid, it.match_xyz, it.match_valid,
-        radius, ref_presorted=it.match_xyz.is_cuda)
+        it.edges_world[None], it.edges_c.valid[None], it.match_xyz[None],
+        it.match_valid[None], radius, ref_presorted=it.match_xyz.is_cuda)
     knn_flops = 8.0 * e * m
     knn_bytes = float(4 * (q4.numel() + r4.numel() + flags.numel()
                            + qperm.numel()) + e * cfg.knn_k * 4 * 4)

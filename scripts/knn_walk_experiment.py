@@ -83,8 +83,8 @@ REPS = 50
 ANY_K = 17        # K4', K5' and K6' on ListWalk
 # an earlier K5 (two kernels, partial lists in device memory): its entry
 # point and split count
-_OLD_INDEX_SIG = [("liodom_knn_index", [KNN._PTR] * 8 + [KNN._INT] * 9
-                   + [KNN._PTR])]
+_OLD_INDEX_SIG = {"liodom_knn_index": [ctypes.c_void_p] * 8
+                  + [ctypes.c_int] * 9 + [ctypes.c_void_p]}
 _OLD_INDEX_SPLITS = 16
 
 
@@ -145,13 +145,12 @@ def build(variants: dict, sources=SOURCES,
             raise SystemExit(f"{label} {name}.cu: nvcc exit "
                              f"{proc.returncode}\n{log}")
         lib = ctypes.CDLL(str(so))
-        sigs = {"knn_coords": KNN._SIG, "knn_lines": KNN._LINES_SIG,
-                "knn_index": KNN._INDEX_SIG}[name]
-        if name == "knn_index" and not hasattr(lib, KNN._SHAPE_SIG[0]):
+        sigs = kernels.ABI[name]
+        if name == "knn_index" and not hasattr(lib, "liodom_knn_walk_shape"):
             sigs = _OLD_INDEX_SIG            # the two-kernel K5
-        for symbol, argtypes in sigs:
-            if symbol == KNN._SHAPE_SIG[0] and not hasattr(lib, symbol):
-                continue                  # a walk that predates the query
+        for symbol, argtypes in sigs.items():
+            if not hasattr(lib, symbol):
+                continue             # a build that predates the entry point
             fn = getattr(lib, symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
@@ -160,22 +159,16 @@ def build(variants: dict, sources=SOURCES,
 
 
 def coords(lib, q4, r4, flags, qperm):
-    """K3 (flags 2-D) or K4 (3-D) of one build, as the port's wrappers
-    call it."""
-    batched = flags.ndim == 3
-    lead = flags.shape[:-2]
-    n_e, n_m = flags.shape[-2:]
+    """K3 (a batch of one) or K4 of one build, as the port's launch calls
+    it."""
+    b, n_e, n_m = flags.shape
     e = qperm.shape[-1]
-    out_d = torch.empty(lead + (e, KNN.K), device=q4.device)
-    out_c = torch.empty(lead + (e, KNN.K, 3), device=q4.device)
-    stream = torch.cuda.current_stream().cuda_stream
-    ptrs = [t.data_ptr() for t in (q4, r4, flags, qperm, out_d, out_c)]
-    tail = [KNN.TILE_E, KNN.TILE_M, KNN.K, stream]
-    if batched:
-        err = lib.liodom_knn_coords_batched(*ptrs, lead[0], e, n_e, n_m,
-                                            *tail)
-    else:
-        err = lib.liodom_knn_coords(*ptrs, e, n_e, n_m, *tail)
+    out_d = torch.empty((b, e, KNN.K), device=q4.device)
+    out_c = torch.empty((b, e, KNN.K, 3), device=q4.device)
+    err = lib.liodom_knn_coords_batched(
+        *[t.data_ptr() for t in (q4, r4, flags, qperm, out_d, out_c)], b, e,
+        n_e, n_m, KNN.TILE_E, KNN.TILE_M, KNN.K,
+        torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "knn_coords")
     return out_d, out_c
 
@@ -205,7 +198,7 @@ def index(lib, q4, r4, flags, qperm, m):
     out_i = torch.empty((b, e, KNN.K), dtype=torch.int32, device=q4.device)
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [t.data_ptr() for t in (q4, r4, flags, qperm)]
-    if hasattr(lib, KNN._SHAPE_SIG[0]):
+    if hasattr(lib, "liodom_knn_walk_shape"):
         err = lib.liodom_knn_index(*ptrs, out_d.data_ptr(), out_i.data_ptr(),
                                    b, e, n_e, n_m, m, KNN.TILE_E, KNN.TILE_M,
                                    KNN.K, stream)
@@ -239,7 +232,8 @@ _SCRATCH = {}   # a build's list scratch, kept across calls
 def _any_k(lib, label, symbol, q4, r4, flags, qperm, k, outs,
            extra_ints=(), extra_floats=()) -> None:
     """``symbol`` of one build on prepared tensors with a batch dimension,
-    as ``knn_pallas._any_k`` calls it, the scratch sized by the build."""
+    as ``knn_pallas.knn_launch`` calls it, the scratch sized by the
+    build."""
     b, n_e, n_m = flags.shape
     shape = any_k_shape(lib, n_m, k)
     scratch = None
@@ -258,13 +252,11 @@ def _any_k(lib, label, symbol, q4, r4, flags, qperm, k, outs,
 
 
 def coords_any_k(lib, label, q4, r4, flags, qperm, k):
-    """K3' (flags 2-D) or K4' (3-D) of one build."""
-    lead = flags.shape[:-2]
-    e = qperm.shape[-1]
-    out_d = torch.empty(lead + (e, k), device=q4.device)
-    out_c = torch.empty(lead + (e, k, 3), device=q4.device)
-    _any_k(lib, label, "liodom_knn_coords_any_k", q4, r4,
-           flags if flags.ndim == 3 else flags[None], qperm, k,
+    """K3' (a batch of one) or K4' of one build."""
+    b, e = flags.shape[0], qperm.shape[-1]
+    out_d = torch.empty((b, e, k), device=q4.device)
+    out_c = torch.empty((b, e, k, 3), device=q4.device)
+    _any_k(lib, label, "liodom_knn_coords_any_k", q4, r4, flags, qperm, k,
            (out_d, out_c))
     return out_d, out_c
 
@@ -306,15 +298,15 @@ def bench_inputs(cfg, dev, radius):
         *local_map.flatten(states[-2].window))
     qxyz, qvalid = local_map.compact(ec.xyz, ec.valid)
     query = se3.transform(poses[-1], qxyz)
-    prep = KNN.knn_prepare(query, qvalid, map_xyz, map_valid, radius,
-                           ref_presorted=True)
+    prep = KNN.knn_prepare(query[None], qvalid[None], map_xyz[None],
+                           map_valid[None], radius, ref_presorted=True)
     ccfg = cfg.replace(mapping=True)
     cstates, cposes, _ = CS.run_combined(*S.init_combined(ccfg, CS.MCFG),
                                          imgs, ccfg)
     m5_xyz, m5_valid = P._matching_map(cstates[-2][0], ccfg)
     q5 = se3.transform(cposes[-1], ec.xyz)
     pts5 = (q5[None], ec.valid[None], m5_xyz[None], m5_valid[None])
-    prep5 = KNN.knn_prepare_batched(*pts5, None)
+    prep5 = KNN.knn_prepare(*pts5, None)
 
     bimgs = CS.stack_lanes([lanes[s][0] for s in range(CS.LANES)])
     bstates, bposes, _ = CS.run_course(init_batch_state(cfg, CS.LANES),
@@ -325,8 +317,8 @@ def bench_inputs(cfg, dev, radius):
     query_b = se3.transform(bposes[-1], qxyz_b)
     map_b, mvalid_b = KNN.spatial_sort_points(
         *local_map.flatten(bstates[-2].window))
-    prep_b = KNN.knn_prepare_batched(query_b, qvalid_b, map_b, mvalid_b,
-                                     radius, ref_presorted=True)
+    prep_b = KNN.knn_prepare(query_b, qvalid_b, map_b, mvalid_b, radius,
+                             ref_presorted=True)
     return prep, prep_b, (prep5, m5_xyz.shape[0], pts5)
 
 
@@ -337,9 +329,8 @@ def tie_inputs(dev, radius):
     q, qm, r, rm = (torch.from_numpy(np.stack([sc[i] for sc in scenes]))
                     .to(dev) for i in range(4))
     pts1 = (q[:1], qm[:1], r[:1], rm[:1])
-    return ((KNN.knn_prepare_batched(*pts1, radius), pts1),
-            (KNN.knn_prepare_batched(q, qm, r, rm, radius),
-             (q, qm, r, rm)))
+    return ((KNN.knn_prepare(*pts1, radius), pts1),
+            (KNN.knn_prepare(q, qm, r, rm, radius), (q, qm, r, rm)))
 
 
 def index_vs_plain(prep, m, pts, d_k, i_k) -> bool:
@@ -424,7 +415,7 @@ def main() -> int:
     (tie, _), (tie_b, _) = tie_inputs(dev, radius)
     (tie5, tpts5), (tie5_b, tpts5_b) = tie_inputs(dev, None)
     inputs = {"bench_k3": prep, f"bench_b{CS.LANES}": prep_b,
-              "tie_scene": tuple(t[0] for t in tie),
+              "tie_scene": tie,
               f"tie_scene_b{CS.LANES}": tie_b}
     m_tie = tpts5[2].shape[1]
     inputs5 = {"bench_k5": (prep5, m5, pts5),
@@ -437,8 +428,7 @@ def main() -> int:
             co = libs[label]["knn_coords"][0]
             li = libs[label]["knn_lines"][0]
             for name, p in inputs.items():
-                pl = p if p[2].ndim == 3 else tuple(x[None] for x in p)
-                out[name] = coords(co, *p) + lines(li, *pl, gates)
+                out[name] = coords(co, *p) + lines(li, *p, gates)
         if "knn_index" in libs[label]:
             ix = libs[label]["knn_index"][0]
             for name, (p, m, _) in inputs5.items():
@@ -467,7 +457,6 @@ def main() -> int:
             failed += [] if ok else [f"{label} {name}"]
     torch.cuda.synchronize()
 
-    prep_l = tuple(x[None] for x in prep)
     times = {label: {} for label in libs}
     order = list(libs) + list(libs)[::-1]
     for label in order:
@@ -480,7 +469,7 @@ def main() -> int:
             t.setdefault("k4", []).append(
                 CS.cuda_ms(lambda: coords(co, *prep_b), REPS))
             t.setdefault("k6", []).append(CS.cuda_ms(
-                lambda: lines(li, *prep_l, gates), REPS))
+                lambda: lines(li, *prep, gates), REPS))
         if "knn_index" in libs[label]:
             ix = libs[label]["knn_index"][0]
             t.setdefault("k5", []).append(
@@ -531,7 +520,7 @@ def main() -> int:
         t.setdefault(f"k5 k={ANY_K}", []).append(CS.cuda_ms(
             lambda: index_any_k(ix, label, *prep5, m5, ANY_K), 20))
         t.setdefault(f"k6 k={ANY_K}", []).append(CS.cuda_ms(
-            lambda: lines_any_k(li, label, *prep_l, gates, ANY_K), 20))
+            lambda: lines_any_k(li, label, *prep, gates, ANY_K), 20))
     any_k_shapes = {label: {f"k={kk}": any_k_shape(
         libs[label]["knn_coords"][0], prep[2].shape[-1], kk)
         for kk in any_ks} for label in any_k}

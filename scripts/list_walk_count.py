@@ -144,8 +144,8 @@ def main() -> int:
     flags = prep[2]
     res = {"nvidia_smi": CS.nvidia_smi_line(),
            "kind": torch.cuda.get_device_name(0),
-           "queries": int(prep[0][:, 3].sum()), "query_slots":
-           prep[0].shape[0], "flagged_pairs": int(flags.sum()),
+           "queries": int(prep[0][..., 3].sum()), "query_slots":
+           prep[0].shape[1], "flagged_pairs": int(flags.sum()),
            "ref_steps": int(flags.sum()) * KNN.TILE_E * KNN.TILE_M,
            "designs": designs, "failed": []}
     buf = np.zeros(3 * SLOTS, dtype=np.uint64)

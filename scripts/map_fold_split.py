@@ -1,6 +1,5 @@
-"""The map update's capacity-sized against its frame-sized work on the card,
-and ``update_map`` (its frame-sized fold, ``csrc/map_fold.cu``) against the
-same update with the C-sized fold ``grid.fold_frame``.
+"""The map update's capacity-sized against its frame-sized work on the card:
+``update_map`` (its frame-sized fold, ``csrc/map_fold.cu``) and its pieces.
 
     python3 scripts/map_fold_split.py [--capacities 524288,4194304] \
         [--load 0.62] [--reps 200] [--out FILE]
@@ -11,24 +10,21 @@ leaf of its own, inserted by ``update_map`` in blocks), then one frame of
 5,632 edges is taken: half of them on stored leaves (matched), half on new
 ground (claimed).  Each piece is captured as a CUDA graph on that state
 (``runtime/aot.capture_graph``) and timed with CUDA events over ``--reps``
-replays, the variants in turns (fold, update, update, fold):
+replays, twice:
 
-* ``update_fold`` / ``update_map``: the whole update either way
-  (``insert_frame`` + ``fold_frame``, and ``update_map``);
+* ``update_map``: the whole update;
 * ``insert``: ``grid.insert_frame`` (transform, codes, the probe with its
   copy of the table), and ``table_copy``: the table's copy alone (C);
-* ``fold``: ``grid.fold_frame`` on the insert's result, and ``slot_sums``:
-  its frame-sized per-slot sums alone (E);
 * ``map_fold``: the kernel's fold on the insert's result (with the state's
   three copies), and
-  ``sparse_fold``: its plain version ``grid._sparse_fold`` on the card;
+  ``sparse_fold``: its plain version ``grid._sparse_fold`` on the card,
+  and ``slot_sums``: that version's frame-sized per-slot sums alone (E);
 * ``local_map``: ``get_local_map`` (K7 reads every row's key and valid, C);
 * ``state_copy``: a copy of the map state in and a clone out, as
   ``runtime/aot`` does each replay (C).
 
-The two updates' slots, keys, validity, table and overflow are held equal
-and their centroids within float32 rounding, and the kernel's fold every
-field ``torch.equal`` to its plain version's.  One JSON line a capacity,
+The kernel's fold is held every field ``torch.equal`` to its plain
+version's.  One JSON line a capacity,
 the card's name and power limit beside it.  Imports torch, numpy and the
 port; needs a CUDA card.
 """
@@ -132,12 +128,9 @@ def one_capacity(cap: int, load: float, reps: int, dev) -> dict:
                            cap)
     payload = torch.cat([ins.xyz, valid[:, None].float()], 1)
     calls = {
-        "update_fold": lambda: G.fold_frame(state, valid, G.insert_frame(
-            state, pts, valid, pose, cfg), cfg),
         "update_map": lambda: G.update_map(state, pts, valid, pose, cfg),
         "insert": lambda: G.insert_frame(state, pts, valid, pose, cfg),
         "table_copy": lambda: state.code.clone(),
-        "fold": lambda: G.fold_frame(state, valid, ins, cfg),
         "map_fold": lambda: G._fold(state, valid, ins, cfg),
         "sparse_fold": lambda: G._sparse_fold(state, valid, ins, cfg),
         "slot_sums": lambda: G._slot_sums(seg_slot, payload, cap),
@@ -149,30 +142,19 @@ def one_capacity(cap: int, load: float, reps: int, dev) -> dict:
     graphs, outs = {}, {}
     for name, call in calls.items():
         graphs[name], outs[name] = aot.capture_graph(call, dev)
-    ms = {name: [] for name in calls}
-    updates = ("update_fold", "update_map")
-    for name in calls:
-        if name not in updates:
-            ms[name] += [timed(graphs[name], reps) for _ in range(2)]
-    for name in updates + updates[::-1]:          # in turns
-        ms[name].append(timed(graphs[name], reps))
-    fold, sparse = outs["update_fold"], outs["update_map"]
+    ms = {name: [timed(graphs[name], reps) for _ in range(2)]
+          for name in calls}
+    updated = outs["update_map"]
     torch.cuda.synchronize()
-    same = (torch.equal(fold.valid, sparse.valid)
-            and torch.equal(fold.key, sparse.key)
-            and torch.equal(fold.code, sparse.code)
-            and torch.equal(fold.overflow, sparse.overflow))
-    cgap = float((fold.xyz - sparse.xyz).abs().max())
     kernel_equals_plain = all(torch.equal(a, b) for a, b in zip(
         outs["map_fold"], outs["sparse_fold"]))
     return {"capacity": cap, "occupied": int(state.valid.sum()),
-            "claimed": int(fold.valid.sum() - state.valid.sum()),
+            "claimed": int(updated.valid.sum() - state.valid.sum()),
             "ms": {k: [round(v, 6) for v in vs] for k, vs in ms.items()},
             "median_ms": {k: float(np.median(vs)) for k, vs in ms.items()},
-            "fold_equals_update_map": same, "centroid_gap_m": cgap,
             "map_fold_equals_sparse_fold": kernel_equals_plain,
             "map_fold_shape": MF.map_fold_shape(EDGES),
-            "overflow": int(fold.overflow)}
+            "overflow": int(updated.overflow)}
 
 
 def main(argv=None) -> int:

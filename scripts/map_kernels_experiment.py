@@ -158,8 +158,8 @@ def build(variants: dict, out_dir: Path):
             continue
         if kind == "k7":
             new = hasattr(lib, "liodom_local_map_compact_shape")
-            sigs = K7._SIG if new else [("liodom_local_map_compact",
-                                         _OLD_K7)]
+            sigs = (list(kernels.ABI["local_map_compact"].items()) if new
+                    else [("liodom_local_map_compact", _OLD_K7)])
             libs[label]["k7_global"] = (
                 "fenced" if hasattr(lib, "liodom_local_map_fence") else
                 "soa" if hasattr(lib, "liodom_local_map_compact_global")
@@ -167,7 +167,8 @@ def build(variants: dict, out_dir: Path):
             sigs = [(sym, a) for sym, a in sigs if hasattr(lib, sym)]
         else:
             new = hasattr(lib, "liodom_probe_insert_shape")
-            sigs = PI._SIG if new else [("liodom_probe_insert", _OLD_PROBE)]
+            sigs = (list(kernels.ABI["probe_insert"].items()) if new
+                    else [("liodom_probe_insert", _OLD_PROBE)])
         for symbol, argtypes in sigs:
             fn = getattr(lib, symbol)
             fn.argtypes = list(argtypes)

@@ -202,8 +202,7 @@ def build(out: Path) -> dict:
                                             + [ctypes.c_void_p])
             lib.liodom_barriers.restype = ctypes.c_int
         else:
-            sigs = K7._SIG if name == "local_map_compact" else PI._SIG
-            for symbol, argtypes in sigs:
+            for symbol, argtypes in kernels.ABI[name].items():
                 fn = getattr(lib, symbol)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int

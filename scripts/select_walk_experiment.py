@@ -99,9 +99,9 @@ def build(variants: dict, out_dir: Path) -> dict:
             raise SystemExit(f"{label} select.cu: nvcc exit "
                              f"{proc.returncode}\n{log}")
         lib = ctypes.CDLL(str(so))
-        for symbol, argtypes in SEL._SIG:
+        for symbol, argtypes in kernels.ABI["select"].items():
             fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
+            fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
         libs[label] = (lib, CS.ptxas_usage(log))
     return libs

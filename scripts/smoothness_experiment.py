@@ -70,9 +70,8 @@ def build(variants: dict, out_dir: Path) -> dict:
         if proc.returncode != 0:
             raise SystemExit(f"{label}: nvcc exit {proc.returncode}\n{log}")
         lib = ctypes.CDLL(str(so))
-        (symbol, argtypes), = SM._SIG[:1]
-        fn = getattr(lib, symbol)
-        fn.argtypes = list(argtypes)
+        fn = lib.liodom_smoothness
+        fn.argtypes = list(kernels.ABI["smoothness"]["liodom_smoothness"])
         fn.restype = ctypes.c_int
         libs[label] = (lib, CS.ptxas_usage(log))
     return libs

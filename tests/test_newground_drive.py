@@ -193,13 +193,13 @@ def _map_frame(seed=1, n=3000, cap=4096):
     return G.init_map(cap, device="cpu"), pts, valid, pose
 
 
-@pytest.mark.parametrize("fold", [G.fold_frame, G._sparse_fold],
+@pytest.mark.parametrize("fold", [G._fold, G._sparse_fold],
                          ids=["fold", "sparse"])
 def test_recorder_off_leaves_the_map_update_as_it_was(fold, monkeypatch):
     """Off: no event, no counter (``map.folded`` either), the probe called
     as before; the state equal to the update armed and to its two halves
-    called directly, with either fold: the capacity-sized ``fold_frame`` or
-    the frame-sized plain fold."""
+    called directly, with either fold: the dispatcher ``_fold`` or the
+    frame-sized plain fold."""
     cfg = MapConfig(map_capacity=4096)
     state, pts, valid, pose = _map_frame()
     calls = []

@@ -86,9 +86,9 @@ def test_select_kernel_at_168_slots_bit_exact(dev):
     cfg = cfg.replace(edges_per_region=20)
     img = RingImage(imgs[0].xyz.to(dev), imgs[0].count.to(dev))
     sm = SM.smoothness_cuda(img.xyz, img.count)
-    before = SEL.select_edges_cuda.launches
+    before = _launched("liodom_select_edges")[0]
     got = SEL.select_edges_cuda(img, sm, cfg)
-    assert SEL.select_edges_cuda.launches == before + 1
+    assert _launched("liodom_select_edges")[0] == before + 1
     want = SEL.select_edges_plain(img, sm, cfg)
     assert got.valid.shape == (64 * 168,)
     assert torch.equal(got.valid, want.valid)
@@ -132,12 +132,10 @@ def test_select_kernel_on_rings_too_wide_for_shared_memory(dev, width,
     assert SEL.select_smem_bytes(width, cfg.scan_regions,
                                  cfg.max_edges_per_region) > 232448
     img, sm = _wide_planes(dev, 64, width)
-    before = (SEL.select_edges_cuda.launches,
-              SEL.select_edges_global_cuda.launches)
+    entries = ("liodom_select_edges", "liodom_select_edges_global")
+    before = _launched(*entries)
     got = SEL.select_edges_cuda(img, sm, cfg)
-    assert (SEL.select_edges_cuda.launches,
-            SEL.select_edges_global_cuda.launches) == (before[0],
-                                                       before[1] + 1)
+    assert _launched(*entries) == (before[0], before[1] + 1)
     want = SEL.select_edges_plain(img, sm, cfg)
     assert torch.equal(got.valid, want.valid)
     assert torch.equal(got.xyz, want.xyz)
@@ -244,11 +242,38 @@ def test_select_global_path_at_the_bench_shape(dev):
         assert torch.equal(got.xyz, want.xyz)
 
 
+def _launched(*symbols):
+    """The launches of each entry point so far, by symbol."""
+    counts = kernels.launch_counts()
+    return tuple(counts.get(symbol, 0) for symbol in symbols)
+
+
 def _tie_prep(dev, radius):
     lanes = [tie_scene(s, 3000, 20000) for s in range(2)]
     q, qm, r, rm = (torch.from_numpy(np.stack([ln[i] for ln in lanes]))
                     .to(dev) for i in range(4))
-    return KNN.knn_prepare_batched(q, qm, r, rm, radius), r.shape[1]
+    return KNN.knn_prepare(q, qm, r, rm, radius), r.shape[1]
+
+
+def _list_walk(source, prep, k, like, ints=(), floats=()):
+    """``source``'s ListWalk at ``k``, also where ``knn_launch`` takes the
+    register walk: ``knn_launch`` above MAX_K, else the ``*_any_k`` entry
+    point launched as ``knn_launch`` launches it, its lists in shared
+    memory, its outputs shaped as ``like`` (the plain launch's)."""
+    if k > KNN.MAX_K:
+        return KNN.knn_launch(source, *prep, k, ints, floats)
+    q4, r4, flags, qperm = prep
+    b, n_e, n_m = flags.shape
+    assert KNN.knn_any_k_shape(source, n_m, k)["lists_in_smem"]
+    outs = tuple(torch.empty_like(t) for t in like)
+    kernels.launch(f"liodom_{source}_any_k", q4.device, q4.data_ptr(),
+                   r4.data_ptr(), flags.data_ptr(), qperm.data_ptr(), None,
+                   *(t.data_ptr() for t in outs), b, qperm.shape[-1], n_e,
+                   n_m, *ints, KNN.TILE_E, KNN.TILE_M, k, *floats)
+    return outs
+
+
+GATES = KNN.line_gates(1.0, 3.0, 0.01)
 
 
 @pytest.mark.parametrize("k", [3, 8])
@@ -257,14 +282,14 @@ def test_knn_kernels_at_k_bit_exact(dev, k):
     d2, coordinates, indices and endpoints bit for bit against the keyed
     (d2, index) selection; K6's gate flips only at the ratio boundary."""
     prep, m = _tie_prep(dev, 1.0)
-    d_b, c_b = KNN.knn_launch_batched(*prep, k=k)
+    d_b, c_b = KNN.knn_launch("knn_coords", *prep, k)
     d_o, c_o = KNN.knn_launch_plain(*prep, k=k)
     assert d_b.shape == (2, 3000, k)
     assert torch.equal(d_b, d_o) and torch.equal(c_b, c_o)
-    solo = tuple(t[0] for t in prep)
-    d_s, c_s = KNN.knn_launch(*solo, k=k)
-    assert torch.equal(d_s, d_o[0]) and torch.equal(c_s, c_o[0])
-    got = KNN.knn_lines_launch(*prep, 1.0, 3.0, 0.01, k=k)
+    solo = tuple(t[:1] for t in prep)
+    d_s, c_s = KNN.knn_launch("knn_coords", *solo, k)
+    assert torch.equal(d_s, d_o[:1]) and torch.equal(c_s, c_o[:1])
+    got = KNN.knn_launch("knn_lines", *prep, k, floats=GATES)
     want = KNN.knn_lines_launch_plain(*prep, 1.0, 3.0, 0.01, k=k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     zm = c_o - c_o.mean(dim=-2, keepdim=True)
@@ -275,7 +300,7 @@ def test_knn_kernels_at_k_bit_exact(dev, k):
     assert int(flips.sum()) <= 2 and not bool((flips & ~at_ratio).any())
     assert int(want[2].sum()) > 100
     prep5, m = _tie_prep(dev, None)
-    d5, i5 = KNN.knn_index_launch(*prep5, m, k=k)
+    d5, i5 = KNN.knn_launch("knn_index", *prep5, k, (m,))
     d5_o, i5_o = KNN.knn_index_launch_plain(*prep5, m, k=k)
     assert d5.shape == (2, 3000, k)
     assert torch.equal(d5, d5_o) and torch.equal(i5, i5_o)
@@ -287,24 +312,26 @@ def test_knn_any_k_walk_bit_exact(dev, k):
     lattice (two pairs), its lists in shared memory and, at k = 512, in the
     device scratch: d2, coordinates, indices and endpoints bit for bit
     against the keyed (d2, index) selection, K6's gate only at the ratio
-    boundary; the launches take it above MAX_K."""
+    boundary; ``knn_launch`` takes it above MAX_K."""
     prep, m = _tie_prep(dev, 1.0)
     want = KNN.knn_launch_plain(*prep, k=k)
     shape = KNN.knn_any_k_shape("knn_coords", prep[2].shape[-1], k)
     assert shape["lists_in_smem"] == (k < 512)
-    got = KNN.knn_launch_batched_any_k(*prep, k=k)
+    got = _list_walk("knn_coords", prep, k, want)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    solo = tuple(t[0] for t in prep)
-    got = KNN.knn_launch_any_k(*solo, k=k)
-    assert torch.equal(got[0], want[0][0]) and torch.equal(got[1], want[1][0])
-    before = (KNN.knn_launch.launches, KNN.knn_launch_any_k.launches)
-    KNN.knn_launch(*solo, k=k)
-    after = (KNN.knn_launch.launches, KNN.knn_launch_any_k.launches)
+    solo = tuple(t[:1] for t in prep)
+    got = _list_walk("knn_coords", solo, k, tuple(t[:1] for t in want))
+    assert torch.equal(got[0], want[0][:1]) and torch.equal(got[1],
+                                                            want[1][:1])
+    entries = ("liodom_knn_coords_batched", "liodom_knn_coords_any_k")
+    before = _launched(*entries)
+    KNN.knn_launch("knn_coords", *solo, k)
+    after = _launched(*entries)
     assert after == ((before[0], before[1] + 1) if k > KNN.MAX_K
                      else (before[0] + 1, before[1]))
     if k >= 2:
-        got = KNN.knn_lines_launch_any_k(*prep, 1.0, 3.0, 0.01, k=k)
         lines = KNN.knn_lines_launch_plain(*prep, 1.0, 3.0, 0.01, k=k)
+        got = _list_walk("knn_lines", prep, k, lines, floats=GATES)
         assert torch.equal(got[0], lines[0]) and torch.equal(got[1], lines[1])
         zm = want[1] - want[1].mean(dim=-2, keepdim=True)
         eigs = NB.sym3_eigenvalues(torch.einsum("...ki,...kj->...ij", zm,
@@ -313,8 +340,8 @@ def test_knn_any_k_walk_bit_exact(dev, k):
                     <= 1e-4 * eigs[..., 2].abs())
         assert not bool(((got[2] != lines[2]) & ~at_ratio).any())
     prep5, m = _tie_prep(dev, None)
-    d5, i5 = KNN.knn_index_launch_any_k(*prep5, m, k=k)
     d5_o, i5_o = KNN.knn_index_launch_plain(*prep5, m, k=k)
+    d5, i5 = _list_walk("knn_index", prep5, k, (d5_o, i5_o), (m,))
     assert torch.equal(d5, d5_o) and torch.equal(i5, i5_o)
 
 
@@ -330,7 +357,7 @@ def test_knn_any_k_walk_at_the_shared_memory_boundary(dev, side):
     lanes = [tie_scene(s, 1000, 128 * KNN.TILE_M) for s in range(2)]
     q, qm, r, rm = (torch.from_numpy(np.stack([ln[i] for ln in lanes]))
                     .to(dev) for i in range(4))
-    prep = KNN.knn_prepare_batched(q, qm, r, rm, 1.0)
+    prep = KNN.knn_prepare(q, qm, r, rm, 1.0)
     assert prep[2].shape[-1] == 128
     shape = KNN.knn_any_k_shape("knn_coords", 128, k)
     assert shape["lists_in_smem"] == (side == "fits")
@@ -338,14 +365,14 @@ def test_knn_any_k_walk_at_the_shared_memory_boundary(dev, side):
     assert shape["scratch_bytes_per_tile"] == (
         shape["cluster_blocks"] * shape["thread_groups_per_block"]
         * 8 * k * KNN.TILE_E)
-    got = KNN.knn_launch_batched(*prep, k=k)
+    got = KNN.knn_launch("knn_coords", *prep, k)
     want = KNN.knn_launch_plain(*prep, k=k)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     m = r.shape[1]
-    got = KNN.knn_index_launch(*prep, m, k=k)
+    got = KNN.knn_launch("knn_index", *prep, k, (m,))
     want = KNN.knn_index_launch_plain(*prep, m, k=k)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    got = KNN.knn_lines_launch(*prep, 1.0, 3.0, 0.01, k=k)
+    got = KNN.knn_launch("knn_lines", *prep, k, floats=GATES)
     want = KNN.knn_lines_launch_plain(*prep, 1.0, 3.0, 0.01, k=k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
@@ -354,10 +381,10 @@ def test_knn_index_is_one_kernel_launch(dev):
     """K5 is one kernel a call: no merge kernel, no partial lists."""
     from torch.profiler import ProfilerActivity, profile
     prep5, m = _tie_prep(dev, None)
-    KNN.knn_index_launch(*prep5, m)
+    KNN.knn_launch("knn_index", *prep5, ints=(m,))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        KNN.knn_index_launch(*prep5, m)
+        KNN.knn_launch("knn_index", *prep5, ints=(m,))
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -399,10 +426,10 @@ def test_knn_batched_kernel_is_k3_lane_by_lane(dev):
         lanes.append(_clustered(rng, dev, 3000, centers)
                      + _clustered(rng, dev, 20000, centers))
     q, qm, r, rm = (torch.stack([ln[i] for ln in lanes]) for i in range(4))
-    before = KNN.knn_launch_batched.launches
-    d_b, c_b = KNN.knn_coords_batched_cuda(q, qm, r, rm, max_radius=1.0)
-    assert KNN.knn_launch_batched.launches == before + 1
-    d_p, c_p = KNN.knn_coords_batched_plain(q, qm, r, rm)
+    before = _launched("liodom_knn_coords_batched")[0]
+    d_b, c_b = KNN.knn_coords_cuda(q, qm, r, rm, max_radius=1.0)
+    assert _launched("liodom_knn_coords_batched")[0] == before + 1
+    d_p, c_p = KNN.knn_coords_plain(q, qm, r, rm)
     for b in range(4):
         d_s, c_s = KNN.knn_coords_cuda(q[b], qm[b], r[b], rm[b],
                                        max_radius=1.0)
@@ -428,9 +455,9 @@ def test_knn_index_kernel_matches_plain(dev):
     q, qm, r, rm = (torch.stack([ln[i] for ln in lanes]) for i in range(4))
     for radius in (None, 1.0):
         lim_d2 = radius * radius if radius else 1e29
-        before = KNN.knn_index_launch.launches
+        before = _launched("liodom_knn_index")[0]
         d_b, i_b = KNN.knn_index_cuda(q, qm, r, rm, max_radius=radius)
-        assert KNN.knn_index_launch.launches == before + 1
+        assert _launched("liodom_knn_index")[0] == before + 1
         for b in range(3):
             d_s, i_s = KNN.knn_index_cuda(q[b], qm[b], r[b], rm[b],
                                           max_radius=radius)
@@ -454,21 +481,17 @@ def test_knn_walk_tie_order_bit_exact(dev):
     lanes = [tie_scene(s, 3000, 20000) for s in range(4)]
     q, qm, r, rm = (torch.from_numpy(np.stack([ln[i] for ln in lanes]))
                     .to(dev) for i in range(4))
-    for prep in (KNN.knn_prepare(q[0], qm[0], r[0], rm[0], 1.0),
-                 KNN.knn_prepare_batched(q, qm, r, rm, 1.0)):
-        batched = prep[2].ndim == 3
-        launch = KNN.knn_launch_batched if batched else KNN.knn_launch
-        d_k, c_k = launch(*prep)
+    for prep in (KNN.knn_prepare(q[:1], qm[:1], r[:1], rm[:1], 1.0),
+                 KNN.knn_prepare(q, qm, r, rm, 1.0)):
+        d_k, c_k = KNN.knn_launch("knn_coords", *prep)
         d_o, c_o = KNN.knn_launch_plain(*prep)
         assert torch.equal(d_k, d_o) and torch.equal(c_k, c_o)
         tied = ((d_o[..., 1:] < 1.0) & (d_o.diff(dim=-1) == 0)).any(-1)
         assert int(tied.sum()) > 1000
-        prep_l = prep if batched else tuple(x[None] for x in prep)
-        got = KNN.knn_lines_launch(*prep_l, 1.0, 3.0, 0.01)
-        want = KNN.knn_lines_launch_plain(*prep_l, 1.0, 3.0, 0.01)
+        got = KNN.knn_launch("knn_lines", *prep, floats=GATES)
+        want = KNN.knn_lines_launch_plain(*prep, 1.0, 3.0, 0.01)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        near = c_o if batched else c_o[None]
-        zm = near - near.mean(dim=-2, keepdim=True)
+        zm = c_o - c_o.mean(dim=-2, keepdim=True)
         eigs = NB.sym3_eigenvalues(torch.einsum("...ki,...kj->...ij", zm, zm))
         at_ratio = ((eigs[..., 2] - 3.0 * eigs[..., 1]).abs()
                     <= 1e-4 * eigs[..., 2].abs())
@@ -493,9 +516,9 @@ def test_knn_lines_kernel_matches_plain(dev):
     qm = torch.from_numpy(rng.random(len(e)) > 0.1).to(dev)
     for args in ((q, qm, r, rm), tuple(torch.stack([x, x.flip(0)])
                                        for x in (q, qm, r, rm))):
-        before = KNN.knn_lines_launch.launches
+        before = _launched("liodom_knn_lines")[0]
         got = KNN.knn_lines_cuda(*args)
-        assert KNN.knn_lines_launch.launches == before + 1
+        assert _launched("liodom_knn_lines")[0] == before + 1
         want = KNN.knn_lines_plain(*args)
         both = got[2] & want[2]
         assert int(both.sum()) > 500
@@ -593,14 +616,13 @@ def test_local_map_compact_kernel_any_neighbourhood(dev):
     assert len(many) > 60_000
     for o in (G.local_map_offsets(mcfg, cells_xy=70)[:K7.MAX_TARGETS + 1],
               many):
-        before = (K7.compact_hits_cuda.launches,
-                  K7.compact_hits_global_cuda.launches)
+        entries = ("liodom_local_map_compact",
+                   "liodom_local_map_compact_global")
+        before = _launched(*entries)
         for b in (base, base + shift):
             for cap in (16384, 1024):
                 assert _k7_equal(m, b, o, cap) > 1024
-        assert (K7.compact_hits_cuda.launches,
-                K7.compact_hits_global_cuda.launches) == (before[0],
-                                                          before[1] + 4)
+        assert _launched(*entries) == (before[0], before[1] + 4)
     # a block 71 cells off: part of the map hits
     n = _k7_equal(m, base + shift * 71 // 69,
                   G.local_map_offsets(mcfg, cells_xy=70), 16384)
@@ -756,10 +778,10 @@ def test_map_fold_kernel_against_the_plain_fold(dev, cap, e):
         37: 1, 5632: 1, 1500: 1, 20_000: 2, 100_000: 9, 196_608: 16}[e]
     assert shape["cluster_blocks"] == {
         37: 1, 5632: 11, 1500: 3, 20_000: 16, 100_000: 16, 196_608: 16}[e]
-    before = MF.map_fold_cuda.launches
+    before = _launched("liodom_map_fold")[0]
     got, folded = G._fold(m, valid, ins, mcfg, with_folded=True)
     torch.cuda.synchronize()
-    assert MF.map_fold_cuda.launches == before + 1
+    assert _launched("liodom_map_fold")[0] == before + 1
     card, card_folded = G._sparse_fold(m, valid, ins, mcfg, with_folded=True)
     cpu, cpu_folded = G._sparse_fold(
         G.MapState(*(t.cpu() for t in m)), valid.cpu(),
@@ -788,7 +810,8 @@ def test_update_map_launches_the_fold_once_a_call(dev):
     from liodom_tpu_torch.ops import map_fold as MF
     mcfg, m = _map_on(dev, capacity=65536)
     cpu = G.MapState(*(t.cpu() for t in m))
-    probes, folds = PI.probe_insert_cuda.launches, MF.map_fold_cuda.launches
+    entries = ("liodom_probe_insert", "liodom_map_fold")
+    probes, folds = _launched(*entries)
     for f in range(3):
         pts, valid, pose = _fold_frame_on(dev, m, 5632, seed=f)
         m = G.update_map(m, pts, valid, pose, mcfg)
@@ -797,14 +820,13 @@ def test_update_map_launches_the_fold_once_a_call(dev):
         cpu = G._sparse_fold(cpu, valid.cpu(), ins, mcfg)
         for a, b in zip(m, cpu):
             assert torch.equal(a.cpu(), b)
-    assert PI.probe_insert_cuda.launches == probes + 3
-    assert MF.map_fold_cuda.launches == folds + 3
+    assert _launched(*entries) == (probes + 3, folds + 3)
     limit = MF.map_fold_shape(1)["max_rows"]
     assert limit == MF.MAX_ROWS
     pts, valid, pose = _fold_frame_on(dev, m, limit + 1, seed=9)
     with pytest.raises(ValueError, match="exceeds"):
         G.update_map(m, pts, valid, pose, mcfg)
-    assert MF.map_fold_cuda.launches == folds + 3
+    assert _launched("liodom_map_fold")[0] == folds + 3
 
 
 def test_combined_step_on_the_card_matches_the_cpu_path(dev):
@@ -886,12 +908,12 @@ def _smoothness_cases(dev):
 
 def test_smoothness_kernel_at_every_launched_shape(dev):
     cases = _smoothness_cases(dev)
-    before = SM.smoothness_cuda.launches
+    before = _launched("liodom_smoothness")[0]
     for name, (xyz, count) in cases.items():
         got = SM.smoothness_cuda(xyz, count)
         assert torch.equal(got, SM.smoothness_plain(xyz, count)), name
     torch.cuda.synchronize()
-    assert SM.smoothness_cuda.launches == before + len(cases)
+    assert _launched("liodom_smoothness")[0] == before + len(cases)
     assert SM.smoothness_shape()["cols_per_thread"] == 4
 
 
@@ -1265,9 +1287,9 @@ def test_lm_solve_kernel_against_the_plain_version(dev, b, e, k):
     from liodom_tpu_torch.ops import solver as SLV
     pose, cp, lpa, lpb, valid = _lm_lanes(e + b, b, e, dev, k)
     kw = dict(min_range=3.0, max_range=75.0)
-    before = SLV.lm_solve_cuda.launches
+    before = _launched("liodom_lm_solve")[0]
     got = SLV.lm_solve(pose, cp, lpa, lpb, valid, **kw)
-    assert SLV.lm_solve_cuda.launches == before + 1
+    assert _launched("liodom_lm_solve")[0] == before + 1
     want = SLV.lm_solve_plain(pose, cp, lpa, lpb, valid, **kw)
     assert float((got.t - want.t).norm(dim=-1).max()) < 1e-3
     assert float((got.q - want.q).abs().max()) < 1e-3
@@ -1299,10 +1321,10 @@ def test_lm_solve_with_a_group_on_the_card_stays_plain(dev):
     launch.initialize(f"127.0.0.1:{port}", 1, 0)
     try:
         kw = dict(min_range=3.0, max_range=75.0)
-        before = SLV.lm_solve_cuda.launches
+        before = _launched("liodom_lm_solve")[0]
         got = SLV.lm_solve(pose, cp, lpa, lpb, valid, group=dist.group.WORLD,
                            **kw)
-        assert SLV.lm_solve_cuda.launches == before
+        assert _launched("liodom_lm_solve")[0] == before
         want = SLV.lm_solve(pose, cp, lpa, lpb, valid, **kw)
         assert float((got.t - want.t).norm()) < 1e-3
     finally:

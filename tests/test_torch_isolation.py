@@ -3,8 +3,10 @@
 raise without it, and a CPU tensor takes each kernel's plain version without
 touching a launch counter."""
 
+import ctypes
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -25,7 +27,6 @@ from liodom_tpu_torch.odometry import pipeline as P
 from liodom_tpu_torch.ops import compact_pallas as K7
 from liodom_tpu_torch.ops import features as F
 from liodom_tpu_torch.ops import knn_pallas as KNN
-from liodom_tpu_torch.ops import map_fold as MF
 from liodom_tpu_torch.ops import neighbors as NB
 from liodom_tpu_torch.ops import probe_insert as PI
 from liodom_tpu_torch.ops import select_pallas as SEL
@@ -253,16 +254,8 @@ def test_parallel_entry_points_default_to_cuda():
         launch.initialize(None, None, None, device="cpu")
 
 
-def _counts():
-    return (SM.smoothness_cuda.launches, SEL.select_edges_cuda.launches,
-            KNN.knn_launch.launches, KNN.knn_launch_batched.launches,
-            KNN.knn_lines_launch.launches, KNN.knn_index_launch.launches,
-            K7.compact_hits_cuda.launches, PI.probe_insert_cuda.launches,
-            MF.map_fold_cuda.launches)
-
-
 def test_cpu_tensors_take_the_plain_versions():
-    before = _counts()
+    before = kernels.launch_counts()
     rng = np.random.default_rng(0)
     cfg = LiodomConfig(ring_width=256)
     xyz = torch.from_numpy((rng.normal(size=(64, 256, 3)) * 5)
@@ -280,8 +273,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(d, d0) and torch.equal(c, c0)
     qb, rb, qmb = torch.stack([q, r]), torch.stack([r, q]), torch.stack([qm,
                                                                          qm])
-    d, c = KNN.knn_coords_batched(qb, qmb, rb, qmb, max_radius=1.0)
-    d0, c0 = KNN.knn_coords_batched_plain(qb, qmb, rb, qmb)
+    d, c = KNN.knn_coords(qb, qmb, rb, qmb, max_radius=1.0)
+    d0, c0 = KNN.knn_coords_plain(qb, qmb, rb, qmb)
     assert torch.equal(d, d0) and torch.equal(c, c0)
     for args in ((q, qm, r, qm), (qb, qmb, rb, qmb)):
         got = KNN.knn_lines(*args, max_sq_dist=4.0)
@@ -318,7 +311,7 @@ def test_cpu_tensors_take_the_plain_versions():
                                      device="cpu"),
                     raw.xyz, raw.valid, ccfg, mcfg.replace(map_capacity=4096))
     V.voxel_downsample(pts, torch.ones(4000, dtype=torch.bool), 0.4)
-    assert _counts() == before
+    assert kernels.launch_counts() == before
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -331,22 +324,26 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         SEL.select_edges_cuda(RingImage(xyz, count), torch.zeros(64, 256),
                               cfg)
     q4 = torch.zeros((64, 4))
-    with pytest.raises(ValueError):
-        KNN.knn_launch(q4, torch.zeros((512, 4)),
+    with pytest.raises(ValueError):         # one pair's layout, not a batch
+        KNN.knn_launch("knn_coords", q4, torch.zeros((512, 4)),
                        torch.zeros((1, 1), dtype=torch.int32),
                        torch.zeros(64, dtype=torch.int32))
     prep = (q4[None], torch.zeros((1, 512, 4)),
             torch.zeros((1, 1, 1), dtype=torch.int32),
             torch.zeros((1, 64), dtype=torch.int32))
-    with pytest.raises(ValueError):
-        KNN.knn_launch_batched(*prep)
-    with pytest.raises(ValueError):
-        KNN.knn_lines_launch(*prep, 1.0, 3.0, 0.01)
-    with pytest.raises(ValueError):
-        KNN.knn_index_launch(*prep, 512)
-    with pytest.raises(ValueError):
-        KNN.knn_coords_batched_cuda(q4[None, :, :3], q4[None, :, 0] > 0,
-                                    q4[None, :, :3], q4[None, :, 0] > 0)
+    for source, extra in (("knn_coords", {}),
+                          ("knn_lines", {"floats": (1.0, 3.0, 1e-4)}),
+                          ("knn_index", {"ints": (512,)})):
+        with pytest.raises(ValueError):
+            KNN.knn_launch(source, *prep, **extra)
+    pts = (q4[None, :, :3], q4[None, :, 0] > 0, q4[None, :, :3],
+           q4[None, :, 0] > 0)
+    for wrapper in (KNN.knn_coords_cuda, KNN.knn_lines_cuda,
+                    KNN.knn_index_cuda):
+        with pytest.raises(ValueError):
+            wrapper(*pts)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        kernels.launch("liodom_smoothness", xyz.device)
     m = G.init_map(64, device="cpu")
     with pytest.raises(ValueError):
         K7.compact_hits_cuda(m.xyz, m.key, m.valid,
@@ -360,6 +357,32 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         PI.probe_insert_cuda(m.code, m.code[:8],
                             torch.ones(8, dtype=torch.bool))
+
+
+def _c_entry_points(source: str) -> dict:
+    """``{symbol: [ctypes type of each parameter]}`` of every ``extern "C"``
+    function in ``csrc/<source>.cu``, read from its text."""
+    text = (kernels.CSRC / f"{source}.cu").read_text()
+    out = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+        types = []
+        for p in params.split(","):
+            decl = " ".join(p.split()[:-1]) if "*" not in p else "*"
+            types.append({"*": ctypes.c_void_p, "int": ctypes.c_int,
+                          "float": ctypes.c_float,
+                          "long long": ctypes.c_longlong}[decl])
+        out[name] = types
+    return out
+
+
+def test_kernel_abi_table_matches_the_sources():
+    """``kernels.ABI`` is the C interface of ``csrc/``: every entry point it
+    lists is an ``extern "C" int`` of its source with as many parameters
+    of the same types (pointers as ``c_void_p``), and no ``extern "C"``
+    function of a source is left out of it."""
+    for source in kernels.SOURCES:
+        assert kernels.ABI[source] == _c_entry_points(source), source
+        assert all(len(a) > 0 for a in kernels.ABI[source].values())
 
 
 def test_kernel_libraries_are_keyed_by_source():

@@ -115,8 +115,9 @@ def test_cuda_route_wrapper_matches_plain(presorted):
     rt, rmt = torch.from_numpy(r), torch.from_numpy(rm)
     if presorted:
         rt, rmt = K.spatial_sort_points(rt, rmt)
-    q4, r4, flags, qperm = K.knn_prepare(qt, qmt, rt, rmt, 1.0,
-                                         ref_presorted=presorted)
+    q4, r4, flags, qperm = (t[0] for t in K.knn_prepare(
+        qt[None], qmt[None], rt[None], rmt[None], 1.0,
+        ref_presorted=presorted))
     assert q4.shape[0] % K.TILE_E == 0 and r4.shape[0] % K.TILE_M == 0
     assert flags.dtype == torch.int32 and 0 < int(flags.sum()) < flags.numel()
     d_e, c_e = _emulated_launch(q4, r4, flags, qperm)
@@ -193,8 +194,7 @@ def test_knn_batched_plain_matches_pallas_batched_interpret(max_radius):
     d_j, c_j = JK.knn_coords_pallas_batched(
         jnp.asarray(q), jnp.asarray(qm), jnp.asarray(r), jnp.asarray(rm),
         k=5, tile_e=64, tile_m=512, interpret=True, max_radius=max_radius)
-    d_t, c_t = K.knn_coords_batched_plain(*map(torch.from_numpy, (q, qm, r,
-                                                                  rm)))
+    d_t, c_t = K.knn_coords_plain(*map(torch.from_numpy, (q, qm, r, rm)))
     assert d_t.shape == (3, 192, 5) and c_t.shape == (3, 192, 5, 3)
     for b in range(3):
         _check_knn(np.asarray(d_j[b]), np.asarray(c_j[b]), d_t[b].numpy(),
@@ -207,7 +207,7 @@ def test_knn_batched_plain_matches_pallas_batched_interpret(max_radius):
 @pytest.mark.parametrize("presorted", [False, True])
 def test_batched_wrapper_matches_solo_per_lane(presorted):
     """Each batch element gets its own sort, boxes and flags: the batched
-    preparation equals K3's on that element alone, tensor for tensor, so
+    preparation equals that element's alone (K3's batch of one), so
     K4's offsets see exactly K3's layout."""
     q, qm, r, rm = map(torch.from_numpy, _batched_scene((10, 11),
                                                         e=300, m=3000))
@@ -218,13 +218,13 @@ def test_batched_wrapper_matches_solo_per_lane(presorted):
                                                  _scene(10 + b, e=300,
                                                         m=3000)[2:]))
             assert torch.equal(r[b], rs) and torch.equal(rm[b], rms)
-    prep = K.knn_prepare_batched(q, qm, r, rm, 1.0, ref_presorted=presorted)
+    prep = K.knn_prepare(q, qm, r, rm, 1.0, ref_presorted=presorted)
     assert prep[2].shape[0] == 2 and prep[2].dtype == torch.int32
     for b in range(2):
-        solo = K.knn_prepare(q[b], qm[b], r[b], rm[b], 1.0,
-                             ref_presorted=presorted)
+        solo = K.knn_prepare(q[b:b + 1], qm[b:b + 1], r[b:b + 1],
+                             rm[b:b + 1], 1.0, ref_presorted=presorted)
         for got, want in zip(prep, solo):
-            assert torch.equal(got[b], want)
+            assert torch.equal(got[b], want[0])
         d_e, c_e = _emulated_launch(*(t[b] for t in prep))
         d_p, c_p = K.knn_coords_plain(q[b], qm[b], r[b], rm[b])
         _check_knn(d_e.numpy(), c_e.numpy(), d_p.numpy(), c_p.numpy(),

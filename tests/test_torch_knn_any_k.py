@@ -258,8 +258,9 @@ def _list_walk_coords(q4, r4, flags, qperm, k, split=SHIPPED,
 
 @functools.lru_cache(maxsize=None)
 def _tie_prep():
-    q, qm, r, rm = (torch.from_numpy(a) for a in tie_scene(0, DECIMAL))
-    return K.knn_prepare(q, qm, r, rm, RADIUS)
+    q, qm, r, rm = (torch.from_numpy(a)[None]
+                    for a in tie_scene(0, DECIMAL))
+    return tuple(t[0] for t in K.knn_prepare(q, qm, r, rm, RADIUS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -318,7 +319,7 @@ def test_list_walk_index_epilogue_is_knn_index_launch_plain(k, split):
     clamped to m - 1, an empty slot at 0; every row bit for bit."""
     q, qm, r, rm = tie_scene(0, DECIMAL)
     pts = tuple(torch.from_numpy(a)[None] for a in (q, qm, r, rm))
-    prep = K.knn_prepare_batched(*pts, None)
+    prep = K.knn_prepare(*pts, None)
     m = r.shape[0]
     q4, r4, flags, qperm = (t[0] for t in prep)
     assert bool((flags != 0).all())

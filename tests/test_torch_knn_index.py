@@ -21,14 +21,17 @@ wrapper ``knn_pallas`` :144), and ``neighbors.knn`` / ``knn_auto``.
   permutation.  Either gives the plain version's answer.
 * Other k: the plain K3, K6 and K5 at k = 3, 8, 17 and 32 against
   ``knn_coords_pallas`` / ``knn_lines_pallas`` / ``knn_pallas`` in
-  interpret mode, at the bars above; each of the four CUDA wrappers at k =
-  17 and 32 with its launches replaced by their plain versions
-  (``knn_launch_plain`` and kin, counting): k above ``MAX_K`` reaches the
-  ``*_any_k`` launch, k = 16 the register walk's, and the answer is the
-  plain version's; and 3-frame ``image_step`` courses at ``knn_k=3`` and
+  interpret mode, at the bars above; the three CUDA wrappers (K3 on a
+  pair and on a batch) at k = 17 and 32 through ``knn_launch``, with
+  ``kernels.launch`` replaced by a stand-in that runs the plain launch
+  (``knn_launch_plain`` and kin): k above ``MAX_K`` reaches the
+  ``*_any_k`` entry point, k = 16 the register walk's, and the answer is
+  the plain version's; and 3-frame ``image_step`` courses at ``knn_k=3`` and
   ``knn_k=20``, the port on the CPU against JAX within 1 cm and 1e-3 rad
   with equal edge counts.
 """
+
+import ctypes
 
 import jax.numpy as jnp
 import numpy as np
@@ -162,12 +165,14 @@ def _emulated_index_launch(q4, r4, flags, qperm, m, k=5):
 @pytest.mark.parametrize("radius", [None, 1.0])
 def test_cuda_route_wrapper_matches_plain(radius, monkeypatch):
     q, qm, r, rm = (torch.from_numpy(a) for a in _scene(5, e=300, m=3000))
-    prep = K.knn_prepare(q, qm, r, rm, radius)
+    prep = K.knn_prepare(q[None], qm[None], r[None], rm[None], radius)
     if radius is None:                        # nothing sorted
-        assert torch.equal(prep[3], torch.arange(300, dtype=torch.int32))
-        assert torch.equal(prep[0][:300, :3], q)
-        assert torch.equal(prep[1][:3000, :3][rm], r[rm])
-    monkeypatch.setattr(K, "knn_index_launch", _emulated_index_launch)
+        assert torch.equal(prep[3][0], torch.arange(300, dtype=torch.int32))
+        assert torch.equal(prep[0][0, :300, :3], q)
+        assert torch.equal(prep[1][0, :3000, :3][rm], r[rm])
+    monkeypatch.setattr(
+        K, "knn_launch", lambda source, q4, r4, flags, qperm, k, ints, floats:
+        _emulated_index_launch(q4, r4, flags, qperm, *ints, k))
     d_e, i_e = K.knn_index_cuda(q, qm, r, rm, max_radius=radius)
     d_p, i_p = K.knn_index_plain(q, qm, r, rm)
     lim = d_p < (radius * radius if radius else 1e29)
@@ -185,13 +190,13 @@ def test_cuda_route_wrapper_matches_plain(radius, monkeypatch):
 
 def test_knn_auto_takes_the_plain_version_on_the_cpu():
     q, qm, r, rm = (torch.from_numpy(a) for a in _scene(6, e=200, m=1500))
-    before = K.knn_index_launch.launches
+    before = K.kernels.launch_counts()
     got = N.knn_auto(q, qm, r, rm, k=5)
     want = N.knn(q, qm, r, rm, k=5)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     got_b = N.knn_auto(q[None], qm[None], r[None], rm[None])
     assert torch.equal(got_b[1][0], want[1])
-    assert K.knn_index_launch.launches == before
+    assert K.kernels.launch_counts() == before
     with pytest.raises(ValueError, match="no kernel"):
         N.knn_auto(q.to("meta"), qm.to("meta"), r.to("meta"), rm.to("meta"))
 
@@ -244,71 +249,74 @@ def test_lines_plain_at_k_matches_pallas_interpret(k):
                                    rtol=0, atol=1e-6)
 
 
-def _counting(plain, solo=False):
-    """A stand-in for a launch: ``plain`` on the same prepared tensors (on a
-    batch of one for a solo launch), counting its calls."""
-    def launch(q4, r4, flags, qperm, *rest):
-        launch.launches += 1
-        if solo:
-            return tuple(t[0] for t in plain(q4[None], r4[None], flags[None],
-                                              qperm[None], *rest))
-        return plain(q4, r4, flags, qperm, *rest)
-    launch.launches = 0
-    return launch
-
-
-# entry: (wrapper, the register walk's library, any-k launch, plain
-# launch, solo launch)
-ENTRIES = {"coords": (K.knn_coords_cuda, "knn_coords", "knn_launch_any_k",
-                      K.knn_launch_plain, True),
-           "coords_batched": (K.knn_coords_batched_cuda, "knn_coords",
-                              "knn_launch_batched_any_k", K.knn_launch_plain,
-                              False),
-           "lines": (K.knn_lines_cuda, "knn_lines",
-                     "knn_lines_launch_any_k", K.knn_lines_launch_plain,
-                     False),
-           "index": (K.knn_index_cuda, "knn_index",
-                     "knn_index_launch_any_k", K.knn_index_launch_plain,
-                     False)}
+# entry: (wrapper, the register walk's entry point, ListWalk's, the plain
+# launch, its arguments between the prepared tensors and k, batched)
+ENTRIES = {"coords": (K.knn_coords_cuda, "liodom_knn_coords_batched",
+                      "liodom_knn_coords_any_k", K.knn_launch_plain, (),
+                      False),
+           "coords_batched": (K.knn_coords_cuda, "liodom_knn_coords_batched",
+                              "liodom_knn_coords_any_k", K.knn_launch_plain,
+                              (), True),
+           "lines": (K.knn_lines_cuda, "liodom_knn_lines",
+                     "liodom_knn_lines_any_k", K.knn_lines_launch_plain,
+                     (1.0, 3.0, 0.01), False),
+           "index": (K.knn_index_cuda, "liodom_knn_index",
+                     "liodom_knn_index_any_k", K.knn_index_launch_plain,
+                     (3000,), False)}
 
 
 class _Reached(Exception):
-    """A launch asked for its kernel library."""
+    """A launch of the register walk."""
 
 
 @pytest.mark.parametrize("k", [17, 32])
 @pytest.mark.parametrize("entry", list(ENTRIES))
 def test_cuda_wrappers_take_the_any_k_walk_above_the_limit(entry, k,
                                                            monkeypatch):
-    """Each CUDA wrapper through its real launch, on CPU tensors: the
-    any-k launch replaced by a counting plain version, the launches' CUDA
-    device check by one that takes CPU tensors, and the kernel libraries
-    by a stand-in that stops the call.  k above MAX_K reaches the any-k
-    launch and never the register walk's library, k = MAX_K the register
-    walk's library and never the any-k launch, and the answer is the plain
+    """Each CUDA wrapper through ``knn_launch`` on CPU tensors, with
+    ``kernels.launch`` (the one launch function) replaced by a stand-in
+    that records the entry point: the register walk's stops the call, and
+    ``ListWalk``'s runs the plain launch on the tensors the call prepared
+    and writes its answer where the launch's outputs are (the launch's
+    CUDA device check takes CPU tensors, and ``ListWalk``'s lists are
+    said to fit shared memory).  k above MAX_K reaches the ``*_any_k``
+    entry point and never the register walk's, k = MAX_K the register
+    walk's and never the ``*_any_k``, and the answer is the plain
     version's."""
-    wrapper, source, new, plain, solo = ENTRIES[entry]
-    lst = _counting(plain, solo)
-    monkeypatch.setattr(K, new, lst)
+    wrapper, register, any_k, plain, extra, batched = ENTRIES[entry]
     monkeypatch.setattr(K, "_check_prepared",
                         lambda q4, r4, flags, qperm, what: (
                             qperm.shape[-1], *flags.shape[-2:]))
-    asked = []
+    monkeypatch.setattr(K, "knn_any_k_shape",
+                        lambda source, n_m, k: {"lists_in_smem": True})
+    prepared, asked = [], []
+    real_prepare = K.knn_prepare
 
-    def load(name, signatures):
-        asked.append(name)
-        raise _Reached(name)
+    def prepare(*a, **kw):
+        prepared.append(real_prepare(*a, **kw))
+        return prepared[-1]
 
-    monkeypatch.setattr(K.kernels, "load", load)
+    def launch(symbol, device, *args):
+        asked.append(symbol)
+        if symbol != any_k:
+            raise _Reached(symbol)
+        prep = prepared[-1]
+        assert list(args[:5]) == [t.data_ptr() for t in prep] + [None]
+        want = plain(*prep, *extra, k)
+        for ptr, t in zip(args[5:5 + len(want)], want):
+            t = t.contiguous()
+            ctypes.memmove(ptr, t.data_ptr(), t.numel() * t.element_size())
+
+    monkeypatch.setattr(K, "knn_prepare", prepare)
+    monkeypatch.setattr(K.kernels, "launch", launch)
     q, qm, r, rm = (torch.from_numpy(a) for a in _scene(9, e=300, m=3000))
-    batched = entry == "coords_batched"
     args = (q[None], qm[None], r[None], rm[None]) if batched else (q, qm, r,
                                                                    rm)
     got = wrapper(*args, k=k)
-    assert (asked, lst.launches) == ([], 1)
+    assert asked == [any_k]
     with pytest.raises(_Reached):
         wrapper(*args, k=K.MAX_K)
-    assert (asked, lst.launches) == ([source], 1)
+    assert asked == [any_k, register]
     if entry == "lines":
         want = K.knn_lines_plain(q, qm, r, rm, k)
         ok = got[2] & want[2]

@@ -133,9 +133,9 @@ def test_knn_impl_choice(monkeypatch):
     monkeypatch.setenv("LIODOM_KNN_IMPL", "pallas_lines")
     assert N.resolve_knn_impl("auto") == "pallas_lines"
     assert N.resolve_knn_impl("pallas_coords") == "pallas_coords"
-    before = K.knn_lines_launch.launches
+    before = K.kernels.launch_counts()
     auto = N.line_correspondences(q, qm, r, rm)
-    assert K.knn_lines_launch.launches == before     # CPU: the plain route
+    assert K.kernels.launch_counts() == before       # CPU: the plain route
     assert auto.valid.sum() > 10
     for bad in ("xla", "pallas_interpret", "pallas_lines_interpret", "lines"):
         with pytest.raises(ValueError, match="knn_impl"):

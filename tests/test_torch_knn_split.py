@@ -185,7 +185,8 @@ def _case(seed, lattice):
     """knn_prepare's tensors and knn_launch_plain's answer on the scene,
     and the TPU kernel's on the dyadic lattice (None on the decimal)."""
     q, qm, r, rm = tie_scene(seed, lattice)
-    prep = K.knn_prepare(*map(torch.from_numpy, (q, qm, r, rm)), RADIUS)
+    prep = tuple(t[0] for t in K.knn_prepare(
+        *(torch.from_numpy(a)[None] for a in (q, qm, r, rm)), RADIUS))
     jax_out = None
     if lattice == DYADIC:
         d_j, c_j = JK.knn_coords_pallas(jnp.asarray(q), jnp.asarray(qm),
@@ -247,7 +248,7 @@ def _index_case(k):
     kernel's (``knn_pallas(k=k, interpret=True)`` at the port's tiles)."""
     q, qm, r, rm = tie_scene(0, DYADIC)
     pts = tuple(torch.from_numpy(a)[None] for a in (q, qm, r, rm))
-    prep = K.knn_prepare_batched(*pts, None)
+    prep = K.knn_prepare(*pts, None)
     m = r.shape[0]
     d_j, i_j = JK.knn_pallas(jnp.asarray(q), jnp.asarray(qm), jnp.asarray(r),
                              jnp.asarray(rm), k=k, tile_e=K.TILE_E,

@@ -192,11 +192,11 @@ def test_lm_solve_cuda_refuses_what_the_kernel_does_not_take(case, error,
     elif case == "cpu":
         near = torch.stack([lpa, lpb, lpa, lpb, lpa], -2)
         lpa, lpb = near[..., 0, :], near[..., 1, :]
-    before = S.lm_solve_cuda.launches
+    before = S.kernels.launch_counts()
     with pytest.raises(error, match=match):
         S.lm_solve_cuda(pose, cp, lpa, lpb, valid, min_range=MIN_R,
                         max_range=MAX_R)
-    assert S.lm_solve_cuda.launches == before
+    assert S.kernels.launch_counts() == before
 
 
 def test_lm_solve_takes_the_plain_version_on_the_cpu_and_with_a_group(
@@ -210,7 +210,7 @@ def test_lm_solve_takes_the_plain_version_on_the_cpu_and_with_a_group(
     pose, cp, lpa, lpb, valid = _lane()
     kw = dict(min_range=MIN_R, max_range=MAX_R)
     want = S.lm_solve_plain(pose, cp, lpa, lpb, valid, **kw)
-    before = S.lm_solve_cuda.launches
+    before = S.kernels.launch_counts()
     monkeypatch.setattr(S, "lm_solve_cuda", refuse)
     got = S.lm_solve(pose, cp, lpa, lpb, valid, **kw)
     assert torch.equal(got.q, want.q) and torch.equal(got.t, want.t)
@@ -222,7 +222,7 @@ def test_lm_solve_takes_the_plain_version_on_the_cpu_and_with_a_group(
     assert torch.equal(got.q, want.q) and torch.equal(got.t, want.t)
     assert reduced and all(g is group for g in reduced)
     monkeypatch.undo()
-    assert S.lm_solve_cuda.launches == before
+    assert S.kernels.launch_counts() == before
     with pytest.raises(ValueError, match="no kernel"):
         S.lm_solve(Pose(pose.q.to("meta"), pose.t.to("meta")), cp, lpa, lpb,
                    valid, **kw)
